@@ -11,17 +11,24 @@ no result line:
 2. build  -- nvcc builds every kernel of the port (`dynosam_tpu_torch/csrc`)
              for sm_90a; prints the build seconds and ptxas' resource usage;
 3. kernels -- each kernel (K1 LK level, K2 point sampler, K3 Shi-Tomasi
-             response) at the frontend's main-path shapes on KITTI-sized
-             rendered frames, held against its plain PyTorch version on the
-             card within a stated tolerance, then timed with CUDA events
-             beside its plain version, the library yardstick where one
-             exists, and its bound;
+             response, K4 ORB orientation and steered BRIEF) at the
+             frontend's main-path shapes on KITTI-sized rendered frames,
+             held against its plain PyTorch version on the card within a
+             stated tolerance, then timed with CUDA events beside its plain
+             version, the library yardstick where one exists, and its bound;
 4. main path -- the frontend-only pipeline (`DynoPipeline`, use_backend
-             False) on 12 rendered 1280x384 frames with 3 moving objects:
-             frames/s over the steady frames, kernel launches per frame
-             (fails unless every kernel launched on every steady frame),
-             camera ATE against the renderer's ground truth (fails unless
-             finite and <= 0.05 m) and the objects with a valid motion.
+             False, Shi-Tomasi detector) on 12 rendered 1280x384 frames
+             with 3 moving objects: frames/s over the steady frames, kernel
+             launches per frame (fails unless K1, K2 and K3 launched on
+             every steady frame), camera ATE against the renderer's ground
+             truth (fails unless finite and <= 0.05 m) and the objects with
+             a valid motion;
+5. ORB path -- the same pipeline and frames with the ORB detector
+             (`testing/scenes.py:kitti_orb_config`): the same report; fails
+             unless K4, K1 and K2 launched on every steady frame and K3 on
+             none, or the ATE is above 0.05 m.
+
+Launch counts are set to 0 just before each path and read just after it.
 
 The first line is the card's name and power limit as `nvidia-smi` gives
 them; the line before the last is a JSON object with one entry per kernel,
@@ -50,6 +57,11 @@ LK_TOL_PX = 0.05       # flow; the eps stop may fall one step apart
 LK_TOL_ERR = 0.1       # mean |residual| in grey levels, same reason
 PS_TOL_REL = 1e-5      # bilinear samples, relative to max |value|
 RESP_TOL_REL = 1e-5    # response, relative to max |response|
+# K4: the plain version repeats the kernel's float32 arithmetic in its
+# order, so only atan2's last place may differ; descriptor bits may flip
+# only where a tap pair is tied to that last place
+ORB_TOL_ANGLE = 1e-5   # rad
+ORB_MIN_BITS = 0.999   # share of descriptor bits that agree
 ATE_LIMIT_M = 0.05
 
 # FLOPs counted per unit of work (adds, subtracts, multiplies, divides,
@@ -60,6 +72,15 @@ FLOP_LK_STEP = 18      # bilinear sample, residual, 2 multiply-adds
 FLOP_LK_SOLVE = 12     # 2x2 solve and clamp of one step
 FLOP_LK_ERR = 15       # bilinear sample, residual, abs-add
 FLOP_RESPONSE = 100    # Sobel 2x11, 3 products, 3x24 box sums, 3 divides, lambda_min 9
+FLOP_ORB_MOMENT = 4    # per disc pixel: 2 products, 2 sums
+FLOP_ORB_KEYPOINT = 6  # r (2 products, 1 sum, 1 root), ca and sa (2 divides); atan2 not counted
+FLOP_ORB_TAP = 8 + FLOP_BILINEAR   # rotation (4 products, 4 sums), bilinear sample
+
+# the kernels of each path, and each kernel's name in `kernels.launch_counts()`
+PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response"),
+                "orb": ("orb_sample", "lk", "point_sample")}
+COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
+           "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample"}
 
 
 class SmokeFailure(RuntimeError):
@@ -245,6 +266,64 @@ def check_response(torch, frames, device, reps):
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def check_orb_sample(torch, frames, device, reps):
+    from dynosam_tpu_torch.frontend.orb import orb_pyramid
+    from dynosam_tpu_torch.kernels import orb_sample as k4
+    from dynosam_tpu_torch.ops.clahe import clahe
+    from dynosam_tpu_torch.testing.scenes import kitti_orb_config
+
+    # the main path's call: the 8-level canvas of a CLAHE'd KITTI frame and
+    # the keypoints the extractor selects on it
+    tc = kitti_orb_config().frontend.tracker
+    det = clahe(frames[1].gray, n_bins=tc.clahe_bins)
+    pyr = orb_pyramid(det, tc.max_nr_keypoints_before_anms, tc.orb_n_levels, tc.orb_scale_factor,
+                      float(tc.orb_init_threshold_fast), float(tc.orb_min_threshold_fast))
+    raw, blur, uv = pyr.canvas_raw, pyr.canvas_blur, pyr.canvas_uv
+    hc, wc = raw.shape
+    n = uv.shape[0]
+    n_valid = int(sum(int(b[4].sum()) for b in pyr.blocks))
+    ang, desc = k4.orb_orientation_descriptors(raw, blur, uv)
+    ang_p, desc_p = k4.orb_orientation_descriptors_plain(raw, blur, uv)
+    torch.cuda.synchronize()
+    d = (ang - ang_p).abs()
+    da = float(torch.minimum(d, 2 * np.pi - d).max())
+    bits = float((desc == desc_p).float().mean())
+    pm = bool(((desc == 1) | (desc == -1)).all())
+    print(f"K4 orb_orientation_descriptors: canvas {hc}x{wc} ({len(pyr.blocks)} levels), {n} keypoints "
+          f"({n_valid} valid): max |dangle| {da:.3g} rad (tol {ORB_TOL_ANGLE}), bits agree {bits:.6f} "
+          f"(min {ORB_MIN_BITS}), all bits +-1 {pm}", flush=True)
+    _require(np.isfinite(da) and da <= ORB_TOL_ANGLE, f"K4 angles disagree with its plain version: {da}")
+    _require(bits >= ORB_MIN_BITS, f"K4 descriptors disagree with its plain version: {bits}")
+    _require(pm and bool(torch.isfinite(ang).all()), "K4 output not finite or not +-1")
+
+    ms = cuda_ms(torch, lambda: k4.orb_orientation_descriptors(raw, blur, uv), reps)
+    plain_ms = cuda_ms(torch, lambda: k4.orb_orientation_descriptors_plain(raw, blur, uv), max(reps // 10, 3))
+    # bytes this call's data needs: the distinct raw pixels under the discs
+    # (offsets with a non-zero weight), the distinct blurred pixels under the
+    # bilinear taps, the 512 pattern taps, uv in, angle and desc out
+    r = 15
+    oy, ox = torch.meshgrid(torch.arange(-r, r + 1, device=device), torch.arange(-r, r + 1, device=device),
+                            indexing="ij")
+    disc = ((ox * ox + oy * oy) <= r * r) & ((ox != 0) | (oy != 0))
+    ox, oy = ox[disc].float(), oy[disc].float()
+    xs = (uv[:, 0:1].round() + ox[None]).clamp(0, wc - 1).long()
+    ys = (uv[:, 1:2].round() + oy[None]).clamp(0, hc - 1).long()
+    raw_px = int((ys * wc + xs).unique().numel())
+    taps = torch.as_tensor(k4.TAPS, device=device)
+    ca, sa = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+    tx = uv[:, 0:1] + ca * taps[None, :, 0] - sa * taps[None, :, 1]
+    ty = uv[:, 1:2] + sa * taps[None, :, 0] + ca * taps[None, :, 1]
+    blur_px = distinct_taps(torch, tx, ty, hc, wc)
+    nbytes = (raw_px + blur_px) * 4 + taps.numel() * 4 + n * 8 + n * (4 + 256)
+    flop = n * (int(disc.sum()) * FLOP_ORB_MOMENT + FLOP_ORB_KEYPOINT + 512 * FLOP_ORB_TAP)
+    b_ms, b_by = bound_ms(nbytes, flop)
+    return dict(name="orb_orientation_descriptors", route="cuda", source="dynosam_tpu_torch/csrc/orb_sample.cu",
+                replaces="dynosam_tpu/ops/pallas/orb_sample.py:248", max_abs_err=da,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                note=f"{n} keypoints on a {hc}x{wc} canvas; {raw_px} raw and {blur_px} blurred pixels read; "
+                     f"bits agree {bits:.6f}")
+
+
 # ---------------------------------------------------------------- main path
 def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:
     """Camera ATE (m): RMSE of positions after one Umeyama SE(3) fit of the
@@ -291,6 +370,31 @@ def run_main_path(torch, scene, frames, cfg, device):
                 n_static=[int(p.static_obs.valid.sum()) for p in packets])
 
 
+def report_path(res, label, required, frames, card) -> None:
+    """Print one path's frames/s, launches, observations and ATE; fail
+    unless each `required` kernel launched on every steady frame, every
+    other kernel on none, and the ATE is finite and within the limit."""
+    n_frames = len(frames)
+    h, w = frames[0].gray.shape
+    steady = list(range(2, n_frames))
+    dt = sum(res["times"][k] for k in steady)
+    print(f"{label}: frontend-only pipeline, {n_frames} frames {w}x{h}; steady frames "
+          f"{steady[0]}..{steady[-1]}: {len(steady) / dt:.2f} frames/s, "
+          f"{dt / len(steady) * 1e3:.1f} ms/frame (host clock, synchronised) on {card}", flush=True)
+    print(f"{label}: ms per frame {[round(t * 1e3, 1) for t in res['times']]}", flush=True)
+    for k, lf in enumerate(res["per_frame"]):
+        print(f"{label}: frame {k} launches {lf} static obs {res['n_static'][k]} "
+              f"objects with motion {res['n_motion'][k]}", flush=True)
+    for k in range(1, n_frames):
+        missing = [n for n in required if res["per_frame"][k][n] < 1]
+        _require(not missing, f"{label}, frame {k}: kernels {missing} never launched")
+    stray = [n for n, c in res["totals"].items() if n not in required and c > 0]
+    _require(not stray, f"{label}: kernels {stray} launched off their path")
+    print(f"{label}: camera ATE {res['ate']:.5f} m (limit {ATE_LIMIT_M})", flush=True)
+    _require(res["finite"], f"{label}: camera poses are not finite")
+    _require(np.isfinite(res["ate"]) and res["ate"] <= ATE_LIMIT_M, f"{label}: ATE {res['ate']} m")
+
+
 def main() -> int:
     try:
         import torch
@@ -314,7 +418,7 @@ def main() -> int:
 
 def _run(torch) -> int:
     from dynosam_tpu_torch.kernels import build
-    from dynosam_tpu_torch.testing.scenes import kitti_config, kitti_scene
+    from dynosam_tpu_torch.testing.scenes import kitti_config, kitti_orb_config, kitti_scene
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -338,6 +442,7 @@ def _run(torch) -> int:
         check_lk(torch, frames, device, reps=200),
         check_point_sample(torch, frames, device, reps=500),
         check_response(torch, frames, device, reps=500),
+        check_orb_sample(torch, frames, device, reps=200),
     ]
     for r in rows:
         lib_us = "none" if r["library_ms"] is None else "%.1f us" % (r["library_ms"] * 1e3)
@@ -345,29 +450,17 @@ def _run(torch) -> int:
               f"library {lib_us}, bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}; "
               f"{r.get('note', '')}) on {card}", flush=True)
 
-    cfg = kitti_config()
-    res = run_main_path(torch, scene, frames, cfg, device)
-    steady = list(range(2, len(frames)))
-    dt = sum(res["times"][k] for k in steady)
-    print(f"main path: frontend-only pipeline, {len(frames)} frames 1280x384; steady frames "
-          f"{steady[0]}..{steady[-1]}: {len(steady) / dt:.2f} frames/s, "
-          f"{dt / len(steady) * 1e3:.1f} ms/frame (host clock, synchronised) on {card}", flush=True)
-    print(f"main path: ms per frame {[round(t * 1e3, 1) for t in res['times']]}", flush=True)
-    for k, lf in enumerate(res["per_frame"]):
-        print(f"main path: frame {k} launches {lf} static obs {res['n_static'][k]} "
-              f"objects with motion {res['n_motion'][k]}", flush=True)
-    for k in range(1, len(frames)):
-        missing = [n for n, c in res["per_frame"][k].items() if c < 1]
-        _require(not missing, f"frame {k}: kernels {missing} never launched")
-    print(f"main path: camera ATE {res['ate']:.5f} m (limit {ATE_LIMIT_M})", flush=True)
-    _require(res["finite"], "camera poses are not finite")
-    _require(np.isfinite(res["ate"]) and res["ate"] <= ATE_LIMIT_M, f"ATE {res['ate']} m")
+    paths = {}
+    for path, label, cfg in (("shi_tomasi", "main path", kitti_config()), ("orb", "ORB path", kitti_orb_config())):
+        paths[path] = res = run_main_path(torch, scene, frames, cfg, device)
+        report_path(res, label, PATH_KERNELS[path], frames, card)
 
     for r in rows:
-        r["launches"] = res["totals"][{"lk_level": "lk", "point_sample": "point_sample",
-                                       "shi_tomasi_response": "response"}[r["name"]]]
+        by_path = {p: paths[p]["totals"][COUNTER[r["name"]]] for p in paths}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,8 +9,7 @@ still imports nothing of JAX:
 * `camera_from_numpy` — intrinsics from any mapping / NamedTuple of scalars;
 * `frontend_state_from_numpy` / `tracker_state_from_numpy` — a state whose
   leaves are numpy arrays (e.g. `jax.tree.map(np.asarray, state)`), matched
-  by field name; fields the port does not carry (the ORB descriptors
-  `s_desc`) are ignored;
+  by field name, the ORB descriptors `s_desc` included;
 * `frontend_output_to_numpy` — any packet / state of the port to numpy.
 """
 

@@ -1,10 +1,11 @@
-"""Dense feature detection (port of the Shi-Tomasi path of
-`dynosam_tpu/frontend/detect.py`).
+"""Dense feature detection (port of `dynosam_tpu/frontend/detect.py`).
 
-The response map comes from kernel K3 (`kernels.response`), whose plain
-version holds the ported `sobel_gradients_fast` / `_box_sum` /
+The Shi-Tomasi response comes from kernel K3 (`kernels.response`), whose
+plain version holds the ported `sobel_gradients_fast` / `_box_sum` /
 `shi_tomasi_response_fast`; they are re-exported here under the JAX
-package's names.  Harris and FAST wait for the alternate-detector slice.
+package's names.  The Harris response (convolutions) and the FAST-9/16
+ring test of the ORB detector are plain PyTorch: the JAX package has no
+Pallas kernel for them.
 """
 
 from __future__ import annotations
@@ -18,6 +19,103 @@ from ..kernels.response import box_sum as _box_sum  # noqa: F401
 from ..kernels.response import shi_tomasi_response  # noqa: F401
 from ..kernels.response import shi_tomasi_response_plain as shi_tomasi_response_fast  # noqa: F401
 from ..kernels.response import sobel_gradients_fast  # noqa: F401
+
+
+def _conv2(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Single-channel 2D cross-correlation with SAME zero padding (odd
+    kernels), as `jax.lax.conv_general_dilated`."""
+    kh, kw = kernel.shape
+    out = F.conv2d(img[None, None], kernel[None, None].to(img.dtype), padding=(kh // 2, kw // 2))
+    return out[0, 0]
+
+
+def sobel_gradients(gray: torch.Tensor):
+    kx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]],
+                      dtype=gray.dtype, device=gray.device) / 8.0
+    return _conv2(gray, kx), _conv2(gray, kx.T)
+
+
+def harris_response(gray: torch.Tensor, window: int = 5, k: float = 0.04) -> torch.Tensor:
+    ix, iy = sobel_gradients(gray)
+    box = torch.full((window, window), 1.0 / (window * window), dtype=gray.dtype, device=gray.device)
+    sxx = _conv2(ix * ix, box)
+    syy = _conv2(iy * iy, box)
+    sxy = _conv2(ix * iy, box)
+    det = sxx * syy - sxy * sxy
+    tr = sxx + syy
+    return det - k * tr * tr
+
+
+def _shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[i, j] = img[clip(i + dy), clip(j + dx)]: a shifted copy with the
+    edge replicated."""
+    h, w = img.shape
+    a_t, a_b = max(-dy, 0), max(dy, 0)
+    a_l, a_r = max(-dx, 0), max(dx, 0)
+    p = F.pad(img[None, None], (a_l, a_r, a_t, a_b), mode="replicate")[0, 0]
+    return p[dy + a_t:dy + a_t + h, dx + a_l:dx + a_l + w]
+
+
+# Bresenham circle of radius 3 (the FAST-9/16 test ring), (dx, dy)
+_FAST_RING = (
+    (0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
+    (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0), (-3, 1), (-2, 2), (-1, 3),
+)
+
+
+def _windowed_all(x: torch.Tensor, width: int) -> torch.Tensor:
+    """AND over every length-`width` window along dim 0, log-depth:
+    out[i] = all(x[i : i + width]); shape (L - width + 1, ...)."""
+    tbl = {1: x}
+    w = 1
+    while w * 2 <= width:
+        t = tbl[w]
+        tbl[w * 2] = t[:-w] & t[w:]
+        w *= 2
+    n_out = x.shape[0] - width + 1
+    res = None
+    off = 0
+    rem = width
+    for p in sorted(tbl, reverse=True):
+        while rem >= p:
+            seg = tbl[p][off:off + n_out]
+            res = seg if res is None else (res & seg)
+            off += p
+            rem -= p
+    return res
+
+
+def _fast_from_diff(diff: torch.Tensor, threshold: float, arc: int) -> torch.Tensor:
+    """FAST criterion and strength from the (16, H, W) ring differences: a
+    circular run of >= arc brighter (or darker) ring pixels is a length-arc
+    window of the wrapped ring that is all True."""
+    brighter = diff > threshold
+    darker = diff < -threshold
+
+    def ok_arc(flags):
+        doubled = torch.cat([flags, flags[:arc - 1]], dim=0)
+        return torch.any(_windowed_all(doubled, arc), dim=0)
+
+    ok = ok_arc(brighter) | ok_arc(darker)
+    strength = torch.sum(torch.abs(diff) * (brighter | darker), dim=0)
+    return torch.where(ok, strength, torch.zeros_like(strength))
+
+
+def _fast_ring_diff(gray: torch.Tensor) -> torch.Tensor:
+    ring = torch.stack([_shift(gray, dy, dx) for (dx, dy) in _FAST_RING], dim=0)
+    return ring - gray[None]
+
+
+def fast_response(gray: torch.Tensor, threshold: float = 20.0, arc: int = 9) -> torch.Tensor:
+    """Dense FAST-N: the sum of absolute ring differences of the pixels past
+    the threshold where the FAST criterion holds, 0 elsewhere."""
+    return _fast_from_diff(_fast_ring_diff(gray), threshold, arc)
+
+
+def fast_response_pair(gray: torch.Tensor, t_init: float, t_min: float, arc: int = 9):
+    """`fast_response` at both ORB thresholds from one ring build."""
+    diff = _fast_ring_diff(gray)
+    return _fast_from_diff(diff, t_init, arc), _fast_from_diff(diff, t_min, arc)
 
 
 class Detections(NamedTuple):
@@ -38,8 +136,7 @@ def detect_grid_nms(
     index first (first maximum in a cell, stable descending sort over
     cells), as `jnp.argmax` / `lax.top_k` do."""
     h, wd = response.shape
-    neg_inf = torch.tensor(-float("inf"), dtype=response.dtype, device=response.device)
-    resp = torch.where(occupied_or_invalid, neg_inf, response)
+    resp = torch.where(occupied_or_invalid, -float("inf"), response)
     ph = -h % cell_size
     pw = -wd % cell_size
     resp_p = F.pad(resp, (0, pw, 0, ph), value=-float("inf"))

@@ -1,10 +1,14 @@
 """Static + dynamic feature tracking over fixed slot pools (port of
-`dynosam_tpu/frontend/tracker.py`, Shi-Tomasi detector).
+`dynosam_tpu/frontend/tracker.py`).
 
 * Static tracks: dense-flow warm start, LK polish (kernel K1), mask-label
-  check, homography-RANSAC verification, then CLAHE + Shi-Tomasi response
-  (kernel K3) + grid NMS re-detection into free slots; tracklets older
-  than `max_feature_track_age` are recycled.
+  check, homography-RANSAC verification, then re-detection into free
+  slots on the (optionally CLAHE'd) image with one of four detectors:
+  Shi-Tomasi (kernel K3, the default), Harris or FAST responses with grid
+  NMS, or ORB (`frontend/orb.py`: pyramid FAST, orientation and steered
+  BRIEF from kernel K4), whose descriptors are kept per slot and can revive
+  recently lost tracklets (`orb_reassociate`).  Tracklets older than
+  `max_feature_track_age` are recycled.
 * Dynamic tracks: flow propagation with label consistency and dense grid
   sampling of uncovered object pixels.
 * Object table: instance labels -> object slots (allocate-only).
@@ -25,14 +29,18 @@ from ..ops.clahe import clahe
 from ..ops.klt import flow_at, klt_track_lk, nearest_at
 from ..utils.config import TrackerConfig
 from .detect import (
+    Detections,
     border_mask,
     detect_grid_nms,
+    fast_response,
     grid_subsample_i32,
+    harris_response,
     occupancy_at_grid,
     occupancy_mask,
     shi_tomasi_response,
 )
 from .mask_ops import label_counts
+from .orb import extract_orb, match_descriptors, response_order
 
 
 class TrackerState(NamedTuple):
@@ -41,6 +49,7 @@ class TrackerState(NamedTuple):
     s_active: torch.Tensor
     s_age: torch.Tensor
     s_cooldown: torch.Tensor
+    s_desc: torch.Tensor   # (NS, 256) int8 ORB descriptor at detection (zero unless ORB)
     # dynamic pool (ND,)
     d_uv: torch.Tensor
     d_active: torch.Tensor
@@ -59,6 +68,7 @@ class TrackerState(NamedTuple):
             s_active=torch.zeros((ns,), dtype=torch.bool, device=device),
             s_age=torch.zeros((ns,), dtype=i32, device=device),
             s_cooldown=torch.zeros((ns,), dtype=i32, device=device),
+            s_desc=torch.zeros((ns, 256), dtype=torch.int8, device=device),
             d_uv=torch.zeros((nd, 2), dtype=dtype, device=device),
             d_active=torch.zeros((nd,), dtype=torch.bool, device=device),
             d_obj=torch.full((nd,), INVALID_ID, dtype=i32, device=device),
@@ -102,16 +112,12 @@ class TrackOutputs(NamedTuple):
     n_dynamic_tracked: torch.Tensor
     n_dynamic_new: torch.Tensor
     homography_inliers: torch.Tensor
+    n_reassociated: torch.Tensor   # tracklets revived by ORB re-association
     per_object: Optional[PerObjectStatus] = None
 
 
 def check_tracker_config(cfg: TrackerConfig) -> None:
-    """Raise for tracker options this slice does not port."""
-    if cfg.feature_detector_type != "shi_tomasi":
-        raise NotImplementedError(
-            f"feature_detector_type={cfg.feature_detector_type!r} is ported by "
-            "ROADMAP.md item 14 (alternate frontend modes)"
-        )
+    """Raise for tracker options the port does not have yet."""
     if cfg.use_propogate_mask:
         raise NotImplementedError(
             "use_propogate_mask is ported by ROADMAP.md item 14 (frontend/mask_ops.py)"
@@ -222,14 +228,8 @@ def track_frame(
     s_cooldown = torch.where(s_died, torch.full_like(s_cooldown, cfg.slot_cooldown_frames), s_cooldown)
 
     # ------------------------------------------------- re-detection
-    frac = cfg.redetect_min_free_fraction
-    skip = False
-    if frac > 0.0 and not first_frame:
-        floor_n = int(round((1.0 - frac) * cfg.max_features_per_frame))
-        skip = int(n_tracked) >= floor_n
-    if skip:
-        s_active_new, n_new_static = s_ok, torch.zeros((), dtype=i32, device=dev)
-    else:
+    def det_inputs():
+        # detector input optionally CLAHE-equalised; tracking uses the raw image
         det_gray = clahe(cur_gray, n_bins=cfg.clahe_bins) if cfg.use_clahe_filter else cur_gray
         occupied = occupancy_mask(
             (h, w), s_uv, s_ok, int(cfg.min_distance_btw_tracked_and_detected_features)
@@ -239,11 +239,78 @@ def track_frame(
             | (mask_cur != 0)
             | border_mask((h, w), max(cfg.shrink_row, 4), max(cfg.shrink_col, 4), device=dev)
         )
-        resp = shi_tomasi_response(det_gray.contiguous())   # kernel K3
-        dets = detect_grid_nms(
-            resp, forbid, max_corners=cfg.max_features_per_frame,
-            cell_size=max(8, cfg.cell_size // 2),
+        return det_gray, forbid
+
+    s_desc = state.s_desc
+    n_reassoc = torch.zeros((), dtype=i32, device=dev)
+    cand_desc = None
+    skip = False
+    if cfg.feature_detector_type == "orb":
+        # ORB runs every frame: pyramid FAST + steered BRIEF (kernel K4);
+        # the forbid mask is sampled at the candidates (kernel K2)
+        det_gray, forbid = det_inputs()
+        feats = extract_orb(
+            det_gray.contiguous(),
+            n_features=cfg.max_nr_keypoints_before_anms,
+            n_levels=cfg.orb_n_levels,
+            scale_factor=cfg.orb_scale_factor,
+            init_threshold=float(cfg.orb_init_threshold_fast),
+            min_threshold=float(cfg.orb_min_threshold_fast),
         )
+        order = response_order(feats)[:cfg.max_features_per_frame]
+        cand_uv, cand_score = feats.uv[order], feats.response[order]
+        cand_valid, cand_desc = feats.valid[order], feats.desc[order]
+        revive = torch.zeros_like(cand_valid)
+        if cfg.orb_reassociate and not first_frame:
+            # revive recently lost tracklets whose stored descriptor mutually
+            # best-matches a new detection near their last position; matched
+            # before the keep-away filter, since revival re-attaches an id
+            eligible = ~s_ok & (s_cooldown > 0)
+            mm = match_descriptors(
+                cand_desc, cand_valid, s_desc, eligible,
+                max_hamming=cfg.orb_reassoc_max_hamming, ratio=0.9, cross_check=True,
+            )
+            slot = mm.index.long()
+            d2 = torch.linalg.norm(cand_uv - state.s_uv[slot], dim=-1)
+            revive = mm.ok & (d2 <= cfg.orb_reassoc_radius_px)
+            # every candidate names SOME slot, so scatter with max/add gated
+            # on `revive`; the cross-check leaves at most one revival per slot
+            ns = s_ok.shape[0]
+            rev_slot = torch.zeros((ns,), dtype=i32, device=dev).scatter_reduce_(
+                0, slot, revive.to(i32), reduce="amax") > 0
+            uv_new = torch.zeros_like(s_uv).index_add_(
+                0, slot, torch.where(revive[:, None], cand_uv, torch.zeros_like(cand_uv)))
+            desc_new = torch.zeros((ns, s_desc.shape[1]), dtype=i32, device=dev).index_add_(
+                0, slot, torch.where(revive[:, None], cand_desc.to(i32), 0)).to(s_desc.dtype)
+            s_uv = torch.where(rev_slot[:, None], uv_new, s_uv)
+            s_ok = s_ok | rev_slot
+            s_age = torch.where(rev_slot, state.s_age + 1, s_age)
+            s_cooldown = torch.where(rev_slot, torch.zeros_like(s_cooldown), s_cooldown)
+            s_desc = torch.where(rev_slot[:, None], desc_new, s_desc)
+            n_reassoc = revive.sum().to(i32)
+            n_tracked = n_tracked + n_reassoc
+        allowed = nearest_at((~forbid).to(i32), cand_uv) > 0
+        dets = Detections(uv=cand_uv, score=cand_score, valid=cand_valid & allowed & ~revive)
+    else:
+        frac = cfg.redetect_min_free_fraction
+        if frac > 0.0 and not first_frame:
+            floor_n = int(round((1.0 - frac) * cfg.max_features_per_frame))
+            skip = int(n_tracked) >= floor_n
+        if not skip:
+            det_gray, forbid = det_inputs()
+            if cfg.feature_detector_type == "harris":
+                resp = harris_response(det_gray)
+            elif cfg.feature_detector_type == "fast":
+                resp = fast_response(det_gray, float(cfg.orb_init_threshold_fast))
+            else:
+                resp = shi_tomasi_response(det_gray.contiguous())   # kernel K3
+            dets = detect_grid_nms(
+                resp, forbid, max_corners=cfg.max_features_per_frame,
+                cell_size=max(8, cfg.cell_size // 2),
+            )
+    if skip:
+        s_active_new, n_new_static = s_ok, torch.zeros((), dtype=i32, device=dev)
+    else:
         budget = cfg.max_features_per_frame - n_tracked
         want = dets.valid & (torch.cumsum(dets.valid.to(torch.int64), 0) <= budget)
         slot_i, cand_i, pair_ok = assign_slots(~s_ok & (s_cooldown == 0), want)
@@ -251,6 +318,8 @@ def track_frame(
         s_active_new = _set_rows(s_ok, slot_i, pair_ok, s_ok[slot_i] | pair_ok)
         s_age = _set_rows(s_age, slot_i, pair_ok, torch.zeros_like(s_age[slot_i]))
         n_new_static = pair_ok.sum()
+        if cand_desc is not None:
+            s_desc = _set_rows(s_desc, slot_i, pair_ok, cand_desc[cand_i])
 
     # ------------------------------------------------------------ objects
     label_cap = cfg.max_instance_labels
@@ -326,7 +395,7 @@ def track_frame(
     n_dyn_new = ok3.sum()
 
     new_state = TrackerState(
-        s_uv=s_uv, s_active=s_active_new, s_age=s_age, s_cooldown=s_cooldown,
+        s_uv=s_uv, s_active=s_active_new, s_age=s_age, s_cooldown=s_cooldown, s_desc=s_desc,
         d_uv=d_uv, d_active=d_active_new, d_obj=d_obj, d_age=d_age,
         d_cooldown=d_cooldown, obj_labels=table, obj_active=obj_active,
     )
@@ -349,6 +418,7 @@ def track_frame(
         n_dynamic_tracked=n_dyn_tracked.to(i32),
         n_dynamic_new=n_dyn_new.to(i32),
         homography_inliers=homo_inl,
+        n_reassociated=n_reassoc,
         per_object=per_object,
     )
     return new_state, report

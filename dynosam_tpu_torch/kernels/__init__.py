@@ -6,15 +6,17 @@ launch counter and a plain PyTorch version beside it.
 | K1 | `lk.lk_level`                   | `dynosam_tpu/ops/pallas/lk.py:lk_level`                |
 | K2 | `point_sample.point_sample`     | `dynosam_tpu/ops/pallas/point_sample.py:point_sample`  |
 | K3 | `response.shi_tomasi_response`  | `dynosam_tpu/ops/pallas/response.py:shi_tomasi_response_pallas` |
+| K4 | `orb_sample.orb_orientation_descriptors` | `dynosam_tpu/ops/pallas/orb_sample.py:orb_orientation_descriptors` |
 
-K4 (`ops/pallas/orb_sample.py`, ORB mode only) is not ported yet.
+K3 runs on the Shi-Tomasi detector path, K4 on the ORB detector path
+(`TrackerConfig(feature_detector_type="orb")`); K1 and K2 on both.
 """
 
 from __future__ import annotations
 
-from . import lk, point_sample, response
+from . import lk, orb_sample, point_sample, response
 
-_MODULES = {"lk": lk, "point_sample": point_sample, "response": response}
+_MODULES = {"lk": lk, "point_sample": point_sample, "response": response, "orb_sample": orb_sample}
 
 
 def reset_launch_counts() -> None:

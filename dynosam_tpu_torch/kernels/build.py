@@ -20,7 +20,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("lk.cu", "point_sample.cu", "response.cu")
+SOURCES = ("lk.cu", "point_sample.cu", "response.cu", "orb_sample.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -33,6 +33,7 @@ _SIGNATURES = {
     "dyno_lk_level": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "dyno_lk_smem_bytes": (_I,),
     "dyno_shi_tomasi": (_P, _I, _I, _P, _P),
+    "dyno_orb_sample": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
 }
 
 

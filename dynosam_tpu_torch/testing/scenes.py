@@ -1,13 +1,19 @@
-"""The KITTI-width scene and configuration that the smoke run
+"""The KITTI-width scene and configurations that the smoke run
 (`chip_smoke.py`) and the frame tracer (`testing/trace.py`) drive.
 
 The bench's setting of the JAX package (`bench.py:62-95,285-299`): 1280x384
 rendered frames, fx 718, 3 objects, background/object depth 14/9 m,
 camera/object step 0.10/0.18 m, N(0, 0.5) px flow noise from numpy seed 0;
 1000 features per frame, capacities NS 2048, ND 4096, NO 16, frontend only.
+`kitti_orb_config` is the same with the ORB detector, the JAX sweep's
+"frontend ORB detector" setting (`scripts/tpu_sweep.py:64-72,97-99`):
+8 levels at scale 1.2, FAST thresholds 20/7, 2000 keypoints before the
+1000-feature cut.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -39,3 +45,9 @@ def kitti_config() -> DynoConfig:
         capacity=CapacityConfig(max_static_tracks=2048, max_dynamic_tracks=4096, max_objects=16),
         pipeline=PipelineConfig(use_backend=False),
     )
+
+
+def kitti_orb_config() -> DynoConfig:
+    cfg = kitti_config()
+    tracker = dataclasses.replace(cfg.frontend.tracker, feature_detector_type="orb")
+    return dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, tracker=tracker))

@@ -1,9 +1,11 @@
 """Where the frontend-only pipeline of the port spends a frame.
 
-    python3 -m dynosam_tpu_torch.testing.trace [--frames 12] [--warmup 4] [--out chiprun_out] [--chrome]
+    python3 -m dynosam_tpu_torch.testing.trace [--detector {shi_tomasi,orb}] [--frames 12] [--warmup 4]
+                                               [--out chiprun_out] [--chrome]
 
 Needs one NVIDIA card.  Renders the KITTI-width scene (`testing/scenes.py`),
-runs the frontend-only pipeline over the warm-up frames, then traces the
+runs the frontend-only pipeline with the chosen detector (`kitti_config`,
+or `kitti_orb_config` for ORB) over the warm-up frames, then traces the
 remaining frames with `torch.profiler` (CPU and CUDA activities) and prints,
 per traced frame: host wall time and device busy time (kernels, copies and
 fills on the card) of the traced run, the device's idle share in that run,
@@ -26,6 +28,7 @@ from pathlib import Path
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--detector", choices=("shi_tomasi", "orb"), default="shi_tomasi")
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--out", default="chiprun_out")
@@ -36,7 +39,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ..pipeline import DynoPipeline
-    from .scenes import kitti_config, kitti_scene
+    from .scenes import kitti_config, kitti_orb_config, kitti_scene
 
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is available", file=sys.stderr)
@@ -45,7 +48,8 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     device = torch.device("cuda", 0)
     scene, frames = kitti_scene(device, n_frames=args.frames)
-    pipe = DynoPipeline(scene.cam, kitti_config(), device=device)
+    cfg = kitti_orb_config() if args.detector == "orb" else kitti_config()
+    pipe = DynoPipeline(scene.cam, cfg, device=device)
     for f in frames[:args.warmup]:
         pipe.spin_once(f)
     torch.cuda.synchronize()
@@ -70,13 +74,13 @@ def main() -> int:
     n = len(traced)
     busy_ms = device_us / 1e3 / n
     print(f"card: {card}")
-    print(f"traced {n} steady frames after {args.warmup} warm-up frames, 1280x384")
+    print(f"{args.detector} detector: traced {n} steady frames after {args.warmup} warm-up frames, 1280x384")
     print(f"under the profiler: host wall {wall_ms:.2f} ms/frame; device busy "
           + (f"{busy_ms:.3f} ms/frame, idle share {1 - busy_ms / wall_ms:.3f}" if device_us > 0
              else "not measured (the profiler reported no device time)"))
     print(f"CUDA kernel launches {n_kernels / n:.0f}/frame; memcpy/sync calls {n_dtoh / n:.0f}/frame")
     port = {}
-    for tag in ("lk_level_kernel", "point_sample_kernel", "shi_tomasi_kernel"):
+    for tag in ("lk_level_kernel", "point_sample_kernel", "shi_tomasi_kernel", "orb_sample_kernel"):
         mine = [e for e in kernels if tag in e.name]
         us = sum(e.time_range.elapsed_us() for e in mine)
         port[tag] = dict(launches_per_frame=len(mine) / n, device_us_per_launch=us / max(len(mine), 1),
@@ -90,8 +94,8 @@ def main() -> int:
     if args.chrome:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / "trace_frontend_torch.json"))
-    print(json.dumps({"card": card, "frames": n, "wall_ms_per_frame": wall_ms,
+        prof.export_chrome_trace(str(out / f"trace_frontend_torch_{args.detector}.json"))
+    print(json.dumps({"card": card, "detector": args.detector, "frames": n, "wall_ms_per_frame": wall_ms,
                       "device_busy_ms_per_frame": busy_ms if device_us > 0 else None,
                       "idle_share": 1 - busy_ms / wall_ms if device_us > 0 else None,
                       "kernel_launches_per_frame": n_kernels / n,

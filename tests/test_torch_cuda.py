@@ -1,6 +1,7 @@
 """Card-only checks of the port: each Hopper kernel against its plain
-PyTorch version on the same CUDA tensors, and a short frontend-only run
-that must launch every kernel on every steady frame.
+PyTorch version on the same CUDA tensors, and short frontend-only runs
+(Shi-Tomasi and ORB detectors) that must launch their kernels on every
+steady frame.
 
 Marked `cuda`; a fixture skips them where no card is present.  On a machine
 with a card and the CUDA toolkit (this file imports neither JAX nor the
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from dynosam_tpu_torch import kernels
-from dynosam_tpu_torch.kernels import lk, point_sample, response
+from dynosam_tpu_torch.kernels import lk, orb_sample, point_sample, response
 
 pytestmark = pytest.mark.cuda
 
@@ -89,7 +90,8 @@ def test_k3_response_matches_plain(cuda, frames):
 
 def test_pipeline_launches_every_kernel_on_every_steady_frame(cuda, frames):
     """Four frames of the frontend-only pipeline on the card: finite poses,
-    and K1, K2 and K3 each launched on every frame after the first."""
+    and K1, K2 and K3 each launched on every frame after the first (K4, the
+    ORB sampler, on none)."""
     from dynosam_tpu_torch.pipeline import DynoPipeline
     from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
     from dynosam_tpu_torch.utils.config import CapacityConfig, DynoConfig, PipelineConfig
@@ -104,8 +106,60 @@ def test_pipeline_launches_every_kernel_on_every_steady_frame(cuda, frames):
         pkt = pipe.spin_once(f)
         now = kernels.launch_counts()
         if k > 0:
-            assert all(now[name] > prev[name] for name in now), (k, prev, now)
+            assert all(now[name] > prev[name] for name in ("lk", "point_sample", "response")), (k, prev, now)
         prev = now
     torch.cuda.synchronize()
+    assert prev["orb_sample"] == 0
     assert bool(torch.isfinite(pkt.X_world.t).all())
     assert pkt.X_world.t.device.type == "cuda"
+
+
+def test_k4_orb_sample_matches_plain(cuda, frames):
+    """K4 against its plain version on a two-level 192x256 canvas with the
+    keypoints `extract_orb` selects there, plus keypoints off the canvas
+    and on its edges: the plain version repeats the kernel's arithmetic,
+    so angles agree to 1e-5 rad and at least 99.9 % of the bits agree."""
+    from dynosam_tpu_torch.frontend import orb
+
+    pyr = orb.orb_pyramid(frames[0].gray, n_features=400, n_levels=2)
+    hc, wc = pyr.canvas_raw.shape
+    extra = torch.tensor([[-40.0, 3.0], [wc + 5.0, hc + 9.0], [0.0, 0.0], [wc - 1.0, hc - 1.0], [7.5, 8.5]],
+                         device=cuda)
+    uv = torch.cat([pyr.canvas_uv, extra]).contiguous()
+    kernels.reset_launch_counts()
+    ang, desc = orb_sample.orb_orientation_descriptors(pyr.canvas_raw, pyr.canvas_blur, uv)
+    ang_p, desc_p = orb_sample.orb_orientation_descriptors_plain(pyr.canvas_raw, pyr.canvas_blur, uv)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["orb_sample"] == 1
+    assert desc.dtype == torch.int8 and desc.shape == (uv.shape[0], 256)
+    assert bool(((desc == 1) | (desc == -1)).all())
+    d = (ang - ang_p).abs()
+    assert float(torch.minimum(d, 2 * np.pi - d).max()) <= 1e-5
+    assert float((desc == desc_p).float().mean()) >= 0.999
+
+
+def test_orb_pipeline_launches_k4_k1_k2_on_every_steady_frame(cuda):
+    """Four frames of the ORB-mode frontend-only pipeline on the card:
+    finite poses, K4, K1 and K2 launched on every frame after the first,
+    K3 on none (the ORB branch has no Shi-Tomasi response)."""
+    from dynosam_tpu_torch.pipeline import DynoPipeline
+    from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
+    from dynosam_tpu_torch.utils.config import CapacityConfig, DynoConfig, FrontendConfig, PipelineConfig, TrackerConfig
+
+    scene = RenderedScene(RenderConfig(n_frames=4, h=192, w=256, n_objects=2), device=cuda)
+    cfg = DynoConfig(pipeline=PipelineConfig(use_backend=False),
+                     frontend=FrontendConfig(tracker=TrackerConfig(feature_detector_type="orb", orb_n_levels=4)),
+                     capacity=CapacityConfig(max_static_tracks=512, max_dynamic_tracks=1024, max_objects=8))
+    pipe = DynoPipeline(scene.cam, cfg)
+    kernels.reset_launch_counts()
+    prev = kernels.launch_counts()
+    for k, f in enumerate(scene.frames()):
+        pkt = pipe.spin_once(f)
+        now = kernels.launch_counts()
+        if k > 0:
+            assert all(now[name] > prev[name] for name in ("orb_sample", "lk", "point_sample")), (k, prev, now)
+        prev = now
+    torch.cuda.synchronize()
+    assert prev["response"] == 0
+    assert bool(torch.isfinite(pkt.X_world.t).all())
+    assert int(pipe.frontend_state.tracker.s_desc.abs().sum()) > 0

@@ -1,5 +1,6 @@
 """Port parity for detection: CLAHE, the plain version of kernel K3 (the
-Shi-Tomasi response), grid NMS and the occupancy / label helpers."""
+Shi-Tomasi response), the FAST and Harris responses, grid NMS and the
+occupancy / label helpers."""
 
 import jax
 import jax.numpy as jnp
@@ -108,3 +109,32 @@ def test_occupancy_and_grid_helpers_match_jax(scene_frame, rng):
     np.testing.assert_array_equal(
         np.asarray(j_label_counts(jnp.asarray(lab), 256)), t_label_counts(T(lab, np.int32), 256).numpy()
     )
+
+
+@pytest.mark.parametrize("detector", ["fast", "fast_pair", "harris"])
+@pytest.mark.parametrize("source", ["noise", "rendered"])
+def test_fast_and_harris_responses_match_jax(rng, scene_frame, detector, source):
+    """FAST-9/16 (one threshold, and the ORB pair 20/7 from one ring build)
+    and Harris on the same image, borders included.  The FAST criterion
+    and ring differences are exact, so its maps agree to float32 sum order
+    (1e-4 of max |response|); Harris is two convolution layers deep, 1e-5
+    of max |response|."""
+    if source == "noise":
+        g = rng.uniform(0, 255, (64, 128)).astype(np.float32)
+    else:
+        g = np.asarray(scene_frame.gray)
+    if detector == "fast":
+        pairs = [(jdet.fast_response(jnp.asarray(g), 20.0), tdet.fast_response(T(g), 20.0))]
+    elif detector == "fast_pair":
+        pairs = list(zip(jdet.fast_response_pair(jnp.asarray(g), 20.0, 7.0),
+                         tdet.fast_response_pair(T(g), 20.0, 7.0)))
+    else:
+        pairs = [(jdet.harris_response(jnp.asarray(g)), tdet.harris_response(T(g)))]
+    tol = 1e-5 if detector == "harris" else 1e-4
+    for want, got in pairs:
+        want, got = np.asarray(want), got.numpy()
+        scale = np.abs(want).max()
+        assert scale > 0
+        if detector != "harris":
+            np.testing.assert_array_equal(got > 0, want > 0)
+        assert np.abs(got - want).max() <= tol * scale

@@ -167,4 +167,7 @@ def test_wrappers_on_cpu_leave_launch_counts_at_zero(rng):
     from dynosam_tpu_torch.kernels.response import shi_tomasi_response
 
     shi_tomasi_response(T(img))
-    assert kernels.launch_counts() == {"lk": 0, "point_sample": 0, "response": 0}
+    from dynosam_tpu_torch.kernels.orb_sample import orb_orientation_descriptors
+
+    orb_orientation_descriptors(T(img), T(img), T(uv))
+    assert kernels.launch_counts() == {"lk": 0, "point_sample": 0, "response": 0, "orb_sample": 0}

@@ -104,8 +104,9 @@ def test_golden_frontend_bands(tmp_path):
 
 def test_port_imports_no_jax_and_cpu_run_launches_no_kernel():
     """A fresh interpreter (isolated from any site hook) imports the port,
-    renders two small frames and runs the pipeline on the CPU: no `jax` and
-    no `dynosam_tpu.*` module gets imported, and no kernel launches."""
+    renders two small frames and runs the pipeline on the CPU with the
+    Shi-Tomasi and with the ORB detector: no `jax` and no `dynosam_tpu.*`
+    module gets imported, and no kernel launches."""
     code = f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -113,15 +114,17 @@ import torch
 from dynosam_tpu_torch import kernels
 from dynosam_tpu_torch.pipeline import DynoPipeline
 from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
-from dynosam_tpu_torch.utils.config import DynoConfig, PipelineConfig, CapacityConfig
+from dynosam_tpu_torch.utils.config import DynoConfig, FrontendConfig, PipelineConfig, CapacityConfig, TrackerConfig
 scene = RenderedScene(RenderConfig(n_frames=2, h=48, w=64, fx=48.0), device="cpu")
-cfg = DynoConfig(pipeline=PipelineConfig(use_backend=False),
-                 capacity=CapacityConfig(max_static_tracks=64, max_dynamic_tracks=128, max_objects=4))
-pipe = DynoPipeline(scene.cam, cfg, device="cpu")
 kernels.reset_launch_counts()
-for f in scene.frames():
-    pkt = pipe.spin_once(f)
-assert torch.isfinite(pkt.X_world.t).all()
+for detector in ("shi_tomasi", "orb"):
+    cfg = DynoConfig(pipeline=PipelineConfig(use_backend=False),
+                     frontend=FrontendConfig(tracker=TrackerConfig(feature_detector_type=detector)),
+                     capacity=CapacityConfig(max_static_tracks=64, max_dynamic_tracks=128, max_objects=4))
+    pipe = DynoPipeline(scene.cam, cfg, device="cpu")
+    for f in scene.frames():
+        pkt = pipe.spin_once(f)
+    assert torch.isfinite(pkt.X_world.t).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "dynosam_tpu.")) or m == "dynosam_tpu")
 print("BAD", bad)
 print("COUNTS", kernels.launch_counts())
@@ -129,7 +132,7 @@ print("COUNTS", kernels.launch_counts())
     out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    assert "COUNTS {'lk': 0, 'point_sample': 0, 'response': 0}" in out.stdout, out.stdout
+    assert "COUNTS {'lk': 0, 'point_sample': 0, 'response': 0, 'orb_sample': 0}" in out.stdout, out.stdout
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|dynosam_tpu)(?:\.|\s|$)", re.M)
@@ -164,17 +167,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    "orb", "harris", "fast", "3d3d", "2d2d", "legacy_3d3d", "propagate_mask", "byte_tracker", "backend",
+    "3d3d", "2d2d", "legacy_3d3d", "propagate_mask", "byte_tracker", "backend",
 ])
 def test_options_outside_the_slice_raise(option):
     """Each option the slice does not port raises NotImplementedError that
     names the ROADMAP.md item porting it, before any work runs."""
     cfg = golden_frontend_config()
     fe, tr = cfg.frontend, cfg.frontend.tracker
-    if option in ("orb", "harris", "fast"):
-        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
-            fe, tracker=dataclasses.replace(tr, feature_detector_type=option)))
-    elif option in ("3d3d", "2d2d"):
+    if option in ("3d3d", "2d2d"):
         cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(fe, ego_motion_solver=option))
     elif option == "legacy_3d3d":
         cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(fe, use_ego_motion_pnp=False))
