@@ -15,7 +15,13 @@ no result line:
              frontend's main-path shapes on KITTI-sized rendered frames,
              held against its plain PyTorch version on the card within a
              stated tolerance, then timed with CUDA events beside its plain
-             version, the library yardstick where one exists, and its bound;
+             version, the library yardstick where one exists, and its bound.
+             K1 is also held on slots within 10 px of the border and on
+             slots whose warm start is off by more than its staged window's
+             margin; K2 on float32, int32, bool and strided channels read in
+             place, `valid=None` and a (C, H, W) tensor, and its main-path
+             call forms (C=1 depth, the flow's two planes, depth + int32
+             mask) are timed beside `grid_sample`;
 4. main path -- the frontend-only pipeline (`DynoPipeline`, use_backend
              False, Shi-Tomasi detector) on 12 rendered 1280x384 frames
              with 3 moving objects: frames/s over the steady frames, kernel
@@ -125,7 +131,7 @@ def bound_ms(n_bytes: float, n_flop: float):
 
 def distinct_taps(torch, x, y, h: int, w: int) -> int:
     """Distinct pixels that border-clamped bilinear samples at (x, y) read
-    (the 2x2 taps of each sample, as `csrc/common.cuh:bilinear_clamped`);
+    (the 2x2 taps of each sample, as `kernels/point_sample.py:bilinear_gather`);
     x and y broadcast against each other."""
     x, y = torch.broadcast_tensors(x, y)
     x = x.reshape(-1).clamp(0, w - 1)
@@ -147,19 +153,37 @@ def check_lk(torch, frames, device, reps):
     p = torch.as_tensor(rng.uniform([12, 12], [w - 12, h - 12], (n, 2)).astype(np.float32), device=device)
     valid = torch.as_tensor(rng.random(n) < 1000 / n, device=device)
     g0 = flow_at(f0.flow, p, valid)           # warm start from dense flow
-    g_k, e_k = lk.lk_level(f0.gray, f1.gray, p, g0, valid, win, iters, eps)
-    g_p, e_p, steps = lk.lk_level_plain(f0.gray, f1.gray, p, g0, valid, win, iters, eps,
-                                        return_iters=True)
-    torch.cuda.synchronize()
-    dg = float((g_k - g_p).abs().max())
-    de = float((e_k - e_p).abs().max())
-    rel = dg / max(float(g_p[valid].abs().max()), 1e-9)
-    print(f"K1 lk_level: {int(valid.sum())} of {n} slots active, win {win}, "
-          f"{iters} iters, eps {eps}: max |dg| {dg:.3g} px (rel {rel:.3g}, tol "
-          f"{LK_TOL_PX}), max |derr| {de:.3g} (tol {LK_TOL_ERR})", flush=True)
-    _require(np.isfinite(dg) and dg <= LK_TOL_PX, f"K1 disagrees with its plain version: {dg}")
-    _require(np.isfinite(de) and de <= LK_TOL_ERR, f"K1 error disagrees: {de}")
+    # two more groups, held at the same tolerances: slots within 10 px of
+    # an edge (a quarter on each), whose windows leave the image; and slots
+    # whose warm start is off by 6-9 px, more than the 4 px margin of the
+    # kernel's staged window of `cur`, so their steps leave it
+    nb = 256
+    side, t, d = rng.integers(0, 4, nb), rng.uniform(0, 1, nb), rng.uniform(0, 10, nb)
+    xb = np.where(side == 0, d, np.where(side == 1, w - 1 - d, t * (w - 1)))
+    yb = np.where(side == 2, d, np.where(side == 3, h - 1 - d, t * (h - 1)))
+    pb = torch.as_tensor(np.stack([xb, yb], -1).astype(np.float32), device=device)
+    po = torch.as_tensor(rng.uniform([40, 40], [w - 40, h - 40], (nb, 2)).astype(np.float32), device=device)
+    ang, rad = rng.uniform(0, 2 * np.pi, nb), rng.uniform(6, 9, nb)
+    off = torch.as_tensor(np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1).astype(np.float32), device=device)
+    every = torch.ones(nb, dtype=torch.bool, device=device)
+    groups = (("main", p, g0, valid), ("border", pb, flow_at(f0.flow, pb), every),
+              ("warm start off the tile", po, flow_at(f0.flow, po) + off, every))
+    dg = de = 0.0
+    for name, pp, gg, vv in groups:
+        g_k, e_k = lk.lk_level(f0.gray, f1.gray, pp, gg, vv, win, iters, eps)
+        g_p, e_p = lk.lk_level_plain(f0.gray, f1.gray, pp, gg, vv, win, iters, eps)
+        torch.cuda.synchronize()
+        dgi = float((g_k - g_p).abs().max())
+        dei = float((e_k - e_p).abs().max())
+        print(f"K1 lk_level {name}: {int(vv.sum())} of {pp.shape[0]} slots active, win {win}, {iters} iters, "
+              f"eps {eps}: max |dg| {dgi:.3g} px (tol {LK_TOL_PX}), max |derr| {dei:.3g} (tol {LK_TOL_ERR}), "
+              f"max |g - g0| {float((g_p - gg)[vv].abs().max()):.3g} px", flush=True)
+        _require(np.isfinite(dgi) and dgi <= LK_TOL_PX, f"K1 {name} disagrees with its plain version: {dgi}")
+        _require(np.isfinite(dei) and dei <= LK_TOL_ERR, f"K1 {name} error disagrees: {dei}")
+        dg, de = max(dg, dgi), max(de, dei)
 
+    g_k, _ = lk.lk_level(f0.gray, f1.gray, p, g0, valid, win, iters, eps)
+    _, _, steps = lk.lk_level_plain(f0.gray, f1.gray, p, g0, valid, win, iters, eps, return_iters=True)
     ms = cuda_ms(torch, lambda: lk.lk_level(f0.gray, f1.gray, p, g0, valid, win, iters, eps), reps)
     plain_ms = cuda_ms(torch, lambda: lk.lk_level_plain(f0.gray, f1.gray, p, g0, valid, win, iters, eps),
                        max(reps // 20, 3), warmup=1)
@@ -185,8 +209,8 @@ def check_lk(torch, frames, device, reps):
     return dict(name="lk_level", route="cuda", source="dynosam_tpu_torch/csrc/lk.cu",
                 replaces="dynosam_tpu/ops/pallas/lk.py:873", max_abs_err=dg,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                note=f"{total_steps} Gauss-Newton steps over {n_act} active slots; "
-                     f"{prev_px} prev and {cur_px} cur pixels read")
+                note=f"timed on the main group: {total_steps} Gauss-Newton steps over {n_act} active slots; "
+                     f"{prev_px} prev and {cur_px} cur pixels read; max |derr| {de:.3g} over all groups")
 
 
 def check_point_sample(torch, frames, device, reps):
@@ -198,38 +222,57 @@ def check_point_sample(torch, frames, device, reps):
     rng = np.random.default_rng(2)
     uv = torch.as_tensor(rng.uniform([-2, -2], [w + 1, h + 1], (n, 2)).astype(np.float32), device=device)
     valid = torch.as_tensor(rng.random(n) >= 0.3, device=device)
-    depth = f.depth[None].contiguous()
-    pair = torch.stack([f.depth, f.mask.float()]).contiguous()
+    depth, mask = f.depth, f.mask               # float32 and int32, read in place
+    flow = f.flow.unbind(-1)                    # the (H, W, 2) field's two strided planes
+    forbid = mask != 0                          # bool
+    B, NN = "bilinear", "nearest"
+    cases = (
+        ("C=1 float32 bilinear", (depth,), (B,), valid),
+        ("C=1 int32 nearest", (mask,), (NN,), valid),
+        ("C=1 bool nearest", (forbid,), (NN,), None),
+        ("flow: 2 strided planes", flow, (B, B), valid),
+        ("depth + int32 mask", (depth, mask), (B, NN), valid),
+        ("8 channels: float32, int32, bool and strided, both modes",
+         (depth, mask, mask, forbid, forbid, flow[0], flow[1], depth), (B, NN, B, NN, B, B, B, NN), valid),
+        ("(C, H, W) tensor", torch.stack([depth, f.gray]), (B, NN), valid),
+    )
     worst = 0.0
-    for name, stack, modes in (
-        ("C=1 bilinear", depth, ("bilinear",)),
-        ("C=1 nearest", f.mask.float()[None].contiguous(), ("nearest",)),
-        ("C=2 bilinear+nearest", pair, ("bilinear", "nearest")),
-    ):
-        got = ps.point_sample(stack, uv, modes, valid)
-        want = ps.point_sample_plain(stack, uv, modes, valid)
+    for name, chans, modes, vv in cases:
+        before = ps.launches
+        got = ps.point_sample(chans, uv, modes, vv)
+        _require(ps.launches == before + 1, f"K2 {name}: the launch count rose by {ps.launches - before}")
+        want = ps.point_sample_plain(chans, uv, modes, vv)
         torch.cuda.synchronize()
-        d = float((got - want).abs().max())
-        scale = max(float(want.abs().max()), 1e-9)
-        exact = [c for c, m in enumerate(modes) if m == "nearest"]
-        d_exact = float((got[:, exact] - want[:, exact]).abs().max()) if exact else 0.0
-        print(f"K2 point_sample {name}: N {n}, {int((~valid).sum())} invalid rows: "
-              f"max |d| {d:.3g} (rel {d / scale:.3g}, tol {PS_TOL_REL}), nearest "
-              f"max |d| {d_exact:.3g} (tol 0)", flush=True)
-        _require(np.isfinite(d) and d / scale <= PS_TOL_REL, f"K2 {name} disagrees: {d}")
-        _require(d_exact == 0.0, f"K2 {name} nearest samples differ: {d_exact}")
-        _require(bool((got[~valid] == 0).all()), f"K2 {name}: invalid rows not zero")
-        worst = max(worst, d)
+        _require(got.shape == (n, len(modes)) and got.dtype == torch.float32, f"K2 {name}: shape {got.shape}")
+        d_near, d_rel = 0.0, 0.0
+        for c, m in enumerate(modes):
+            d = float((got[:, c] - want[:, c]).abs().max())
+            if m == NN:
+                d_near = max(d_near, d)
+            else:
+                d_rel = max(d_rel, d / max(float(want[:, c].abs().max()), 1e-9))
+                worst = max(worst, d)
+        rows0 = True if vv is None else bool((got[~vv] == 0).all())
+        print(f"K2 point_sample {name}: N {n}, {0 if vv is None else int((~vv).sum())} invalid rows: "
+              f"nearest max |d| {d_near:.3g} (tol 0), bilinear max |d| / max |value| {d_rel:.3g} "
+              f"(tol {PS_TOL_REL}), invalid rows 0: {rows0}", flush=True)
+        _require(d_near == 0.0, f"K2 {name}: nearest samples differ: {d_near}")
+        _require(np.isfinite(d_rel) and d_rel <= PS_TOL_REL, f"K2 {name}: bilinear samples disagree: {d_rel}")
+        _require(rows0, f"K2 {name}: invalid rows not zero")
 
-    ms = cuda_ms(torch, lambda: ps.point_sample(depth, uv, ("bilinear",), valid), reps)
-    plain_ms = cuda_ms(torch, lambda: ps.point_sample_plain(depth, uv, ("bilinear",), valid), reps)
+    ms = cuda_ms(torch, lambda: ps.point_sample((depth,), uv, (B,), valid), reps)
+    plain_ms = cuda_ms(torch, lambda: ps.point_sample_plain((depth,), uv, (B,), valid), reps)
     # library yardstick: grid_sample on normalised coordinates (align_corners
     # maps -1/+1 to the first/last pixel centre; border padding clamps)
     grid = torch.stack([uv[:, 0] / (w - 1) * 2 - 1, uv[:, 1] / (h - 1) * 2 - 1], dim=-1)[None, None]
+    depth4 = depth[None, None]
     lib = lambda: torch.nn.functional.grid_sample(  # noqa: E731
-        depth[None], grid, mode="bilinear", padding_mode="border", align_corners=True)
-    lib_d = float((lib()[0, 0, 0] * valid - ps.point_sample_plain(depth, uv, ("bilinear",), valid)[:, 0]).abs().max())
+        depth4, grid, mode="bilinear", padding_mode="border", align_corners=True)
+    lib_d = float((lib()[0, 0, 0] * valid - ps.point_sample_plain((depth,), uv, (B,), valid)[:, 0]).abs().max())
     library_ms = cuda_ms(torch, lib, reps)
+    # the main path's other two call forms, timed beside it
+    flow_ms = cuda_ms(torch, lambda: ps.point_sample(flow, uv, (B, B), valid), reps)
+    pair_ms = cuda_ms(torch, lambda: ps.point_sample((depth, mask), uv, (B, NN), valid), reps)
     # bytes this call's data needs: the distinct pixels its valid rows touch,
     # the valid rows' coordinates (an invalid row reads only its mask), the
     # mask and the output
@@ -238,11 +281,14 @@ def check_point_sample(torch, frames, device, reps):
     nbytes = taps * 4 + n_valid * 8 + n + n * 4
     flop = n_valid * FLOP_BILINEAR
     b_ms, b_by = bound_ms(nbytes, flop)
-    print(f"K2 grid_sample yardstick agrees to {lib_d:.3g}", flush=True)
+    print(f"K2 grid_sample yardstick agrees to {lib_d:.3g}; per call: C=1 depth {ms * 1e3:.2f} us, "
+          f"grid_sample {library_ms * 1e3:.2f} us ({'at or under' if ms <= library_ms else 'ABOVE'} it), "
+          f"flow (2 strided planes) {flow_ms * 1e3:.2f} us, depth + int32 mask {pair_ms * 1e3:.2f} us", flush=True)
     return dict(name="point_sample", route="cuda", source="dynosam_tpu_torch/csrc/point_sample.cu",
                 replaces="dynosam_tpu/ops/pallas/point_sample.py:136", max_abs_err=worst,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                note=f"timed at N 6144, C 1, bilinear; {taps} pixels read")
+                ms_flow=flow_ms, ms_depth_mask=pair_ms,
+                note=f"timed at N 6144, C 1 (depth), bilinear; {taps} pixels read")
 
 
 def check_response(torch, frames, device, reps):
@@ -460,9 +506,9 @@ def _run(torch) -> int:
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "ms_flow", "ms_depth_mask")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -23,6 +23,7 @@ from .core.lie import SE3
 from .frontend.frontend import FrontendState
 from .frontend.tracker import TrackerState
 from .utils.config import DynoConfig, _update_dataclass
+from .utils.device import resolve_device
 
 
 def config_from_dict(d: dict, cls=DynoConfig):
@@ -49,11 +50,16 @@ def _se3(v, device) -> SE3:
     return SE3(_leaf(v.R, device), _leaf(v.t, device))
 
 
-def tracker_state_from_numpy(src, device="cpu") -> TrackerState:
+def tracker_state_from_numpy(src, device=None) -> TrackerState:
+    """The tracker state on `device`: the CUDA card unless the caller asks
+    for another (raises without a card, as the entry points do)."""
+    device = resolve_device(device)
     return TrackerState(*(_leaf(getattr(src, f), device) for f in TrackerState._fields))
 
 
-def frontend_state_from_numpy(src, device="cpu") -> FrontendState:
+def frontend_state_from_numpy(src, device=None) -> FrontendState:
+    """The frontend state on `device`, resolved as `tracker_state_from_numpy`."""
+    device = resolve_device(device)
     vals = []
     for f in FrontendState._fields:
         v = getattr(src, f)

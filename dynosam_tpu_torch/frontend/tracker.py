@@ -289,7 +289,8 @@ def track_frame(
             s_desc = torch.where(rev_slot[:, None], desc_new, s_desc)
             n_reassoc = revive.sum().to(i32)
             n_tracked = n_tracked + n_reassoc
-        allowed = nearest_at((~forbid).to(i32), cand_uv) > 0
+        # K2 reads the bool mask in place; the (N,) samples are negated
+        allowed = ~nearest_at(forbid, cand_uv)
         dets = Detections(uv=cand_uv, score=cand_score, valid=cand_valid & allowed & ~revive)
     else:
         frac = cfg.redetect_min_free_fraction

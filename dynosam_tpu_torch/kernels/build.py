@@ -29,9 +29,9 @@ FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (every function returns cudaGetLastError() as int)
-    "dyno_point_sample": (_P, _I, _I, _I, _P, _P, _I, _I, _P, _P),
+    # (per-call argument block, per-layout block): see csrc/point_sample.cu
+    "dyno_point_sample": (_P, _P),
     "dyno_lk_level": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
-    "dyno_lk_smem_bytes": (_I,),
     "dyno_shi_tomasi": (_P, _I, _I, _P, _P),
     "dyno_orb_sample": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
 }
@@ -41,6 +41,7 @@ class _Library:
     """The loaded kernel library (one per process)."""
 
     lib = None
+    functions: dict = {}
 
 
 def _nvcc() -> str:
@@ -107,6 +108,14 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     return _Library.lib
 
 
+def function(name: str):
+    """The library's C function `name`, looked up once per process."""
+    fn = _Library.functions.get(name)
+    if fn is None:
+        fn = _Library.functions[name] = getattr(load(), name)
+    return fn
+
+
 def check(code: int, name: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if code != 0:
@@ -114,6 +123,9 @@ def check(code: int, name: str) -> None:
 
 
 def stream_handle(t) -> int:
+    """The raw handle of the current CUDA stream on `t`'s device (the one a
+    `torch.cuda.stream(...)` context selects), without building a Python
+    stream object."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

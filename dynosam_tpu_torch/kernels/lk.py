@@ -11,10 +11,14 @@ on `cur`, a slot stops after the first step with |step|^2 <= eps^2 (eps
 <= 0 never stops early), err = mean |cur(p + g + o) - T|.  Inactive slots
 return g0 and err 0.
 
-Bound on the card: the latency of the dependent iterations (each needs a
-block reduction before the next position is known); bytes and FLOPs are
-microseconds.  One thread block per slot keeps the template in shared
-memory for the whole loop and re-samples the L2-resident current image.
+Bound on the card: the latency of each slot's chain of dependent
+iterations (the window's sums decide the next position); bytes and FLOPs
+are well under a microsecond at the card's rates.  The kernel runs one warp
+per slot (warp-shuffle sums, no block barrier in the loop, a warp-uniform
+solve and eps exit), keeps each lane's taps of the template and its
+gradients in registers, and samples `prev` and `cur` from shared-memory
+tiles staged once with replicated borders (the `cur` tile restaged only
+when a step moves the window past its margin).  Windows up to 31.
 
 `lk_level` launches the kernel for CUDA tensors and runs `lk_level_plain`
 for CPU tensors; there is no fallback between them.
@@ -29,7 +33,7 @@ from .point_sample import bilinear_gather
 
 launches = 0   # kernel launches by `lk_level` (CUDA tensors only)
 
-_MAX_SMEM = 48 * 1024
+MAX_WIN = 31   # `csrc/lk.cu`: at most 32 taps per lane
 
 
 def patch_offsets(win: int, dtype, device) -> torch.Tensor:
@@ -128,18 +132,19 @@ def lk_level(
         raise ValueError("win must be odd")
     if prev.device.type == "cpu":
         return lk_level_plain(prev, cur, p, g0, valid, win, iters, eps)
-    if prev.device.type != "cuda" or any(
-        x.device != prev.device for x in (cur, p, g0, valid)
-    ):
+    dev = prev.get_device()
+    if dev < 0 or not cur.get_device() == p.get_device() == g0.get_device() == valid.get_device() == dev:
         raise ValueError("all inputs must lie on one CUDA device")
-    lib = build.load()
-    if lib.dyno_lk_smem_bytes(win) > _MAX_SMEM:
-        raise ValueError(f"win {win} needs more than 48 KB of shared memory")
+    if win > MAX_WIN:
+        raise ValueError(f"win {win} is above the kernel's {MAX_WIN}")
     h, w = prev.shape
-    prev, cur, p, g0, valid = (x.contiguous() for x in (prev, cur, p, g0, valid))
-    g = torch.empty((n, 2), dtype=torch.float32, device=p.device)
-    err = torch.empty((n,), dtype=torch.float32, device=p.device)
-    code = lib.dyno_lk_level(
+    prev, cur, valid = prev.contiguous(), cur.contiguous(), valid.contiguous()
+    p, g0 = p.contiguous(), g0.contiguous()
+    if (p.data_ptr() | g0.data_ptr()) % 8:   # both are read as float2
+        p, g0 = p.clone(), g0.clone()
+    g = p.new_empty((n, 2))
+    err = p.new_empty((n,))
+    code = build.function("dyno_lk_level")(
         prev.data_ptr(), cur.data_ptr(), h, w, p.data_ptr(), g0.data_ptr(),
         valid.data_ptr(), n, win, iters, float(eps), g.data_ptr(),
         err.data_ptr(), build.stream_handle(p),

@@ -17,6 +17,7 @@ import torch
 from ..kernels.lk import lk_level, lk_level_plain
 from ..kernels.point_sample import (
     BILINEAR,
+    DTYPE_CODES,
     NEAREST,
     bilinear_gather,
     nearest_gather,
@@ -46,6 +47,12 @@ def _point_query(img: torch.Tensor, xy: torch.Tensor) -> bool:
     return img.dim() == 2 and xy.dim() == 2 and xy.shape[-1] == 2
 
 
+def _as_read(img: torch.Tensor) -> torch.Tensor:
+    """`img` as K2 takes it: float32, int32, bool and uint8 images are read
+    in place, any strides; another dtype is read as float32."""
+    return img if img.dtype in DTYPE_CODES else img.float()
+
+
 def bilinear_sample(
     img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -53,7 +60,7 @@ def bilinear_sample(
     rows masked off by `valid` come back 0."""
     if _point_query(img, xy):
         return point_sample(
-            img[None].float(), xy.float(), (BILINEAR,), valid
+            (_as_read(img),), xy.float(), (BILINEAR,), valid
         )[:, 0].to(img.dtype)
     out = bilinear_gather(img, xy)
     if valid is not None:
@@ -68,7 +75,7 @@ def nearest_at(
     labels below 2^24 round-trip exactly through f32)."""
     if _point_query(img, uv):
         return point_sample(
-            img[None].float(), uv.float(), (NEAREST,), valid
+            (_as_read(img),), uv.float(), (NEAREST,), valid
         )[:, 0].to(img.dtype)
     out = nearest_gather(img, uv)
     if valid is not None:
@@ -79,17 +86,19 @@ def nearest_at(
 def flow_at(
     flow: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Sample a dense flow field (H, W, 2) at (N, 2) positions -> (N, 2)."""
-    stack = flow.permute(2, 0, 1).float().contiguous()
-    return point_sample(stack, uv.float(), (BILINEAR, BILINEAR), valid).to(flow.dtype)
+    """Sample a dense flow field (H, W, 2) at (N, 2) positions -> (N, 2);
+    K2 reads the field's two planes in place."""
+    return point_sample(
+        _as_read(flow).unbind(-1), uv.float(), (BILINEAR, BILINEAR), valid
+    ).to(flow.dtype)
 
 
 def sample_channels(imgs, modes, uv: torch.Tensor, valid: torch.Tensor | None = None):
     """Sample several (H, W) channels at shared (N, 2) positions in ONE K2
-    launch; returns a list aligned with `imgs`, dtypes preserved."""
+    launch, each read in place; returns a list aligned with `imgs`, dtypes
+    preserved."""
     imgs = list(imgs)
-    stack = torch.stack([im.float() for im in imgs])
-    out = point_sample(stack, uv.float(), tuple(modes), valid)
+    out = point_sample([_as_read(im) for im in imgs], uv.float(), tuple(modes), valid)
     return [out[:, i].to(im.dtype) for i, im in enumerate(imgs)]
 
 

@@ -54,6 +54,34 @@ def test_k1_lk_level_matches_plain(cuda, frames):
         assert torch.equal(g[~valid], g0[~valid]) and bool((err[~valid] == 0).all())
 
 
+def test_k1_lk_level_border_and_off_tile_slots(cuda, frames):
+    """K1 against its plain version where the kernel's staged windows are
+    at their edges, at the same 0.05 px / 0.1 grey-level tolerances: slots
+    within 10 px of the image border (the replicated tile edge stands in
+    for the per-sample clamp), and slots whose warm start is 6-9 px off,
+    beyond the 4 px margin of the staged `cur` window, so steps restage it."""
+    from dynosam_tpu_torch.ops.klt import flow_at
+
+    f0, f1 = frames[0], frames[1]
+    h, w = f0.gray.shape
+    rng = np.random.default_rng(3)
+    n = 200
+    side, t, d = rng.integers(0, 4, n), rng.uniform(0, 1, n), rng.uniform(0, 10, n)
+    xb = np.where(side == 0, d, np.where(side == 1, w - 1 - d, t * (w - 1)))
+    yb = np.where(side == 2, d, np.where(side == 3, h - 1 - d, t * (h - 1)))
+    pb = torch.as_tensor(np.stack([xb, yb], -1).astype(np.float32), device=cuda)
+    po = torch.as_tensor(rng.uniform([30, 30], [w - 30, h - 30], (n, 2)).astype(np.float32), device=cuda)
+    ang, rad = rng.uniform(0, 2 * np.pi, n), rng.uniform(6, 9, n)
+    off = torch.as_tensor(np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1).astype(np.float32), device=cuda)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    for p, g0 in ((pb, flow_at(f0.flow, pb)), (po, flow_at(f0.flow, po) + off)):
+        g, err = lk.lk_level(f0.gray, f1.gray, p, g0, valid, 21, 10, 0.01)
+        gp, ep = lk.lk_level_plain(f0.gray, f1.gray, p, g0, valid, 21, 10, 0.01)
+        torch.cuda.synchronize()
+        assert float((g - gp).abs().max()) < 0.05
+        assert float((err - ep).abs().max()) < 0.1
+
+
 def test_k2_point_sample_matches_plain(cuda, frames):
     """K2 against its plain version: bilinear to 1e-5 of max |value|,
     nearest exactly, invalid rows 0, half-way coordinates rounding to
@@ -76,6 +104,40 @@ def test_k2_point_sample_matches_plain(cuda, frames):
     assert bool((got[~valid] == 0).all())
     idx = torch.tensor([[6, 4], [8, 8], [0, 0]], device=cuda)   # (x, y): 6.5->6, 3.5->4, 8.5->8, 0.5->0
     assert torch.equal(got[:3, 1], f.mask.float()[idx[:, 1], idx[:, 0]])
+
+
+def test_k2_reads_int_bool_and_strided_channels_in_place(cuda, frames):
+    """K2 on channels passed as they are: float32 depth, the int32 mask, a
+    bool mask and the two strided planes of the (H, W, 2) flow, in both
+    modes.  Nearest taps equal the plain version exactly, bilinear taps to
+    1e-5 of max |value|; `valid=None` samples every row; each call adds one
+    launch."""
+    f = frames[1]
+    rng = np.random.default_rng(2)
+    uv = torch.as_tensor(rng.uniform([-3, -3], [259, 195], (777, 2)).astype(np.float32), device=cuda)
+    fx, fy = f.flow.unbind(-1)
+    forbid = f.mask != 0
+    chans = (f.depth, f.mask, f.mask, forbid, forbid, fx, fy, f.depth)
+    modes = ("bilinear", "nearest", "bilinear", "nearest", "bilinear", "bilinear", "bilinear", "nearest")
+    valid = torch.as_tensor(rng.random(777) > 0.3, device=cuda)
+    strided_uv = torch.cat([uv, uv], 1)[:, :2]                  # strides (4, 1)
+    strided_valid = torch.stack([valid, valid], 1)[:, 0]        # stride 2
+    for uv_, valid in ((uv, None), (uv, valid), (strided_uv, strided_valid)):
+        before = kernels.launch_counts()["point_sample"]
+        got = point_sample.point_sample(chans, uv_, modes, valid)
+        assert kernels.launch_counts()["point_sample"] == before + 1
+        want = point_sample.point_sample_plain(chans, uv_, modes, valid)
+        torch.cuda.synchronize()
+        assert got.shape == (777, 8) and got.dtype == torch.float32
+        for c, m in enumerate(modes):
+            if m == "nearest":
+                assert torch.equal(got[:, c], want[:, c])
+            else:
+                assert float((got[:, c] - want[:, c]).abs().max()) <= 1e-5 * float(want[:, c].abs().max())
+        if valid is not None:
+            assert bool((got[~valid] == 0).all())
+    assert torch.equal(got[:, 1], f.mask[uv[:, 1].round().clamp(0, 191).long(),
+                                         uv[:, 0].round().clamp(0, 255).long()].float() * valid)
 
 
 def test_k3_response_matches_plain(cuda, frames):

@@ -116,7 +116,7 @@ def test_convert_round_trip(carried):
     """Config, camera and a carried state survive the hand-over unchanged,
     int32 state dtypes included."""
     assert dataclasses.asdict(carried["tcfg"]) == dataclasses.asdict(carried["cfg"])
-    st = convert.frontend_state_from_numpy(carried["state_np"])
+    st = convert.frontend_state_from_numpy(carried["state_np"], device="cpu")
     back = convert.frontend_output_to_numpy(st)
     src = carried["state_np"]
     for name in ("s_uv", "s_active", "s_age", "d_obj", "obj_labels"):
@@ -142,7 +142,7 @@ def test_track_frame_from_jax_state(carried):
         tc, use_klt=True, first_frame=False, key=jax.random.PRNGKey(5),
     )
     tst, trep = track_frame(
-        convert.tracker_state_from_numpy(carried["state_np"].tracker), to_torch(frames[k - 1]).gray,
+        convert.tracker_state_from_numpy(carried["state_np"].tracker, device="cpu"), to_torch(frames[k - 1]).gray,
         to_torch(frames[k]).gray, to_torch(frames[k - 1]).flow, to_torch(frames[k]).mask,
         carried["tcfg"].frontend.tracker, use_klt=True, first_frame=False,
         generator=torch.Generator().manual_seed(5),
@@ -179,7 +179,7 @@ def test_frontend_step_from_jax_state(carried):
         jax.random.PRNGKey(k), use_klt=True, first_frame=False,
     )
     tst, tpkt, _, _ = frontend_step(
-        convert.frontend_state_from_numpy(carried["state_np"]), to_torch(frames[k - 1]), to_torch(frames[k]),
+        convert.frontend_state_from_numpy(carried["state_np"], device="cpu"), to_torch(frames[k - 1]), to_torch(frames[k]),
         carried["cam"], carried["tcfg"].frontend, generator=torch.Generator().manual_seed(k),
         use_klt=True, first_frame=False, device="cpu",
     )

@@ -61,6 +61,45 @@ def test_point_sample_plain_matches_pallas_interpret(rng):
     assert np.all(got[~valid] == 0.0)
 
 
+@pytest.mark.parametrize("case", ["typed_list", "flow_strided_views", "valid_none", "chw_tensor"])
+def test_point_sample_plain_reads_channels_as_they_are(rng, case):
+    """K2 plain on channels passed in place (float32, int32 and bool
+    planes; the strided planes of an (H, W, 2) flow; `valid=None`; a
+    (C, H, W) tensor) == the stacked float32 form bit for bit, and == the
+    Pallas point sampler (interpret) on that stack: bilinear to rtol 1e-5 /
+    atol 1e-3 on [0, 255] values (association order), nearest exactly."""
+    img, mask, flow, uv = _sample_inputs(rng)
+    valid = rng.uniform(size=uv.shape[0]) > 0.3
+    tv = T(valid, bool)
+    if case == "typed_list":
+        chans = (T(img), T(mask, np.int32), T(mask > 4, bool), T(mask > 4, bool))
+        modes = ("bilinear", "nearest", "nearest", "bilinear")
+    elif case == "flow_strided_views":
+        tf = T(flow)
+        chans = (tf[..., 0], tf[..., 1])
+        assert not chans[0].is_contiguous()
+        modes = ("bilinear", "bilinear")
+    elif case == "valid_none":
+        chans = (T(img), T(mask, np.int32))
+        modes = ("bilinear", "nearest")
+        valid, tv = np.ones(uv.shape[0], bool), None
+    else:
+        chans = T(np.stack([img, flow[..., 0], mask.astype(np.float32)]))
+        modes = ("bilinear", "bilinear", "nearest")
+    got = point_sample(chans, T(uv), modes, tv)
+    assert got.dtype == torch.float32 and got.shape == (uv.shape[0], len(modes))
+    stacked = torch.stack([ch.float() for ch in chans])
+    assert torch.equal(got, point_sample_plain(stacked, T(uv), modes, tv))
+    want = np.asarray(j_point_sample(jnp.asarray(stacked.numpy()), jnp.asarray(uv), modes,
+                                     valid=jnp.asarray(valid), interpret=True))
+    for c, m in enumerate(modes):
+        if m == "nearest":
+            np.testing.assert_array_equal(got[:, c].numpy(), want[:, c])
+        else:
+            np.testing.assert_allclose(got[:, c].numpy(), want[:, c], rtol=1e-5, atol=1e-3)
+    assert np.all(got.numpy()[~valid] == 0.0)
+
+
 def test_point_queries_match_xla(rng):
     """`bilinear_sample`, `nearest_at`, `flow_at` and `sample_channels` of
     the port == the JAX package's XLA forms (rtol 1e-5 / exact labels)."""
@@ -171,3 +210,27 @@ def test_wrappers_on_cpu_leave_launch_counts_at_zero(rng):
 
     orb_orientation_descriptors(T(img), T(img), T(uv))
     assert kernels.launch_counts() == {"lk": 0, "point_sample": 0, "response": 0, "orb_sample": 0}
+
+
+@pytest.mark.parametrize("fn", ["tracker_state_from_numpy", "frontend_state_from_numpy"])
+def test_state_hand_over_runs_on_the_card_unless_asked(fn):
+    """`convert.*_from_numpy` put the state on the CUDA card by default and
+    raise where there is none; `device="cpu"` keeps it on the CPU."""
+    import jax
+
+    from dynosam_tpu.frontend.frontend import FrontendState as JFrontendState
+    from dynosam_tpu.frontend.tracker import TrackerState as JTrackerState
+    from dynosam_tpu_torch import convert
+
+    src = JTrackerState.create(64, 64, 4) if fn.startswith("tracker") else JFrontendState.create(64, 64, 4)
+    src = jax.tree.map(np.asarray, src)
+    st = getattr(convert, fn)(src, device="cpu")
+    leaf = st.s_uv if fn.startswith("tracker") else st.tracker.s_uv
+    assert leaf.device.type == "cpu"
+    if torch.cuda.is_available():
+        got = getattr(convert, fn)(src)
+        leaf = got.s_uv if fn.startswith("tracker") else got.tracker.s_uv
+        assert leaf.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(convert, fn)(src)

@@ -228,7 +228,7 @@ def orb_first_frame(frames):
     f0 = frames[0]
     jst, jout = j_track_frame(JTrackerState.create(256, 256, 4), f0.gray, f0.gray, f0.flow, f0.mask,
                               jc, key=jax.random.PRNGKey(0), first_frame=True)
-    tst, tout = track_frame(convert.tracker_state_from_numpy(JTrackerState.create(256, 256, 4)), T(f0.gray),
+    tst, tout = track_frame(convert.tracker_state_from_numpy(JTrackerState.create(256, 256, 4), device="cpu"), T(f0.gray),
                             T(f0.gray), T(f0.flow), T(f0.mask, np.int32), tc, first_frame=True)
     return jst, jout, tst, tout
 
@@ -258,7 +258,7 @@ def test_track_frame_orb_matches_jax(frames, orb_first_frame, reassociate):
         jst = jst._replace(s_active=jnp.asarray(act), s_cooldown=jnp.asarray(cd))
     idx = _jax_homography_indices(jst, f0, f1, jc, key)
     jst1, jout1 = j_track_frame(jst, f0.gray, f1.gray, f0.flow, f1.mask, jc, key=key, first_frame=False)
-    tst1, tout1 = track_frame(convert.tracker_state_from_numpy(jax.tree.map(np.asarray, jst)), T(f0.gray),
+    tst1, tout1 = track_frame(convert.tracker_state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu"), T(f0.gray),
                               T(f1.gray), T(f0.flow), T(f1.mask, np.int32), tc, first_frame=False,
                               hom_idx=T(idx, np.int64))
     for name in ("n_static_tracked", "n_static_new", "n_reassociated", "homography_inliers"):
@@ -284,7 +284,7 @@ def test_track_frame_harris_and_fast_detect_like_jax(frames, detector):
     f0 = frames[0]
     jst, jout = j_track_frame(JTrackerState.create(256, 256, 4), f0.gray, f0.gray, f0.flow, f0.mask,
                               jc, key=jax.random.PRNGKey(0), first_frame=True)
-    tst, tout = track_frame(convert.tracker_state_from_numpy(JTrackerState.create(256, 256, 4)), T(f0.gray),
+    tst, tout = track_frame(convert.tracker_state_from_numpy(JTrackerState.create(256, 256, 4), device="cpu"), T(f0.gray),
                             T(f0.gray), T(f0.flow), T(f0.mask, np.int32), tc, first_frame=True)
     assert int(tout.n_static_new) == int(jout.n_static_new) > 50
     np.testing.assert_array_equal(tst.s_active.numpy(), np.asarray(jst.s_active))
