@@ -21,7 +21,10 @@ no result line:
              margin; K2 on float32, int32, bool and strided channels read in
              place, `valid=None` and a (C, H, W) tensor, and its main-path
              call forms (C=1 depth, the flow's two planes, depth + int32
-             mask) are timed beside `grid_sample`;
+             mask) are timed beside `grid_sample`; K3 also on noise at
+             shapes off its tile (37x53, 5x1290, 400x7, 1x1); K4 also at
+             1, 7 and 33 keypoints and on keypoints off the canvas, NaN
+             and within 15 px of a level seam;
 4. main path -- the frontend-only pipeline (`DynoPipeline`, use_backend
              False, Shi-Tomasi detector) on 12 rendered 1280x384 frames
              with 3 moving objects: frames/s over the steady frames, kernel
@@ -296,19 +299,29 @@ def check_response(torch, frames, device, reps):
 
     g = frames[1].gray
     h, w = g.shape
-    got = response.shi_tomasi_response(g)
-    want = response.shi_tomasi_response_plain(g)
-    torch.cuda.synchronize()
-    d = float((got - want).abs().max())
-    rel = d / max(float(want.abs().max()), 1e-9)
-    print(f"K3 shi_tomasi_response {h}x{w}: max |d| {d:.3g} (rel to max |response| "
-          f"{rel:.3g}, tol {RESP_TOL_REL})", flush=True)
-    _require(np.isfinite(rel) and rel <= RESP_TOL_REL, f"K3 disagrees with its plain version: {rel}")
+    # the KITTI frame, then uniform noise on shapes that are no multiple of
+    # the kernel's tile (28 columns by 32 rows a block), down to one pixel
+    rng = np.random.default_rng(3)
+    cases = [("KITTI frame", g)] + [
+        ("noise", torch.as_tensor(rng.uniform(0, 255, shp).astype(np.float32), device=device))
+        for shp in ((37, 53), (5, 1290), (400, 7), (1, 1))]
+    worst = 0.0
+    for label, img in cases:
+        got = response.shi_tomasi_response(img)
+        want = response.shi_tomasi_response_plain(img)
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        rel = d / max(float(want.abs().max()), 1e-9)
+        print(f"K3 shi_tomasi_response {label} {img.shape[0]}x{img.shape[1]}: max |d| {d:.3g} (rel to "
+              f"max |response| {rel:.3g}, tol {RESP_TOL_REL})", flush=True)
+        _require(np.isfinite(rel) and rel <= RESP_TOL_REL,
+                 f"K3 disagrees with its plain version on {img.shape[0]}x{img.shape[1]}: {rel}")
+        worst = max(worst, d)
     ms = cuda_ms(torch, lambda: response.shi_tomasi_response(g), reps)
     plain_ms = cuda_ms(torch, lambda: response.shi_tomasi_response_plain(g), max(reps // 10, 3))
     b_ms, b_by = bound_ms(2 * h * w * 4, h * w * FLOP_RESPONSE)
     return dict(name="shi_tomasi_response", route="cuda", source="dynosam_tpu_torch/csrc/response.cu",
-                replaces="dynosam_tpu/ops/pallas/response.py:83", max_abs_err=d,
+                replaces="dynosam_tpu/ops/pallas/response.py:83", max_abs_err=worst,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -328,19 +341,42 @@ def check_orb_sample(torch, frames, device, reps):
     hc, wc = raw.shape
     n = uv.shape[0]
     n_valid = int(sum(int(b[4].sum()) for b in pyr.blocks))
-    ang, desc = k4.orb_orientation_descriptors(raw, blur, uv)
-    ang_p, desc_p = k4.orb_orientation_descriptors_plain(raw, blur, uv)
-    torch.cuda.synchronize()
-    d = (ang - ang_p).abs()
-    da = float(torch.minimum(d, 2 * np.pi - d).max())
-    bits = float((desc == desc_p).float().mean())
-    pm = bool(((desc == 1) | (desc == -1)).all())
-    print(f"K4 orb_orientation_descriptors: canvas {hc}x{wc} ({len(pyr.blocks)} levels), {n} keypoints "
-          f"({n_valid} valid): max |dangle| {da:.3g} rad (tol {ORB_TOL_ANGLE}), bits agree {bits:.6f} "
-          f"(min {ORB_MIN_BITS}), all bits +-1 {pm}", flush=True)
-    _require(np.isfinite(da) and da <= ORB_TOL_ANGLE, f"K4 angles disagree with its plain version: {da}")
-    _require(bits >= ORB_MIN_BITS, f"K4 descriptors disagree with its plain version: {bits}")
-    _require(pm and bool(torch.isfinite(ang).all()), "K4 output not finite or not +-1")
+    # the rows where one level of the canvas ends and the next begins
+    h0 = frames[1].gray.shape[0]
+    heights = [max(int(round(h0 / tc.orb_scale_factor ** lvl)), 1)
+               for lvl, b in enumerate(pyr.blocks) if b[5]]
+    _require(sum(heights) == hc, f"K4: level heights {heights} do not make the {hc}-row canvas")
+    seams = np.cumsum(heights)[:-1]
+    # the main path's call, then keypoint counts that fill no block of the
+    # kernel (4 keypoints a block), then keypoints off the canvas, NaN and
+    # within 15 px of a level seam (their discs and windows cross it)
+    rng = np.random.default_rng(4)
+    sy = np.repeat(seams, 8) + rng.uniform(-15, 15, 8 * len(seams))
+    edge = np.concatenate([
+        np.stack([rng.uniform(0, wc - 1, sy.size), sy], -1),
+        [[-40.0, 3.0], [wc + 5.0, hc + 9.0], [-3.0, hc + 30.0], [0.0, 0.0], [wc - 1.0, hc - 1.0],
+         [np.nan, 20.0], [30.0, np.nan], [np.nan, np.nan]]]).astype(np.float32)
+    groups = (("main path", uv), ("N 1", uv[:1]), ("N 7", uv[:7]), ("N 33", uv[:33]),
+              ("off the canvas, NaN and near the level seams", torch.as_tensor(edge, device=device)))
+    da = 0.0
+    for label, u in groups:
+        ang, desc = k4.orb_orientation_descriptors(raw, blur, u)
+        ang_p, desc_p = k4.orb_orientation_descriptors_plain(raw, blur, u)
+        torch.cuda.synchronize()
+        d = (ang - ang_p).abs()
+        dai = float(torch.minimum(d, 2 * np.pi - d).max())
+        bits = float((desc == desc_p).float().mean())
+        pm = bool(((desc == 1) | (desc == -1)).all())
+        print(f"K4 orb_orientation_descriptors {label}: canvas {hc}x{wc} ({len(heights)} levels), "
+              f"{u.shape[0]} keypoints ({n_valid} valid on the main path): max |dangle| {dai:.3g} rad "
+              f"(tol {ORB_TOL_ANGLE}), bits agree {bits:.6f} (min {ORB_MIN_BITS}), all bits +-1 {pm}", flush=True)
+        _require(np.isfinite(dai) and dai <= ORB_TOL_ANGLE, f"K4 {label}: angles disagree with its plain version: {dai}")
+        _require(bits >= ORB_MIN_BITS, f"K4 {label}: descriptors disagree with its plain version: {bits}")
+        _require(pm and bool(torch.isfinite(ang).all()), f"K4 {label}: output not finite or not +-1")
+        da = max(da, dai)
+        if label == "main path":
+            main = ang, bits
+    ang, bits = main
 
     ms = cuda_ms(torch, lambda: k4.orb_orientation_descriptors(raw, blur, uv), reps)
     plain_ms = cuda_ms(torch, lambda: k4.orb_orientation_descriptors_plain(raw, blur, uv), max(reps // 10, 3))

@@ -14,31 +14,43 @@
 //
 // Arithmetic is float32 with no fused multiply-adds (`__f*_rn`), and the
 // moment sums run in a fixed order that the plain version
-// (`kernels/orb_sample.py:_kernel_order_sum`) repeats: thread t adds
-// elements t, t+256, t+512, t+768 of the zero-padded 1024 offsets; a shuffle
-// butterfly sums each warp; warp sums are added in warp order.
+// (`kernels/orb_sample.py:_kernel_order_sum`) repeats: lane l owns disc
+// column ox = l - 15 (lane 31 holds column 16, all weight 0) and adds its
+// 31 rows top to bottom; a shuffle butterfly then sums the 32 lanes.
 //
 // Bound: bytes.  A frame's call reads the distinct disc and tap pixels of
 // its keypoints (a few MB from L2-resident canvases) and writes 257 bytes
-// per keypoint.  Design: one 256-thread block per keypoint, one thread per
-// BRIEF pair.  The disc is read straight from global memory (each pixel
-// once, row segments coalesced); the blurred 29x29 window around the
-// keypoint is staged in shared memory, clamped at the canvas edge, and
-// serves the 2048 bilinear reads of the 512 taps.  Rotated taps reach at
-// most 12 px (`_PATTERN_CLIP`) plus the +1 bilinear neighbour and float
-// slack, so a +-14 px window holds every read.
-#include <cstdint>
+// per keypoint, about 2 us of the card's bandwidth at 2000 keypoints.  What
+// holds a kernel of this size back is latency: each keypoint is a short
+// chain (disc loads, moments, rotation, taps, store).  Design, against it:
+//   * one warp per keypoint, WARPS keypoints per block, so a frame's 2000
+//     keypoints are resident in one wave (500 blocks, 12 fit on an SM) and
+//     every reduction is a warp butterfly;
+//   * the disc's 31 rows are 31 independent coalesced row loads, one column
+//     per lane, all in flight together;
+//   * before them, the warp issues cp.async copies of the blurred 29x29
+//     window around the keypoint (one row per copy round, lane = column,
+//     rows 29 floats apart, which is odd, so a row's copies and the taps'
+//     reads spread over the banks) and the block copies the 512 pattern taps
+//     into shared memory once; the one block barrier comes after the
+//     moments, so the copies overlap them;
+//   * lane l takes the BRIEF pairs l + 32 j, j = 0..7, and the 256 bytes go
+//     out as 8 coalesced 32-byte warp stores.
+// Rotated taps reach at most 12 px (`_PATTERN_CLIP`) plus the +1 bilinear
+// neighbour and float slack, so the +-14 px window holds every read.
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
 
-#include "common.cuh"
+#include <cstdint>
 
 namespace {
 
 constexpr int kHalf = 15;
-constexpr int kSide = 2 * kHalf + 1;        // 31
-constexpr int kDisc = kSide * kSide;        // 961 offsets
-constexpr int kThreads = 256;               // one per BRIEF pair
-constexpr int kStrides = 4;                 // 4 * 256 >= 961
-constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 2 * kHalf + 1;        // 31 disc rows
+constexpr int kWarps = 4;                   // keypoints per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPairs = 256;
+constexpr int kTaps = 2 * kPairs;           // 512: the a taps, then the b taps
 constexpr int kWinR = 14;
 constexpr int kWin = 2 * kWinR + 1;         // 29
 
@@ -77,82 +89,82 @@ __device__ __forceinline__ float window_bilinear(const float* win, int x0w, int 
 
 __global__ void __launch_bounds__(kThreads)
     orb_sample_kernel(const float* __restrict__ raw, const float* __restrict__ blur, int H, int W,
-                      const float* __restrict__ uv, const float* __restrict__ taps,
+                      const float* __restrict__ uv, int N, const float* __restrict__ taps,
                       float* __restrict__ angle, int8_t* __restrict__ desc) {
-  __shared__ float win[kWin * kWin];
-  __shared__ float part[2][kWarps];
-  const int i = blockIdx.x;
-  const int t = threadIdx.x;
-  float px = uv[2 * i], py = uv[2 * i + 1];
+  __shared__ __align__(16) float2 s_taps[kTaps];
+  __shared__ float s_win[kWarps][kWin * kWin];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int i = blockIdx.x * kWarps + wid;
+  const bool live = i < N;  // warps past N compute at (0, 0) and store nothing
+
+  // the pattern taps, 16 bytes per copy
+  for (int e = threadIdx.x; e < kTaps / 2; e += kThreads)
+    __pipeline_memcpy_async(&s_taps[2 * e], taps + 4 * e, 16);
+
+  float px = live ? uv[2 * i] : 0.f, py = live ? uv[2 * i + 1] : 0.f;
   if (px != px) px = 0.f;  // NaN -> 0, the plain version's sanitisation
   if (py != py) py = 0.f;
 
-  // stage the blurred window around the clipped keypoint (independent of
-  // the moments, so its loads overlap them)
+  // the blurred window around the clipped keypoint, lane = column
+  float* win = s_win[wid];
   const int x0w = (int)floorf(clampf(px, (float)(W - 1))) - kWinR;
   const int y0w = (int)floorf(clampf(py, (float)(H - 1))) - kWinR;
-  for (int e = t; e < kWin * kWin; e += kThreads) {
-    const int gy = clampi(y0w + e / kWin, 0, H - 1);
-    const int gx = clampi(x0w + e % kWin, 0, W - 1);
-    win[e] = __ldg(blur + (size_t)gy * W + gx);
+  if (lane < kWin) {
+    const float* col = blur + clampi(x0w + lane, 0, W - 1);
+#pragma unroll 4
+    for (int r = 0; r < kWin; ++r)
+      __pipeline_memcpy_async(win + r * kWin + lane, col + (size_t)clampi(y0w + r, 0, H - 1) * W,
+                              sizeof(float));
   }
+  __pipeline_commit();
 
-  // intensity-centroid moments; padded offsets (e >= 961) read the centre
-  // with weight 0, as the plain version's zero-padded tables do
+  // intensity-centroid moments: lane l owns column ox = l - 15 of the disc
   const float xr = rintf(px), yr = rintf(py);
+  const int ox = lane - kHalf;
+  const float* col = raw + (int)clampf(__fadd_rn(xr, (float)ox), (float)(W - 1));
+  float v[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k)
+    v[k] = __ldg(col + (size_t)(int)clampf(__fadd_rn(yr, (float)(k - kHalf)), (float)(H - 1)) * W);
   float m10 = 0.f, m01 = 0.f;
 #pragma unroll
-  for (int k = 0; k < kStrides; ++k) {
-    const int e = t + k * kThreads;
-    int ox = 0, oy = 0;
-    float wx = 0.f, wy = 0.f;
-    if (e < kDisc) {
-      oy = e / kSide - kHalf;
-      ox = e % kSide - kHalf;
-      if (ox * ox + oy * oy <= kHalf * kHalf) {
-        wx = (float)ox;
-        wy = (float)oy;
-      }
-    }
-    const int r = (int)clampf(__fadd_rn(yr, (float)oy), (float)(H - 1));
-    const int c = (int)clampf(__fadd_rn(xr, (float)ox), (float)(W - 1));
-    const float v = __ldg(raw + (size_t)r * W + c);
-    const float p10 = __fmul_rn(v, wx), p01 = __fmul_rn(v, wy);
+  for (int k = 0; k < kRows; ++k) {
+    const int oy = k - kHalf;
+    const bool in = ox * ox + oy * oy <= kHalf * kHalf;
+    const float p10 = __fmul_rn(v[k], in ? (float)ox : 0.f);
+    const float p01 = __fmul_rn(v[k], in ? (float)oy : 0.f);
     m10 = (k == 0) ? p10 : __fadd_rn(m10, p10);
     m01 = (k == 0) ? p01 : __fadd_rn(m01, p01);
   }
   m10 = warp_butterfly(m10);
   m01 = warp_butterfly(m01);
-  if ((t & 31) == 0) {
-    part[0][t >> 5] = m10;
-    part[1][t >> 5] = m01;
-  }
-  __syncthreads();  // also publishes the staged window
-  m10 = part[0][0];
-  m01 = part[1][0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) {
-    m10 = __fadd_rn(m10, part[0][w]);
-    m01 = __fadd_rn(m01, part[1][w]);
-  }
 
   const float rr = __fsqrt_rn(__fadd_rn(__fmul_rn(m10, m10), __fmul_rn(m01, m01)));
   const bool r_ok = rr > 0.f;
   const float ca = r_ok ? __fdiv_rn(m10, rr) : 1.f;
   const float sa = r_ok ? __fdiv_rn(m01, rr) : 0.f;
-  if (t == 0) angle[i] = atan2f(m01, m10);
 
-  // this thread's BRIEF pair: tap t (a) against tap t + 256 (b)
-  float v[2];
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the taps and every warp's window are in shared memory
+  if (!live) return;
+  if (lane == 0) angle[i] = atan2f(m01, m10);
+
+  // BRIEF pairs lane + 32 j: tap a = pair, tap b = pair + 256
+  int8_t* out = desc + (size_t)i * kPairs;
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const float ox = __ldg(taps + 2 * (t + s * kThreads));
-    const float oy = __ldg(taps + 2 * (t + s * kThreads) + 1);
-    const float tx = __fsub_rn(__fadd_rn(px, __fmul_rn(ca, ox)), __fmul_rn(sa, oy));
-    const float ty = __fadd_rn(__fadd_rn(py, __fmul_rn(sa, ox)), __fmul_rn(ca, oy));
-    v[s] = window_bilinear(win, x0w, y0w, H, W, tx, ty);
+  for (int j = 0; j < kPairs / 32; ++j) {
+    const int k = lane + 32 * j;
+    float s[2];
+#pragma unroll
+    for (int ab = 0; ab < 2; ++ab) {
+      const float2 o = s_taps[k + ab * kPairs];
+      const float tx = __fsub_rn(__fadd_rn(px, __fmul_rn(ca, o.x)), __fmul_rn(sa, o.y));
+      const float ty = __fadd_rn(__fadd_rn(py, __fmul_rn(sa, o.x)), __fmul_rn(ca, o.y));
+      s[ab] = window_bilinear(win, x0w, y0w, H, W, tx, ty);
+    }
+    out[k] = (s[0] < s[1]) ? int8_t(1) : int8_t(-1);
   }
-  desc[(size_t)i * kThreads + t] = (v[0] < v[1]) ? int8_t(1) : int8_t(-1);
 }
 
 }  // namespace
@@ -161,8 +173,8 @@ extern "C" int dyno_orb_sample(const float* raw, const float* blur, int H, int W
                                int N, const float* taps, float* angle, int8_t* desc,
                                void* stream) {
   if (N > 0) {
-    orb_sample_kernel<<<N, kThreads, 0, (cudaStream_t)stream>>>(raw, blur, H, W, uv, taps,
-                                                                angle, desc);
+    orb_sample_kernel<<<(N + kWarps - 1) / kWarps, kThreads, 0, (cudaStream_t)stream>>>(
+        raw, blur, H, W, uv, N, taps, angle, desc);
   }
   return (int)cudaGetLastError();
 }

@@ -116,9 +116,6 @@ def _gaussian_blur7(img: torch.Tensor) -> torch.Tensor:
     return out
 
 
-_NDISC = 31 * 31     # the 31x31 offsets; K4's tables pad them to 1024
-
-
 def _orientations(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle atan2(m01, m10) over the radius-15 disc of
     one level image (the JAX package's per-level XLA form)."""
@@ -126,11 +123,12 @@ def _orientations(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     dev = uv.device
     xi = torch.round(uv[:, 0]).long()
     yi = torch.round(uv[:, 1]).long()
-    xs = torch.clamp(xi[:, None] + torch.as_tensor(OFF_X[:_NDISC], device=dev)[None], 0, w - 1)
-    ys = torch.clamp(yi[:, None] + torch.as_tensor(OFF_Y[:_NDISC], device=dev)[None], 0, h - 1)
-    vals = img[ys, xs]
-    m10 = vals @ torch.as_tensor(W_X[:_NDISC], device=dev)
-    m01 = vals @ torch.as_tensor(W_Y[:_NDISC], device=dev)
+    # K4's disc tables: 31 rows by 32 columns, the last column weight 0
+    xs = torch.clamp(xi[:, None, None] + torch.as_tensor(OFF_X, device=dev), 0, w - 1)
+    ys = torch.clamp(yi[:, None, None] + torch.as_tensor(OFF_Y, device=dev)[:, None], 0, h - 1)
+    vals = img[ys, xs].reshape(uv.shape[0], -1)
+    m10 = vals @ torch.as_tensor(W_X.reshape(-1), device=dev)
+    m01 = vals @ torch.as_tensor(W_Y.reshape(-1), device=dev)
     return torch.atan2(m01, m10)
 
 

@@ -18,15 +18,18 @@ Contract (the Pallas kernel's), per keypoint (x, y) in canvas pixels:
   else -1.
 
 Everything is float32.  The plain version repeats the kernel's arithmetic
-operation for operation (the moment sums in the kernel's order: four
-strided partial sums per thread, a butterfly within each warp, the 8 warps
-in order; no fused multiply-adds), so on the card the two agree bit for
-bit unless `atan2` differs in its last place.
+operation for operation (the moment sums in the kernel's order: each of
+32 disc columns summed over its 31 rows top to bottom, then a butterfly
+over the 32 columns; no fused multiply-adds), so on the card the two agree
+bit for bit unless `atan2` differs in its last place.
 
-Bound on the card: bytes — the distinct pixels the discs and taps read
-(a few MB at 2000 keypoints), tens of kB of coordinates and outputs.  One
-256-thread block per keypoint stages the 29x29 blurred window in shared
-memory for the 512 taps; the disc is read straight from L2.
+Bound on the card: bytes -- the distinct pixels the discs and taps read
+(a few MB at 2000 keypoints), tens of kB of coordinates and outputs; what
+holds it back is each keypoint's short chain of dependent steps.  One warp
+per keypoint (4 per block), so a frame's keypoints are resident in one
+wave: the disc is 31 coalesced row loads, one column per lane; the blurred
+29x29 window and the 512 pattern taps are copied into shared memory with
+`cp.async` while the moments are summed.
 
 `orb_orientation_descriptors` launches the kernel for CUDA tensors and runs
 `orb_orientation_descriptors_plain` for CPU tensors; there is no fallback.
@@ -46,7 +49,6 @@ HALF_PATCH = 15               # orientation patch radius (ORBextractor HALF_PATC
 _PATTERN_SIGMA = 31.0 / 5.0   # BRIEF: sigma^2 = patch^2 / 25
 _PATTERN_CLIP = 12.0          # keep rotated taps inside the blurred patch
 N_BITS = 256
-_THREADS = 256                # the kernel's block: one thread per BRIEF pair
 
 
 def brief_pattern(n_bits: int = N_BITS, seed: int = 42) -> np.ndarray:
@@ -63,15 +65,13 @@ PATTERN = brief_pattern()
 # the 512 taps de-interleaved: the a tap of every pair, then the b taps
 TAPS = np.ascontiguousarray(np.concatenate([PATTERN[:, 0], PATTERN[:, 1]], axis=0))
 
-# disc weights over the 31x31 offsets, row-major, zero-padded to the
-# kernel's 4 x 256 per-thread strides
-_oy, _ox = np.mgrid[-HALF_PATCH:HALF_PATCH + 1, -HALF_PATCH:HALF_PATCH + 1]
-_circ = (_ox ** 2 + _oy ** 2) <= HALF_PATCH ** 2
-_NPAD = 4 * _THREADS
-OFF_X = np.pad(_ox.reshape(-1), (0, _NPAD - _ox.size)).astype(np.int64)
-OFF_Y = np.pad(_oy.reshape(-1), (0, _NPAD - _oy.size)).astype(np.int64)
-W_X = np.pad((_ox * _circ).reshape(-1), (0, _NPAD - _ox.size)).astype(np.float32)
-W_Y = np.pad((_oy * _circ).reshape(-1), (0, _NPAD - _oy.size)).astype(np.float32)
+# disc weights over 31 rows (oy = -15..15) by 32 columns (ox = -15..16),
+# the kernel's one column per lane; column 16 lies outside the disc
+OFF_Y = np.arange(-HALF_PATCH, HALF_PATCH + 1)
+OFF_X = np.arange(-HALF_PATCH, HALF_PATCH + 2)
+_circ = (OFF_X[None, :] ** 2 + OFF_Y[:, None] ** 2) <= HALF_PATCH ** 2
+W_X = (OFF_X[None, :] * _circ).astype(np.float32)
+W_Y = (OFF_Y[:, None] * _circ).astype(np.float32)
 
 _consts: dict = {}
 
@@ -91,19 +91,15 @@ def _device_consts(dev) -> dict:
 
 
 def _kernel_order_sum(p: torch.Tensor) -> torch.Tensor:
-    """(N, 1024) -> (N,): the kernel's summation order.  Thread t adds
-    elements t, t+256, t+512, t+768 in turn; each warp halves its 32 lanes
-    five times (a shuffle butterfly); the 8 warp sums are added in order."""
-    acc = p[:, 0:256] + p[:, 256:512]
-    acc = acc + p[:, 512:768]
-    acc = acc + p[:, 768:1024]
-    x = acc.reshape(-1, 8, 32)
+    """(N, 31, 32) -> (N,): the kernel's summation order.  Lane l adds the
+    31 rows of column l top to bottom; a shuffle butterfly then halves the
+    32 lanes five times, lane l adding lane l + half."""
+    acc = p[:, 0]
+    for k in range(1, p.shape[1]):
+        acc = acc + p[:, k]
     for half in (16, 8, 4, 2, 1):
-        x = x[..., :half] + x[..., half:2 * half]
-    s = x[:, 0, 0]
-    for w in range(1, 8):
-        s = s + x[:, w, 0]
-    return s
+        acc = acc[:, :half] + acc[:, half:2 * half]
+    return acc[:, 0]
 
 
 def orb_orientation_descriptors_plain(raw: torch.Tensor, blur: torch.Tensor, uv: torch.Tensor):
@@ -114,9 +110,9 @@ def orb_orientation_descriptors_plain(raw: torch.Tensor, blur: torch.Tensor, uv:
     uv = torch.nan_to_num(uv, nan=0.0)
     px, py = uv[:, 0:1], uv[:, 1:2]
     # intensity-centroid moments over the clipped disc of the raw canvas
-    rows = torch.clamp(torch.round(py) + c["off_y"], 0, h - 1)
-    cols = torch.clamp(torch.round(px) + c["off_x"], 0, w - 1)
-    vals = raw.reshape(-1)[rows.long() * w + cols.long()]                  # (N, 1024)
+    rows = torch.clamp(torch.round(py)[:, :, None] + c["off_y"][:, None], 0, h - 1)   # (N, 31, 1)
+    cols = torch.clamp(torch.round(px)[:, :, None] + c["off_x"][None, :], 0, w - 1)   # (N, 1, 32)
+    vals = raw.reshape(-1)[rows.long() * w + cols.long()]                  # (N, 31, 32)
     m10 = _kernel_order_sum(vals * c["w_x"])
     m01 = _kernel_order_sum(vals * c["w_y"])
     r = torch.sqrt(m10 * m10 + m01 * m01)

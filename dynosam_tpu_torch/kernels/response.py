@@ -8,9 +8,15 @@ borders included: Sobel x 1/8 on the edge-replicated image, 5x5 box sums of
 the gradient products taken as zero outside the image and divided by 25,
 then lambda_min.  CUDA source: `csrc/response.cu`.
 
-Bound on the card: bytes — one read and one write per pixel.  The kernel
-computes one 32x16 tile per block from a 3-pixel-halo tile in shared memory,
-so no intermediate image reaches device memory.
+Bound on the card: bytes -- one read and one write per pixel.  One warp
+walks down a strip of 8 output rows of a 28-column band, lane l owning
+product column l - 2: each step loads one image row, forms the three
+gradient products once, keeps the last five product rows in registers for
+the vertical 5-sums and adds lanes l..l+4 with shuffles for the horizontal
+ones, so no intermediate reaches memory, not even shared memory.  Its
+arithmetic is `shi_tomasi_response_plain`'s as PyTorch runs it on the card
+(separable box sums, vertical then horizontal, ascending), so there the
+two agree bit for bit.
 
 The plain version takes the box sums directly (a separable sum of shifted
 copies); `_fast`'s f32 integral image carries cancellation error that a

@@ -150,6 +150,20 @@ def test_k3_response_matches_plain(cuda, frames):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("shape", [(37, 53), (5, 1290), (400, 7), (1, 1), (384, 1280)])
+def test_k3_response_on_shapes_off_its_tile(cuda, shape):
+    """K3 against its plain version on uniform noise at shapes that are no
+    multiple of its 28-column by 32-row block tile, down to one pixel, and
+    at the KITTI frame's 384x1280: 1e-5 of max |response| (a 1x1 image has
+    response 0 in both)."""
+    g = torch.as_tensor(np.random.default_rng(sum(shape)).uniform(0, 255, shape).astype(np.float32), device=cuda)
+    got = response.shi_tomasi_response(g)
+    want = response.shi_tomasi_response_plain(g)
+    torch.cuda.synchronize()
+    assert got.shape == shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def test_pipeline_launches_every_kernel_on_every_steady_frame(cuda, frames):
     """Four frames of the frontend-only pipeline on the card: finite poses,
     and K1, K2 and K3 each launched on every frame after the first (K4, the
@@ -176,25 +190,34 @@ def test_pipeline_launches_every_kernel_on_every_steady_frame(cuda, frames):
     assert pkt.X_world.t.device.type == "cuda"
 
 
-def test_k4_orb_sample_matches_plain(cuda, frames):
-    """K4 against its plain version on a two-level 192x256 canvas with the
-    keypoints `extract_orb` selects there, plus keypoints off the canvas
-    and on its edges: the plain version repeats the kernel's arithmetic,
-    so angles agree to 1e-5 rad and at least 99.9 % of the bits agree."""
+@pytest.mark.parametrize("n", [1, 7, 33, 2000])
+def test_k4_orb_sample_matches_plain(cuda, frames, n):
+    """K4 against its plain version on a two-level 192x256 canvas at n
+    keypoints: counts that fill no block of the kernel (4 keypoints a block)
+    and a frame's 2000.  The first keypoint is one `extract_orb` selects;
+    then come keypoints off the canvas, on its corners, NaN ones and ones
+    within 15 px of the seam between the levels (row 192), then the
+    selected keypoints, then random ones.  The plain version repeats the
+    kernel's arithmetic, so angles agree to 1e-5 rad and at least 99.9 % of
+    the bits agree."""
     from dynosam_tpu_torch.frontend import orb
 
     pyr = orb.orb_pyramid(frames[0].gray, n_features=400, n_levels=2)
     hc, wc = pyr.canvas_raw.shape
-    extra = torch.tensor([[-40.0, 3.0], [wc + 5.0, hc + 9.0], [0.0, 0.0], [wc - 1.0, hc - 1.0], [7.5, 8.5]],
-                         device=cuda)
-    uv = torch.cat([pyr.canvas_uv, extra]).contiguous()
+    nan = float("nan")
+    edge = torch.tensor([[-40.0, 3.0], [wc + 5.0, hc + 9.0], [0.0, 0.0], [wc - 1.0, hc - 1.0], [7.5, 8.5],
+                         [nan, 20.0], [30.0, nan], [100.3, 188.4], [150.5, 206.2], [60.0, 192.0],
+                         [3.0, 177.5], [wc - 2.0, 199.0]], device=cuda)
+    rng = np.random.default_rng(n)
+    rand = torch.as_tensor(rng.uniform([-20, -20], [wc + 20, hc + 20], (n, 2)).astype(np.float32), device=cuda)
+    uv = torch.cat([pyr.canvas_uv[:1], edge, pyr.canvas_uv[1:], rand])[:n].contiguous()
     kernels.reset_launch_counts()
     ang, desc = orb_sample.orb_orientation_descriptors(pyr.canvas_raw, pyr.canvas_blur, uv)
     ang_p, desc_p = orb_sample.orb_orientation_descriptors_plain(pyr.canvas_raw, pyr.canvas_blur, uv)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["orb_sample"] == 1
-    assert desc.dtype == torch.int8 and desc.shape == (uv.shape[0], 256)
-    assert bool(((desc == 1) | (desc == -1)).all())
+    assert ang.shape == (n,) and desc.dtype == torch.int8 and desc.shape == (n, 256)
+    assert bool(((desc == 1) | (desc == -1)).all()) and bool(torch.isfinite(ang).all())
     d = (ang - ang_p).abs()
     assert float(torch.minimum(d, 2 * np.pi - d).max()) <= 1e-5
     assert float((desc == desc_p).float().mean()) >= 0.999

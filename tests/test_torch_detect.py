@@ -55,6 +55,19 @@ def test_k3_plain_matches_fast_whole_image(rng, scene_frame, source):
     assert np.abs(got - want).max() / scale < 1e-4
 
 
+@pytest.mark.parametrize("shape", [(37, 53), (5, 1290), (400, 7), (1, 1)])
+def test_k3_plain_matches_fast_on_odd_and_tiny_shapes(shape):
+    """K3 plain == `shi_tomasi_response_fast` on shapes that are no
+    multiple of the kernel's 28x32 block tile, down to one pixel, borders
+    included (uniform noise from numpy): 1e-4 of max |response|, as on the
+    whole images above (a 1x1 image has response 0 in both)."""
+    g = np.random.default_rng(sum(shape)).uniform(0, 255, shape).astype(np.float32)
+    want = np.asarray(jdet.shi_tomasi_response_fast(jnp.asarray(g)))
+    got = shi_tomasi_response_plain(T(g)).numpy()
+    assert got.shape == want.shape == shape
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
 def test_k3_plain_matches_pallas_interior(rng):
     """K3 plain == the Pallas response kernel (interpret) in the interior
     [4:-4] (the Pallas body edge-replicates its box sums, `_fast` and the

@@ -136,14 +136,46 @@ def test_k4_plain_on_a_canvas_matches_jax_xla_and_pallas(frames, rng):
 
 def test_k4_plain_sums_in_kernel_order(rng):
     """The kernel-order moment sum equals a float64 sum to float32
-    rounding, and keypoints off the canvas clip instead of failing."""
-    p = rng.normal(0, 100, (5, 1024)).astype(np.float32)
+    rounding, and repeats the kernel's order exactly: each of the 32 disc
+    columns (one per lane) summed over its 31 rows top to bottom, then a
+    shuffle butterfly (lane l adds lane l ^ o for o = 16, 8, 4, 2, 1),
+    emulated here lane by lane in float32.  Keypoints off the canvas clip
+    instead of failing."""
+    p = rng.normal(0, 100, (5, 31, 32)).astype(np.float32)
     got = tk4._kernel_order_sum(T(p)).numpy()
-    np.testing.assert_allclose(got, p.astype(np.float64).sum(1), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got, p.astype(np.float64).sum((1, 2)), rtol=0, atol=1e-3)
+    lanes = p[:, 0].copy()
+    for k in range(1, 31):
+        lanes = lanes + p[:, k]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, np.arange(32) ^ o]
+    assert (lanes == lanes[:, :1]).all()           # every lane holds the sum
+    np.testing.assert_array_equal(got, lanes[:, 0])
     raw = rng.uniform(0, 255, (40, 50)).astype(np.float32)
     uv = np.float32([[-30, 5], [70, 60], [25, 20], [np.nan, 3]])
     ang, desc = tk4.orb_orientation_descriptors_plain(T(raw), T(raw), T(uv))
     assert np.isfinite(ang.numpy()).all() and set(np.unique(desc.numpy())) <= {-1, 1}
+
+
+@pytest.mark.parametrize("n", [1, 7, 33])
+def test_k4_plain_at_counts_that_fill_no_block(frames, n):
+    """The plain K4 at keypoint counts that fill neither the kernel's block
+    (4 keypoints) nor the Pallas kernel's (16), on one 192x256 level inside
+    the 19 px edge margin: against JAX's Pallas kernel (interpret mode) and
+    its per-level XLA forms `_orientations` / `_descriptors`; angle
+    < 1e-3 rad, bits > 0.995, the comparisons above."""
+    g = np.asarray(frames[1].gray)
+    blur = np.asarray(jorb._gaussian_blur7(jnp.asarray(g)))
+    uv = np.random.default_rng(n).uniform([19, 19], [236, 172], (n, 2)).astype(np.float32)
+    ang_x = np.asarray(jorb._orientations(jnp.asarray(g), jnp.asarray(uv)))
+    desc_x = np.asarray(jorb._descriptors(jnp.asarray(blur), jnp.asarray(uv), jnp.asarray(ang_x)))
+    ang_p, desc_p = jk4.orb_orientation_descriptors(jnp.asarray(g), jnp.asarray(blur), jnp.asarray(uv),
+                                                    interpret=True)
+    ang_t, desc_t = tk4.orb_orientation_descriptors(T(g), T(blur), T(uv))
+    assert ang_t.shape == (n,) and desc_t.shape == (n, 256)
+    for ang, desc in ((ang_x, desc_x), (np.asarray(ang_p), np.asarray(desc_p))):
+        assert _angle_err(ang_t.numpy(), ang).max() < ANGLE_TOL
+        assert (desc_t.numpy() == desc).mean() > BITS_MIN
 
 
 def test_extract_orb_matches_jax(extracted):
