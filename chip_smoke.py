@@ -35,7 +35,19 @@ no result line:
 5. ORB path -- the same pipeline and frames with the ORB detector
              (`testing/scenes.py:kitti_orb_config`): the same report; fails
              unless K4, K1 and K2 launched on every steady frame and K3 on
-             none, or the ATE is above 0.05 m.
+             none, or the ATE is above 0.05 m;
+6. pipeline path -- the offline pipeline with the sliding-window backend
+             (`throughput.make_offline_runner`, `kitti_pipeline_config`:
+             window 10, overlap 4, 7 LM iterations) over 22 rendered frames
+             of the same scene (4 + 3 segments of 6: three window solves,
+             two warm-started from the previous write-back): ms per frame
+             and frames/s, each window's solve time between CUDA events,
+             LM iterations, initial and final error, host reads (counted
+             by PyTorch's sync debug mode) and objects with an active
+             motion; fails unless K1, K2 and K3 launched on every frame
+             after the first and K4 on none, every window's final error is
+             finite and below its initial error, the estimate store covers
+             frames 0..21 and the backend camera ATE is under 0.06 m.
 
 Launch counts are set to 0 just before each path and read just after it.
 
@@ -50,6 +62,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -72,6 +85,8 @@ RESP_TOL_REL = 1e-5    # response, relative to max |response|
 ORB_TOL_ANGLE = 1e-5   # rad
 ORB_MIN_BITS = 0.999   # share of descriptor bits that agree
 ATE_LIMIT_M = 0.05
+BACKEND_ATE_LIMIT_M = 0.06   # the JAX sliding-window band (tests/test_accuracy_regression.py:162)
+PIPELINE_FRAMES = 22         # overlap 4 + 3 segments of stride 6
 
 # FLOPs counted per unit of work (adds, subtracts, multiplies, divides,
 # square roots; clamps and index arithmetic not counted).
@@ -87,7 +102,8 @@ FLOP_ORB_TAP = 8 + FLOP_BILINEAR   # rotation (4 products, 4 sums), bilinear sam
 
 # the kernels of each path, and each kernel's name in `kernels.launch_counts()`
 PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response"),
-                "orb": ("orb_sample", "lk", "point_sample")}
+                "orb": ("orb_sample", "lk", "point_sample"),
+                "pipeline": ("lk", "point_sample", "response")}
 COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
            "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample"}
 
@@ -477,6 +493,94 @@ def report_path(res, label, required, frames, card) -> None:
     _require(np.isfinite(res["ate"]) and res["ate"] <= ATE_LIMIT_M, f"{label}: ATE {res['ate']} m")
 
 
+class SyncCounter:
+    """Counts the host synchronisations PyTorch reports in its sync debug
+    mode ("warn": one warning per synchronising call) inside the block."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.count = 0
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self.count = sum("synchroniz" in str(w.message) for w in self._log)
+        self._catch.__exit__(*exc)
+        return False
+
+
+def run_pipeline_path(torch, device, card) -> dict:
+    """Drive the offline pipeline (frontend every frame, window solve every
+    6 frames) over PIPELINE_FRAMES rendered frames; launch counts are
+    zeroed just before the run and read after each frame."""
+    from dynosam_tpu_torch import kernels
+    from dynosam_tpu_torch.testing.scenes import kitti_pipeline_config, kitti_scene
+    from dynosam_tpu_torch.throughput import make_offline_runner
+
+    n = PIPELINE_FRAMES
+    scene, frames = kitti_scene(device, n_frames=n)
+    runner = make_offline_runner(scene.cam, kitti_pipeline_config(n), n, device=device)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    prev = kernels.launch_counts()
+    per_frame, times, reads = [], [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        runner.frontend(f)
+        start = runner.window_due()
+        if start is not None:
+            with SyncCounter(torch) as sc:
+                runner.solve(start)
+            reads.append(sc.count)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        now = kernels.launch_counts()
+        per_frame.append({k: now[k] - prev[k] for k in now})
+        prev = now
+    totals = kernels.launch_counts()
+    out = runner.result()
+    label = "pipeline path"
+    h, w = frames[0].gray.shape
+    print(f"{label}: frontend + window-10 backend, {n} frames {w}x{h}: {n / sum(times):.2f} frames/s, "
+          f"{sum(times) / n * 1e3:.1f} ms/frame over all {n} frames (host clock, synchronised) on {card}",
+          flush=True)
+    print(f"{label}: ms per frame {[round(t * 1e3, 1) for t in times]}", flush=True)
+    for k, lf in enumerate(per_frame):
+        print(f"{label}: frame {k} launches {lf}", flush=True)
+    _require(len(out.windows) == 3, f"{label}: {len(out.windows)} window solves, not 3")
+    for win, n_reads in zip(out.windows, reads):
+        r = win.result
+        err0, err = float(r.initial_error), float(r.error)
+        n_motion = int(win.masks.motion_active.any(0).sum())
+        print(f"{label}: window [{win.start}, {win.start + 10}): solve {win.solve_ms():.2f} ms (CUDA events), "
+              f"{r.iterations} LM iterations, error {err0:.6g} -> {err:.6g}, host reads {n_reads} "
+              f"(the LM reads once per iteration: {r.iterations}), objects with an active motion {n_motion} "
+              f"on {card}", flush=True)
+        _require(np.isfinite(err) and err < err0, f"{label}: window {win.start} error {err0} -> {err}")
+    for k in range(1, n):
+        missing = [name for name in PATH_KERNELS["pipeline"] if per_frame[k][name] < 1]
+        _require(not missing, f"{label}, frame {k}: kernels {missing} never launched")
+    stray = [name for name, c in totals.items() if name not in PATH_KERNELS["pipeline"] and c > 0]
+    _require(not stray, f"{label}: kernels {stray} launched off their path")
+    est = out.est
+    _require(bool(est.X_valid[:n].all()), f"{label}: the estimate store misses frames {est.X_valid[:n]}")
+    X = est.X.t[:n].double().cpu().numpy()
+    _require(bool(np.isfinite(X).all()), f"{label}: backend poses are not finite")
+    gt = np.stack([x.t.double().cpu().numpy() for x in scene.X_gt[:n]])
+    fe = np.stack([p.X_world.t.double().cpu().numpy() for p in out.packets])
+    ate, fe_ate = ate_rmse(X, gt), ate_rmse(fe, gt)
+    print(f"{label}: backend camera ATE {ate:.5f} m (limit {BACKEND_ATE_LIMIT_M}), frontend {fe_ate:.5f} m",
+          flush=True)
+    _require(np.isfinite(ate) and ate < BACKEND_ATE_LIMIT_M, f"{label}: backend ATE {ate} m")
+    return dict(totals=totals)
+
+
 def main() -> int:
     try:
         import torch
@@ -536,6 +640,8 @@ def _run(torch) -> int:
     for path, label, cfg in (("shi_tomasi", "main path", kitti_config()), ("orb", "ORB path", kitti_orb_config())):
         paths[path] = res = run_main_path(torch, scene, frames, cfg, device)
         report_path(res, label, PATH_KERNELS[path], frames, card)
+
+    paths["pipeline"] = run_pipeline_path(torch, device, card)
 
     for r in rows:
         by_path = {p: paths[p]["totals"][COUNTER[r["name"]]] for p in paths}

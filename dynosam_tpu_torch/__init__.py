@@ -6,9 +6,11 @@ and imports neither JAX nor anything of `dynosam_tpu`.  Every Pallas kernel
 on the ported path has a hand-written Hopper (sm_90a) CUDA kernel under
 `csrc/`, bound through `kernels/` with a plain PyTorch version beside it.
 
-Entry points (`pipeline.DynoPipeline`, `frontend.frontend.frontend_step`,
-`testing.render.RenderedScene`) run on the CUDA device unless the caller
-passes `device="cpu"`; without a card and without that request they raise.
+Entry points (`throughput.run_offline` for the frontend with the
+sliding-window backend, `pipeline.DynoPipeline` for the frontend alone,
+`frontend.frontend.frontend_step`, `testing.render.RenderedScene`) run on
+the CUDA device unless the caller passes `device="cpu"`; without a card
+and without that request they raise.
 """
 
 __all__ = ["__version__"]

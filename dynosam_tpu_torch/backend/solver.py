@@ -1,6 +1,6 @@
 """LM building blocks shared by the solvers (port of the parts of
-`dynosam_tpu/backend/solver.py` the frontend refiners use; the
-matrix-free LM-PCG engine waits for the backend slices).
+`dynosam_tpu/backend/solver.py` that the frontend refiners and the window
+solve use; the matrix-free LM-PCG engine is ROADMAP.md item 12).
 
 Values are dicts of tensors and `SE3` leaves; SE3 leaves retract on the
 manifold with 6-dof tangents, plain tensors add."""

@@ -10,7 +10,11 @@ still imports nothing of JAX:
 * `frontend_state_from_numpy` / `tracker_state_from_numpy` — a state whose
   leaves are numpy arrays (e.g. `jax.tree.map(np.asarray, state)`), matched
   by field name, the ORB descriptors `s_desc` included;
-* `frontend_output_to_numpy` — any packet / state of the port to numpy.
+* `frontend_output_from_numpy`, `measurement_map_from_numpy`,
+  `window_data_from_numpy` and `est_store_from_numpy` — the JAX packet and
+  backend state (numpy leaves), matched by field name;
+* `frontend_output_to_numpy` / `lm_result_to_numpy` — any packet, state or
+  LM result of the port to numpy.
 """
 
 from __future__ import annotations
@@ -18,9 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .backend.map import MeasurementMap, WindowData
 from .core.camera import CameraParams
 from .core.lie import SE3
+from .core.types import DynamicObs, FrontendOutput, ObjectObs, StaticObs
 from .frontend.frontend import FrontendState
+from .throughput import EstStore
 from .frontend.tracker import TrackerState
 from .utils.config import DynoConfig, _update_dataclass
 from .utils.device import resolve_device
@@ -72,11 +79,56 @@ def frontend_state_from_numpy(src, device=None) -> FrontendState:
     return FrontendState(*vals)
 
 
+def _tuple_from_numpy(cls, src, device, nested=()):
+    """`cls` (a NamedTuple of the port) from `src`, field by field: SE3
+    leaves from objects with R and t, the `nested` fields recursively,
+    everything else as a tensor."""
+    nested = dict(nested)
+    vals = []
+    for f in cls._fields:
+        v = getattr(src, f)
+        if f in nested:
+            vals.append(_tuple_from_numpy(nested[f], v, device))
+        elif hasattr(v, "R") and hasattr(v, "t"):
+            vals.append(_se3(v, device))
+        else:
+            vals.append(_leaf(v, device))
+    return cls(*vals)
+
+
+def frontend_output_from_numpy(src, device=None) -> FrontendOutput:
+    """A JAX `FrontendOutput` packet (numpy leaves) as the port's, on
+    `device` resolved as `tracker_state_from_numpy`."""
+    return _tuple_from_numpy(FrontendOutput, src, resolve_device(device), nested=(
+        ("static_obs", StaticObs), ("dynamic_obs", DynamicObs), ("objects", ObjectObs)))
+
+
+def measurement_map_from_numpy(src, device=None) -> MeasurementMap:
+    return _tuple_from_numpy(MeasurementMap, src, resolve_device(device))
+
+
+def window_data_from_numpy(src, device=None) -> WindowData:
+    """A JAX `WindowData`; its traced `start` becomes a Python int."""
+    w = _tuple_from_numpy(WindowData, src, resolve_device(device))
+    return w._replace(start=int(np.asarray(src.start)))
+
+
+def est_store_from_numpy(src, device=None) -> EstStore:
+    return _tuple_from_numpy(EstStore, src, resolve_device(device))
+
+
 def frontend_output_to_numpy(tree):
-    """Every tensor of a (nested) NamedTuple of the port as a numpy array,
-    the structure kept."""
+    """Every tensor of a (nested) NamedTuple or dict of the port as a numpy
+    array, the structure kept."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(frontend_output_to_numpy(x) for x in tree))
+    if isinstance(tree, dict):
+        return {k: frontend_output_to_numpy(v) for k, v in tree.items()}
     return tree
+
+
+def lm_result_to_numpy(result):
+    """An `LMResult` of the port (values dict included) with numpy leaves."""
+    return frontend_output_to_numpy(result)

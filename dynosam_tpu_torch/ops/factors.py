@@ -1,12 +1,35 @@
-"""Factor residuals used by the frontend refiners (port of the matching
-functions of `dynosam_tpu/ops/factors.py`)."""
+"""Factor residuals of the frontend refiners and the WorldMotion backend
+(port of the matching functions of `dynosam_tpu/ops/factors.py`).
+
+Pose residuals use the [omega, v] tangent ordering of `core/lie.py`."""
 
 from __future__ import annotations
 
 import torch
 
 from ..core.camera import CameraParams, backproject, project_local
-from ..core.lie import SE3, se3_apply, se3_inverse
+from ..core.lie import SE3, se3_apply, se3_between, se3_inverse, se3_local, se3_log
+
+
+def pose_to_point_residual(X: SE3, p_world: torch.Tensor, measured_local: torch.Tensor):
+    """e = X^-1 p_w - z (gtsam PoseToPointFactor)."""
+    return se3_apply(se3_inverse(X), p_world) - measured_local
+
+
+def between_residual(a: SE3, b: SE3, measured: SE3):
+    """e = Log(Z^-1 a^-1 b) (gtsam BetweenFactor)."""
+    return se3_local(measured, se3_between(a, b))
+
+
+def prior_residual(x: SE3, prior: SE3):
+    """e = Log(prior^-1 x)."""
+    return se3_local(prior, x)
+
+
+def motion_smoothing_residual(H_prev: SE3, H_cur: SE3):
+    """Constant-motion BetweenFactor(H_{k-1}, H_k, I) of the WorldMotion
+    formulation."""
+    return se3_log(se3_between(H_prev, H_cur))
 
 
 def landmark_motion_ternary_residual(m_prev: torch.Tensor, m_cur: torch.Tensor, H: SE3):

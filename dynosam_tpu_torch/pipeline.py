@@ -1,8 +1,9 @@
 """Pipeline manager (port of `dynosam_tpu/pipeline.py`, frontend-only).
 
-A host loop dispatching one frontend step per frame.  The backend
-(`use_backend=True`) is ported by the next slice (ROADMAP.md items 8-10)
-and raises here.
+A host loop dispatching one frontend step per frame.  The online backend
+(`use_backend=True`, the JAX package's `RGBDBackend`) is ROADMAP.md item 13
+and raises here; `throughput.run_offline` runs the frontend with the
+sliding-window backend.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ class DynoPipeline:
                  device=None, seed: int = 0):
         if cfg.pipeline.use_backend:
             raise NotImplementedError(
-                "use_backend=True is ported by ROADMAP.md items 8-10 (the "
-                "backend window slice); set PipelineConfig(use_backend=False)"
+                "use_backend=True (the online RGBDBackend) is ported by ROADMAP.md item 13; "
+                "dynosam_tpu_torch.throughput.run_offline runs the sliding-window backend, "
+                "or set PipelineConfig(use_backend=False)"
             )
         check_frontend_config(cfg.frontend)
         self.device = resolve_device(device)

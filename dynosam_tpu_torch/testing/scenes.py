@@ -8,7 +8,9 @@ camera/object step 0.10/0.18 m, N(0, 0.5) px flow noise from numpy seed 0;
 `kitti_orb_config` is the same with the ORB detector, the JAX sweep's
 "frontend ORB detector" setting (`scripts/tpu_sweep.py:64-72,97-99`):
 8 levels at scale 1.2, FAST thresholds 20/7, 2000 keypoints before the
-1000-feature cut.
+1000-feature cut.  `kitti_pipeline_config` is the bench's pipeline setting
+(`bench.py:285-328`): the same frontend with the sliding-window backend
+(window 10, overlap 4, 7 LM iterations).
 """
 
 from __future__ import annotations
@@ -18,7 +20,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..utils.config import CapacityConfig, DynoConfig, FrontendConfig, PipelineConfig, TrackerConfig
+from ..utils.config import (
+    BackendConfig,
+    CapacityConfig,
+    DynoConfig,
+    FrontendConfig,
+    PipelineConfig,
+    TrackerConfig,
+)
 from .render import RenderConfig, RenderedScene
 
 
@@ -51,3 +60,16 @@ def kitti_orb_config() -> DynoConfig:
     cfg = kitti_config()
     tracker = dataclasses.replace(cfg.frontend.tracker, feature_detector_type="orb")
     return dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, tracker=tracker))
+
+
+def kitti_pipeline_config(n_frames: int) -> DynoConfig:
+    """Frontend every frame and a window-10 direct-Schur solve every 6
+    frames (compaction caps 1024/1024/8, Huber 1e-4: the backend
+    defaults), for a run of `n_frames` frames."""
+    return DynoConfig(
+        frontend=FrontendConfig(tracker=TrackerConfig(max_features_per_frame=1000)),
+        backend=BackendConfig(use_full_batch_opt=False, lm_max_iterations=7),
+        capacity=CapacityConfig(max_static_tracks=2048, max_dynamic_tracks=4096, max_objects=16,
+                                max_frames=n_frames),
+        pipeline=PipelineConfig(use_backend=True),
+    )

@@ -1,19 +1,30 @@
-"""Where the frontend-only pipeline of the port spends a frame.
+"""Where the port's pipeline spends a frame.
 
     python3 -m dynosam_tpu_torch.testing.trace [--detector {shi_tomasi,orb}] [--frames 12] [--warmup 4]
                                                [--out chiprun_out] [--chrome]
+    python3 -m dynosam_tpu_torch.testing.trace --pipeline [--frames 22] [--warmup 10]
 
-Needs one NVIDIA card.  Renders the KITTI-width scene (`testing/scenes.py`),
-runs the frontend-only pipeline with the chosen detector (`kitti_config`,
-or `kitti_orb_config` for ORB) over the warm-up frames, then traces the
-remaining frames with `torch.profiler` (CPU and CUDA activities) and prints,
-per traced frame: host wall time and device busy time (kernels, copies and
-fills on the card) of the traced run, the device's idle share in that run,
-CUDA kernel launches, memcpy and synchronise calls (the host syncs), the
-device time of the port's own kernels, then the operators that take the
-most device and host time.  Every number comes from the one profiled run;
-the profiler's own host cost is in its wall time.  With `--chrome` the
-Chrome trace goes to `<out>/trace_frontend_torch.json`.
+Needs one NVIDIA card.  Renders the KITTI-width scene (`testing/scenes.py`).
+
+Frontend-only (default): runs the pipeline with the chosen detector
+(`kitti_config`, or `kitti_orb_config` for ORB) over the warm-up frames,
+then traces the remaining frames with `torch.profiler` (CPU and CUDA
+activities) and prints, per traced frame: host wall time and device busy
+time (kernels, copies and fills on the card) of the traced run, the
+device's idle share in that run, CUDA kernel launches, memcpy and
+synchronise calls (the host syncs), the device time of the port's own
+kernels, then the operators that take the most device and host time.
+
+`--pipeline`: the offline pipeline with the sliding-window backend
+(`throughput.make_offline_runner` on `kitti_pipeline_config`; the frame
+count must be 4 + a multiple of 6).  After the warm-up frames, each traced
+frame's frontend step and, on the frames that complete a window, its
+window solve are profiled apart: the same figures for the frontend frames
+and for each window solve, then the operators of the window solves.
+
+Every number comes from a profiled run; the profiler's own host cost is in
+its wall time.  With `--chrome` the Chrome trace of the last profiled
+region goes to `<out>/trace_*_torch*.json`.
 """
 
 from __future__ import annotations
@@ -25,21 +36,159 @@ import sys
 import time
 from pathlib import Path
 
+PORT_KERNELS = ("lk_level_kernel", "point_sample_kernel", "shi_tomasi_kernel", "orb_sample_kernel")
+
+
+def _stats(torch, prof, wall_ms: float, n: int) -> dict:
+    """Per-unit (frame or window) figures of one profiled run over n units."""
+    events = prof.key_averages()
+    # device activity: the kernels, copies and fills on the card's timeline
+    # (operator rows of `key_averages` repeat their kernels' time)
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.time_range.elapsed_us() for e in dev)
+    n_kernels = sum(1 for e in dev if "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
+    n_sync = sum(e.count for e in events if e.key in ("cudaMemcpyAsync", "cudaStreamSynchronize")
+                 or "DtoH" in e.key)
+    busy = device_us / 1e3 / n if device_us > 0 else None
+    port = {}
+    for tag in PORT_KERNELS:
+        mine = [e for e in dev if tag in e.name]
+        us = sum(e.time_range.elapsed_us() for e in mine)
+        port[tag] = dict(launches=len(mine) / n, device_us_per_launch=us / max(len(mine), 1),
+                         device_us=us / n)
+    return dict(wall_ms=wall_ms / n, device_busy_ms=busy,
+                idle_share=None if busy is None else 1 - busy / (wall_ms / n),
+                kernel_launches=n_kernels / n, memcpy_or_sync_calls=n_sync / n, port_kernels=port)
+
+
+def _line(label: str, s: dict) -> str:
+    busy = ("not measured (the profiler reported no device time)" if s["device_busy_ms"] is None
+            else f"{s['device_busy_ms']:.3f} ms, idle share {s['idle_share']:.3f}")
+    return (f"{label}: host wall {s['wall_ms']:.2f} ms; device busy {busy}; "
+            f"CUDA kernel launches {s['kernel_launches']:.0f}; memcpy/sync calls {s['memcpy_or_sync_calls']:.0f}")
+
+
+def _profiled(torch, profile, activities, fn):
+    """(profiler, host wall ms) of fn() run to the end on the card."""
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return prof, wall
+
+
+def _trace_frontend(torch, profile, acts, args, device, card) -> dict:
+    from ..pipeline import DynoPipeline
+    from .scenes import kitti_config, kitti_orb_config, kitti_scene
+
+    scene, frames = kitti_scene(device, n_frames=args.frames)
+    cfg = kitti_orb_config() if args.detector == "orb" else kitti_config()
+    pipe = DynoPipeline(scene.cam, cfg, device=device)
+    for f in frames[:args.warmup]:
+        pipe.spin_once(f)
+    torch.cuda.synchronize()
+    traced = frames[args.warmup:]
+    prof, wall = _profiled(torch, profile, acts, lambda: [pipe.spin_once(f) for f in traced])
+    n = len(traced)
+    s = _stats(torch, prof, wall, n)
+    print(f"card: {card}")
+    print(f"{args.detector} detector: traced {n} steady frames after {args.warmup} warm-up frames, 1280x384")
+    print(_line("under the profiler, per frame", s))
+    for tag, k in s["port_kernels"].items():
+        print(f"{tag}: {k['launches']:.1f} launches/frame, {k['device_us_per_launch']:.2f} us device time "
+              f"per launch, {k['device_us']:.2f} us/frame")
+    _tables(torch, prof)
+    if args.chrome:
+        _chrome(prof, args.out, f"trace_frontend_torch_{args.detector}.json")
+    return {"card": card, "detector": args.detector, "frames": n, "wall_ms_per_frame": s["wall_ms"],
+            "device_busy_ms_per_frame": s["device_busy_ms"], "idle_share": s["idle_share"],
+            "kernel_launches_per_frame": s["kernel_launches"],
+            "memcpy_or_sync_calls_per_frame": s["memcpy_or_sync_calls"], "port_kernels": s["port_kernels"]}
+
+
+def _trace_pipeline(torch, profile, acts, args, device, card) -> dict:
+    from ..throughput import make_offline_runner
+    from .scenes import kitti_pipeline_config, kitti_scene
+
+    scene, frames = kitti_scene(device, n_frames=args.frames)
+    runner = make_offline_runner(scene.cam, kitti_pipeline_config(args.frames), args.frames, device=device)
+    for f in frames[:args.warmup]:
+        runner.step(f)
+    torch.cuda.synchronize()
+    fe, windows = [], []
+    prof = None
+    for f in frames[args.warmup:]:
+        prof, wall = _profiled(torch, profile, acts, lambda: runner.frontend(f))
+        fe.append(_stats(torch, prof, wall, 1))
+        start = runner.window_due()
+        if start is not None:
+            holder = []
+            prof, wall = _profiled(torch, profile, acts, lambda: holder.append(runner.solve(start)))
+            s = _stats(torch, prof, wall, 1)
+            r = holder[0].result
+            s.update(start=start, iterations=r.iterations, initial_error=float(r.initial_error),
+                     error=float(r.error), frame=len(runner.packets) - 1)
+            windows.append(s)
+            print("window solve operators (top by device time, then host time):")
+            _tables(torch, prof, rows=15)
+    n = len(fe)
+    mean = lambda key, rows: sum(r[key] for r in rows) / len(rows) if rows and all(  # noqa: E731
+        r[key] is not None for r in rows) else None
+    fe_mean = {k: mean(k, fe) for k in ("wall_ms", "device_busy_ms", "kernel_launches", "memcpy_or_sync_calls")}
+    fe_mean["idle_share"] = (None if fe_mean["device_busy_ms"] is None
+                             else 1 - fe_mean["device_busy_ms"] / fe_mean["wall_ms"])
+    print(f"card: {card}")
+    print(f"pipeline (frontend + window-10 backend): {args.frames} frames 1280x384, traced frames "
+          f"{args.warmup}..{args.frames - 1} after {args.warmup} warm-up frames")
+    print(_line(f"frontend step, mean of {n} frames", fe_mean))
+    solve_frames = {w["frame"] for w in windows}
+    for w in windows:
+        print(_line(f"window solve [{w['start']}, {w['start'] + 10}) at frame {w['frame']}, "
+                    f"{w['iterations']} LM iterations, error {w['initial_error']:.4g} -> {w['error']:.4g}", w))
+        f_row = fe[w["frame"] - args.warmup]
+        print(f"  frame {w['frame']} with its window solve: host wall {f_row['wall_ms'] + w['wall_ms']:.2f} ms, "
+              f"against {fe_mean['wall_ms']:.2f} ms for a frontend-only frame")
+    if args.chrome and prof is not None:
+        _chrome(prof, args.out, "trace_pipeline_torch_last.json")
+    return {"card": card, "mode": "pipeline", "frames": args.frames, "traced_frames": n,
+            "frontend_per_frame": fe_mean, "windows": windows,
+            "frames_with_a_solve": sorted(solve_frames)}
+
+
+def _tables(torch, prof, rows: int = 20) -> None:
+    events = prof.key_averages()
+    dev_attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    print("top operators by device time:")
+    print(events.table(sort_by=dev_attr, row_limit=rows, max_name_column_width=60))
+    print("top operators by host time:")
+    print(events.table(sort_by="self_cpu_time_total", row_limit=rows, max_name_column_width=60))
+
+
+def _chrome(prof, out_dir: str, name: str) -> None:
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / name))
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--detector", choices=("shi_tomasi", "orb"), default="shi_tomasi")
-    ap.add_argument("--frames", type=int, default=12)
-    ap.add_argument("--warmup", type=int, default=4)
+    ap.add_argument("--pipeline", action="store_true",
+                    help="trace the offline pipeline with the sliding-window backend")
+    ap.add_argument("--frames", type=int, default=None, help="default 12, or 22 with --pipeline")
+    ap.add_argument("--warmup", type=int, default=None, help="default 4, or 10 with --pipeline")
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--chrome", action="store_true", help="also write the Chrome trace")
     args = ap.parse_args()
+    if args.frames is None:
+        args.frames = 22 if args.pipeline else 12
+    if args.warmup is None:
+        args.warmup = 10 if args.pipeline else 4
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from ..pipeline import DynoPipeline
-    from .scenes import kitti_config, kitti_orb_config, kitti_scene
 
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is available", file=sys.stderr)
@@ -47,59 +196,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     device = torch.device("cuda", 0)
-    scene, frames = kitti_scene(device, n_frames=args.frames)
-    cfg = kitti_orb_config() if args.detector == "orb" else kitti_config()
-    pipe = DynoPipeline(scene.cam, cfg, device=device)
-    for f in frames[:args.warmup]:
-        pipe.spin_once(f)
-    torch.cuda.synchronize()
-
-    traced = frames[args.warmup:]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in traced:
-            pipe.spin_once(f)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / len(traced)
-
-    events = prof.key_averages()
-    dev_attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
-    # device activity: the kernels, copies and fills on the card's timeline
-    # (operator rows of `key_averages` repeat their kernels' time)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.time_range.elapsed_us() for e in kernels)
-    n_kernels = sum(1 for e in kernels if "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
-    n_dtoh = sum(e.count for e in events if e.key in ("cudaMemcpyAsync", "cudaStreamSynchronize")
-                 or "DtoH" in e.key)
-    n = len(traced)
-    busy_ms = device_us / 1e3 / n
-    print(f"card: {card}")
-    print(f"{args.detector} detector: traced {n} steady frames after {args.warmup} warm-up frames, 1280x384")
-    print(f"under the profiler: host wall {wall_ms:.2f} ms/frame; device busy "
-          + (f"{busy_ms:.3f} ms/frame, idle share {1 - busy_ms / wall_ms:.3f}" if device_us > 0
-             else "not measured (the profiler reported no device time)"))
-    print(f"CUDA kernel launches {n_kernels / n:.0f}/frame; memcpy/sync calls {n_dtoh / n:.0f}/frame")
-    port = {}
-    for tag in ("lk_level_kernel", "point_sample_kernel", "shi_tomasi_kernel", "orb_sample_kernel"):
-        mine = [e for e in kernels if tag in e.name]
-        us = sum(e.time_range.elapsed_us() for e in mine)
-        port[tag] = dict(launches_per_frame=len(mine) / n, device_us_per_launch=us / max(len(mine), 1),
-                         device_us_per_frame=us / n)
-        print(f"{tag}: {len(mine) / n:.1f} launches/frame, {us / max(len(mine), 1):.2f} us device time "
-              f"per launch, {us / n:.2f} us/frame")
-    print("top operators by device time:")
-    print(events.table(sort_by=dev_attr, row_limit=20, max_name_column_width=60))
-    print("top operators by host time:")
-    print(events.table(sort_by="self_cpu_time_total", row_limit=20, max_name_column_width=60))
-    if args.chrome:
-        out = Path(args.out)
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / f"trace_frontend_torch_{args.detector}.json"))
-    print(json.dumps({"card": card, "detector": args.detector, "frames": n, "wall_ms_per_frame": wall_ms,
-                      "device_busy_ms_per_frame": busy_ms if device_us > 0 else None,
-                      "idle_share": 1 - busy_ms / wall_ms if device_us > 0 else None,
-                      "kernel_launches_per_frame": n_kernels / n,
-                      "memcpy_or_sync_calls_per_frame": n_dtoh / n, "port_kernels": port}))
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    trace = _trace_pipeline if args.pipeline else _trace_frontend
+    print(json.dumps(trace(torch, profile, acts, args, device, card)))
     return 0
 
 

@@ -1,7 +1,7 @@
 """Card-only checks of the port: each Hopper kernel against its plain
-PyTorch version on the same CUDA tensors, and short frontend-only runs
+PyTorch version on the same CUDA tensors, short frontend-only runs
 (Shi-Tomasi and ORB detectors) that must launch their kernels on every
-steady frame.
+steady frame, and a backend window solve on the card against the CPU.
 
 Marked `cuda`; a fixture skips them where no card is present.  On a machine
 with a card and the CUDA toolkit (this file imports neither JAX nor the
@@ -248,3 +248,65 @@ def test_orb_pipeline_launches_k4_k1_k2_on_every_steady_frame(cuda):
     assert prev["response"] == 0
     assert bool(torch.isfinite(pkt.X_world.t).all())
     assert int(pipe.frontend_state.tracker.s_desc.abs().sum()) > 0
+
+
+def _window_problem(device):
+    """A window-10 simulator scenario on `device`: window, masks, initial
+    values, and values moved off them (seeded on the CPU)."""
+    from dynosam_tpu_torch.backend import formulation as fm
+    from dynosam_tpu_torch.backend import map as bmap
+    from dynosam_tpu_torch.core.lie import se3_exp, se3_retract
+    from dynosam_tpu_torch.frontend.frontend import to_device
+    from dynosam_tpu_torch.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu_torch.utils.config import BackendConfig
+
+    scfg = ScenarioConfig(n_frames=10)
+    m = bmap.MeasurementMap.create(10, scfg.ns, scfg.nd, scfg.no, device=device)
+    for k, p in enumerate(Scenario(scfg).frontend_outputs()):
+        bmap.update_map(m, to_device(p, device), k)
+    cfg = BackendConfig()
+    w = bmap.slice_window(m, 0, 10)
+    masks = fm.build_masks(w, cfg)
+    v0 = fm.init_values(w, masks, cfg)
+    g = torch.Generator().manual_seed(3)
+    W, O = masks.motion_active.shape
+    moved = dict(v0)
+    moved["X"] = se3_retract(v0["X"], (0.01 * torch.randn((W, 6), generator=g)).to(device))
+    moved["H"] = se3_exp((0.05 * torch.randn((W, O, 6), generator=g)).to(device))
+    moved["dp"] = v0["dp"] + (0.02 * torch.randn(v0["dp"].shape, generator=g)).to(device)
+    return cfg, w, masks, v0, moved
+
+
+def test_window_solve_on_the_card_matches_the_cpu(cuda):
+    """One Schur step (lambda 1e-4, at values moved off the initial ones)
+    and one 7-iteration LM solve of a window-10 simulator scenario, on the
+    card and on the CPU: step deltas within 1e-3 of their max-abs, final
+    error within rtol 3e-2, iterations within 1, camera translations within
+    2e-3 m (the float32 tolerances of `tests/test_torch_schur.py`).  A
+    failed Cholesky on the card gives a NaN step, not an exception."""
+    from dynosam_tpu_torch.backend import formulation as fm
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.backend.solver import LMConfig
+
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        cfg, w, masks, v0, moved = _window_problem(dev)
+        anchor = w.X_init[0]
+        res = fm.world_motion_residuals(moved, w, masks, cfg, anchor)
+        sys = schur.build_normal_system(moved, schur.sqrt_weights(res, fm.world_motion_families(cfg).robust),
+                                        w, masks, cfg, anchor, res)
+        step = schur.schur_step(sys, torch.tensor(1e-4, device=dev), 1e-6)
+        bad = schur.schur_step(sys._replace(Hcc=-sys.Hcc), torch.tensor(1e-4, device=dev), 1e-6)
+        lm = schur.lm_optimize_schur(v0, w, masks, cfg, LMConfig(max_iterations=7), anchor)
+        out[dev.type] = (step, bad, lm)
+    torch.cuda.synchronize()
+    (s_cpu, _, lm_cpu), (s_gpu, bad_gpu, lm_gpu) = out["cpu"], out["cuda"]
+    for k in ("X", "P", "sp", "dp"):
+        assert s_gpu[k].device.type == "cuda"
+        d = float((s_gpu[k].cpu() - s_cpu[k]).abs().max()) / float(s_cpu[k].abs().max())
+        assert d <= 1e-3, (k, d)
+    assert bool(torch.isnan(bad_gpu["X"]).all())
+    assert float(lm_gpu.error) < float(lm_gpu.initial_error)
+    assert float(lm_gpu.error) == pytest.approx(float(lm_cpu.error), rel=3e-2)
+    assert abs(lm_gpu.iterations - lm_cpu.iterations) <= 1
+    assert float((lm_gpu.values["X"].t.cpu() - lm_cpu.values["X"].t).abs().max()) <= 2e-3
