@@ -47,7 +47,29 @@ no result line:
              motion; fails unless K1, K2 and K3 launched on every frame
              after the first and K4 on none, every window's final error is
              finite and below its initial error, the estimate store covers
-             frames 0..21 and the backend camera ATE is under 0.06 m.
+             frames 0..21 and the backend camera ATE is under 0.06 m;
+7. golden  -- the round's accuracy bar on the card: the golden scene of
+             `tests/test_accuracy_regression.py` (32 frames 120x160, 2
+             moving objects, 0.5 px flow and 1 % depth noise) through
+             `pipeline.run_and_log` with the full-batch backend (one LM-PCG
+             solve over 32 frames) and the port's `evaluate_all`: every
+             frontend band (`:123-134`), the backend bands and the 0.8x
+             object-improvement check (`:137-152`), and the sliding-vs-batch
+             ordering (`:155-163`, sliding windows through
+             `run_from_packets`); prints the full-batch solve's time (CUDA
+             events), LM iterations, CG iterations per LM iteration and host
+             reads; fails unless K1, K2 and K3 launched on every frame after
+             the first;
+8. online -- the default-config online pipeline at KITTI width, as a CLI
+             user runs it: `run_and_log` (`DynoPipeline` with `RGBDBackend`,
+             `BackendConfig()`: window 10, overlap 4, 30 LM iterations,
+             `max_frames` 512) over the 22 frames of the pipeline path, then
+             `evaluate_all`: frames/s, ms per frame, each window's solve
+             time, LM iterations and host reads; fails unless the windows
+             start at 0, 6, 12 and (the final partial window) 18, every
+             window's final error is below its initial error, the frontend
+             and backend camera ATE are under 0.05 and 0.06 m, and K1, K2
+             and K3 launched on every frame after the first and K4 on none.
 
 Launch counts are set to 0 just before each path and read just after it.
 
@@ -87,6 +109,14 @@ ORB_MIN_BITS = 0.999   # share of descriptor bits that agree
 ATE_LIMIT_M = 0.05
 BACKEND_ATE_LIMIT_M = 0.06   # the JAX sliding-window band (tests/test_accuracy_regression.py:162)
 PIPELINE_FRAMES = 22         # overlap 4 + 3 segments of stride 6
+# the golden bands (tests/test_accuracy_regression.py:123-163)
+GOLDEN_FRONTEND = {"ate_trans_rmse": 0.010, "rpe_trans_rmse": 0.004, "rpe_rot_deg_rmse": 0.03}
+GOLDEN_FRONTEND_OBJECTS = {"ame_trans_rmse": 0.30, "ame_rot_deg_rmse": 3.0, "rme_trans_rmse": 0.08}
+GOLDEN_BACKEND_ATE_M = 0.022
+GOLDEN_BACKEND_AME_M = 0.15
+GOLDEN_IMPROVEMENT = 0.8     # backend AME (both parts) below 0.8x the frontend's
+GOLDEN_SLIDING_ATE_M = 0.06
+GOLDEN_ORDERING = 1.10       # full-batch ATE at most 1.10x the sliding windows'
 
 # FLOPs counted per unit of work (adds, subtracts, multiplies, divides,
 # square roots; clamps and index arithmetic not counted).
@@ -103,7 +133,9 @@ FLOP_ORB_TAP = 8 + FLOP_BILINEAR   # rotation (4 products, 4 sums), bilinear sam
 # the kernels of each path, and each kernel's name in `kernels.launch_counts()`
 PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response"),
                 "orb": ("orb_sample", "lk", "point_sample"),
-                "pipeline": ("lk", "point_sample", "response")}
+                "pipeline": ("lk", "point_sample", "response"),
+                "golden": ("lk", "point_sample", "response"),
+                "online": ("lk", "point_sample", "response")}
 COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
            "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample"}
 
@@ -581,6 +613,168 @@ def run_pipeline_path(torch, device, card) -> dict:
     return dict(totals=totals)
 
 
+class PipelineProbe:
+    """For one run of the online pipeline: times each `DynoPipeline.spin_once`
+    on the host clock between two synchronisations and reads the kernel
+    launches after it, and counts the host reads of each backend solve
+    (`RGBDBackend._optimize`) with `SyncCounter`.  Launch counts are zeroed
+    on entry and read on exit."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.times, self.per_frame, self.reads = [], [], []
+
+    def __enter__(self):
+        from dynosam_tpu_torch import kernels
+        from dynosam_tpu_torch.backend.backend import RGBDBackend
+        from dynosam_tpu_torch.pipeline import DynoPipeline
+
+        torch, probe = self.torch, self
+        self._kernels, self._classes = kernels, (DynoPipeline, RGBDBackend)
+        self._spin, self._optimize = DynoPipeline.spin_once, RGBDBackend._optimize
+
+        def spin_once(pipe, images):
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            out = probe._spin(pipe, images)
+            torch.cuda.synchronize()
+            probe.times.append(time.perf_counter() - t0)
+            now = kernels.launch_counts()
+            probe.per_frame.append({k: now[k] - before[k] for k in now})
+            return out
+
+        def optimize(backend, start, window):
+            with SyncCounter(torch) as sc:
+                probe._optimize(backend, start, window)
+            probe.reads.append(sc.count)
+
+        DynoPipeline.spin_once, RGBDBackend._optimize = spin_once, optimize
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.totals = self._kernels.launch_counts()
+        self._classes[0].spin_once, self._classes[1]._optimize = self._spin, self._optimize
+        return False
+
+
+def check_launches(probe, label, required, n_frames) -> None:
+    for k in range(1, n_frames):
+        missing = [name for name in required if probe.per_frame[k][name] < 1]
+        _require(not missing, f"{label}, frame {k}: kernels {missing} never launched")
+    stray = [name for name, c in probe.totals.items() if name not in required and c > 0]
+    _require(not stray, f"{label}: kernels {stray} launched off their path")
+
+
+def report_solves(label, backend, reads, card) -> None:
+    """Print each backend solve: window, time (CUDA events), LM and CG
+    iterations, error and host reads; fail unless every error dropped."""
+    for (start, window, r, events), n_reads in zip(backend.solves, reads):
+        err0, err = float(r.initial_error), float(r.error)
+        cg = "" if r.cg_iterations is None else f", CG iterations per LM iteration {r.cg_iterations}"
+        print(f"{label}: solve [{start}, {start + window}): {events[0].elapsed_time(events[1]):.2f} ms (CUDA "
+              f"events), {r.iterations} LM iterations{cg}, error {err0:.6g} -> {err:.6g}, host reads {n_reads} "
+              f"on {card}", flush=True)
+        _require(np.isfinite(err) and err < err0, f"{label}: solve at {start}: error {err0} -> {err}")
+
+
+def run_golden_phase(torch, device, card) -> dict:
+    """The golden run on the card, held to every band of
+    `tests/test_accuracy_regression.py:123-163` by the port's evaluator."""
+    import tempfile
+
+    from dynosam_tpu_torch.eval import metrics
+    from dynosam_tpu_torch.eval.evaluator import evaluate_all
+    from dynosam_tpu_torch.pipeline import run_and_log, run_from_packets
+    from dynosam_tpu_torch.testing.scenes import GOLDEN_FRAMES, golden_config, golden_dataset
+
+    label = "golden"
+    ds = golden_dataset(device)
+    with tempfile.TemporaryDirectory() as out:
+        with PipelineProbe(torch) as probe:
+            result = run_and_log(ds, golden_config(True), out, device=device)
+        evals = evaluate_all(out)
+    n = GOLDEN_FRAMES
+    print(f"{label}: {n} frames 160x120 through run_and_log with the full-batch backend: frontend "
+          f"{n / sum(probe.times):.2f} frames/s (host clock, synchronised) on {card}", flush=True)
+    check_launches(probe, label, PATH_KERNELS["golden"], n)
+    backend = result.backend
+    _require([(s, w) for s, w, _, _ in backend.solves] == [(0, n)],
+             f"{label}: solves {[(s, w) for s, w, _, _ in backend.solves]}, not one full batch")
+    report_solves(label, backend, probe.reads, card)
+
+    fe, be = evals["frontend"], evals["rgbd_motion_world_backend"]
+    checks = [(f"frontend camera {k}", fe["camera"][k], lim) for k, lim in GOLDEN_FRONTEND.items()]
+    checks += [(f"frontend objects {k}", fe["objects_mean"][k], lim) for k, lim in GOLDEN_FRONTEND_OBJECTS.items()]
+    checks += [("backend camera ate_trans_rmse", be["camera"]["ate_trans_rmse"], GOLDEN_BACKEND_ATE_M),
+               ("backend objects ame_trans_rmse", be["objects_mean"]["ame_trans_rmse"], GOLDEN_BACKEND_AME_M)]
+    for k in ("ame_trans_rmse", "ame_rot_deg_rmse"):
+        checks.append((f"backend {k} / frontend's", be["objects_mean"][k] / fe["objects_mean"][k], GOLDEN_IMPROVEMENT))
+
+    be_sw = run_from_packets(result.packets, golden_config(False), device=device)
+    X, xv = be_sw.camera_poses()
+    xv = xv.cpu().numpy()
+    T = np.tile(np.eye(4), (int(xv.sum()), 1, 1))
+    T[:, :3, :3] = X.R.double().cpu().numpy()[xv]
+    T[:, :3, 3] = X.t.double().cpu().numpy()[xv]
+    gt = np.stack([ds.ground_truth(k).X_world for k in range(n)])[xv]
+    sw_ate = metrics.ate(T, gt)["trans"].rmse
+    fb_ate = be["camera"]["ate_trans_rmse"]
+    checks += [("sliding-window camera ATE", sw_ate, GOLDEN_SLIDING_ATE_M),
+               ("full-batch ATE / sliding ATE", fb_ate / sw_ate, GOLDEN_ORDERING)]
+    for name, value, limit in checks:
+        ok = np.isfinite(value) and (value <= limit if "/ sliding" in name else value < limit)
+        print(f"{label}: {name} {value:.5g} (limit {limit}): {'ok' if ok else 'FAIL'}", flush=True)
+        _require(ok, f"{label}: {name} {value} against {limit}")
+    print(f"{label}: sliding windows {[(s, w) for s, w, _, _ in be_sw.solves]}, each "
+          f"{[r.iterations for _, _, r, _ in be_sw.solves]} LM iterations", flush=True)
+    return dict(totals=probe.totals)
+
+
+def run_online_phase(torch, device, card) -> dict:
+    """The default-config online pipeline at KITTI width through
+    `run_and_log` and `evaluate_all`."""
+    import tempfile
+
+    from dynosam_tpu_torch.eval.evaluator import evaluate_all
+    from dynosam_tpu_torch.pipeline import run_and_log
+    from dynosam_tpu_torch.testing.scenes import RenderedDataset, kitti_online_config, kitti_scene
+
+    label = "online"
+    n = PIPELINE_FRAMES
+    scene, frames = kitti_scene(device, n_frames=n)
+    with tempfile.TemporaryDirectory() as out:
+        with PipelineProbe(torch) as probe:
+            result = run_and_log(RenderedDataset(scene, frames), kitti_online_config(), out, device=device)
+        evals = evaluate_all(out)
+    h, w = frames[0].gray.shape
+    steady = list(range(2, n))
+    spin_s = sum(probe.times)
+    print(f"{label}: DynoPipeline + RGBDBackend (default BackendConfig, max_frames 512), {n} frames {w}x{h}: "
+          f"{n / spin_s:.2f} frames/s, {spin_s / n * 1e3:.1f} ms/frame over all {n} spins (the final window "
+          f"runs in finish), steady frames 2..{n - 1} {len(steady) / sum(probe.times[k] for k in steady):.2f} "
+          f"frames/s (host clock, synchronised) on {card}", flush=True)
+    print(f"{label}: ms per spin {[round(t * 1e3, 1) for t in probe.times]}", flush=True)
+    for k, lf in enumerate(probe.per_frame):
+        print(f"{label}: frame {k} launches {lf}", flush=True)
+    check_launches(probe, label, PATH_KERNELS["online"], n)
+    backend = result.backend
+    starts = [(s, w_) for s, w_, _, _ in backend.solves]
+    _require(starts == [(0, 10), (6, 10), (12, 10), (18, 10)], f"{label}: windows {starts}")
+    report_solves(label, backend, probe.reads, card)
+    fe_ate = evals["frontend"]["camera"]["ate_trans_rmse"]
+    be_ate = evals["rgbd_motion_world_backend"]["camera"]["ate_trans_rmse"]
+    print(f"{label}: camera ATE frontend {fe_ate:.5f} m (limit {ATE_LIMIT_M}), backend {be_ate:.5f} m "
+          f"(limit {BACKEND_ATE_LIMIT_M}), backend frames {evals['rgbd_motion_world_backend']['camera']['n_frames']}",
+          flush=True)
+    _require(np.isfinite(fe_ate) and fe_ate < ATE_LIMIT_M, f"{label}: frontend ATE {fe_ate} m")
+    _require(np.isfinite(be_ate) and be_ate < BACKEND_ATE_LIMIT_M, f"{label}: backend ATE {be_ate} m")
+    return dict(totals=probe.totals)
+
+
 def main() -> int:
     try:
         import torch
@@ -642,6 +836,8 @@ def _run(torch) -> int:
         report_path(res, label, PATH_KERNELS[path], frames, card)
 
     paths["pipeline"] = run_pipeline_path(torch, device, card)
+    paths["golden"] = run_golden_phase(torch, device, card)
+    paths["online"] = run_online_phase(torch, device, card)
 
     for r in rows:
         by_path = {p: paths[p]["totals"][COUNTER[r["name"]]] for p in paths}

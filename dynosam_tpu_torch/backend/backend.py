@@ -1,42 +1,54 @@
-"""Backend window solve (port of `dynosam_tpu/backend/backend.py:optimize_window`,
-the direct-Schur sliding-window path of updater 0).
+"""RGB-D backend module: map update and windowed or full-batch optimisation
+(port of `dynosam_tpu/backend/backend.py`, updater 0).
 
-Slices a window from the measurement map, compacts it to its most-observed
-slots, builds and solves its WorldMotion graph, and scatters the result
-back to pool coordinates.  The online runtime of the JAX module
-(`RGBDBackend`, `EstimateStore`, checkpoints, object-pose propagation) is
-ROADMAP.md item 13; `throughput.run_offline` drives the backend today.
+Per frame `RGBDBackend.spin` writes the frontend packet into the
+measurement map and, when `SlidingWindowTrigger` completes a window,
+solves it (`optimize_window`) warm-started from the estimate store and
+writes the result back; `finish` runs the final partial window or the one
+full-batch solve.  Windows up to `schur_max_window` frames use the direct
+Schur LM (`backend/schur.py`) on a compacted window; longer windows (full
+batch) use the matrix-free LM-PCG (`backend/solver.py:lm_optimize`) on the
+whole pool, as in the JAX package.  The spin path never reads the device:
+the anchor gate stays a 0-d device bool and the write-back is in-place
+indexing; inside a solve the LM reads once per iteration (and PCG once per
+chunk of CG iterations).
+
+Not ported (ROADMAP.md): WorldPose and the fixed-lag prior (item 11),
+varpro (item 12).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
-from ..core.lie import SE3, se3_identity, se3_where
-from ..utils.config import BackendConfig
+from ..core.lie import SE3, se3_compose, se3_exp, se3_identity, se3_inverse, se3_log, se3_where
+from ..core.types import FrontendOutput
+from ..frontend.frontend import to_device
+from ..utils.config import BackendConfig, CapacityConfig
+from ..utils.device import resolve_device
 from . import formulation as fm
-from .map import MeasurementMap, compact_window, slice_window
-from .schur import lm_optimize_schur
-from .solver import LMConfig
+from .map import MeasurementMap, compact_window, slice_window, update_map
+from .schur import lm_optimize_schur, world_motion_normal_product
+from .solver import LMConfig, LMResult, lm_optimize
 
 
-def check_backend_config(cfg: BackendConfig, window: Optional[int] = None) -> None:
+def check_backend_config(cfg: BackendConfig, online: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item that ports it,
-    for every backend option outside the ported path (WorldMotion,
-    sliding windows solved one at a time by the direct Schur LM)."""
-    window = cfg.opt_window_size if window is None else window
+    for every backend option outside the ported path (WorldMotion windows,
+    solved one at a time).  The online backend solves one window per
+    trigger and ignores `opt_windows_per_dispatch`, as the JAX package's
+    does (`online=True`)."""
     if cfg.backend_updater_enum != 0:
         raise NotImplementedError(
             "backend_updater_enum=1 (WorldPose) is ported by ROADMAP.md item 11")
     if cfg.use_fixed_lag_prior:
         raise NotImplementedError("use_fixed_lag_prior=True is ported by ROADMAP.md item 11")
-    if cfg.use_full_batch_opt or cfg.use_varpro or not cfg.use_schur or window > cfg.schur_max_window:
-        raise NotImplementedError(
-            "full-batch, varpro and LM-PCG solves (use_full_batch_opt=True, use_varpro=True, "
-            "use_schur=False or opt_window_size > schur_max_window) are ported by ROADMAP.md item 12")
-    if cfg.opt_windows_per_dispatch > 1:
+    if cfg.use_varpro:
+        raise NotImplementedError("use_varpro=True (the variable-projection solve) is ported by ROADMAP.md item 12")
+    if not online and cfg.opt_windows_per_dispatch > 1:
         raise NotImplementedError(
             "opt_windows_per_dispatch > 1 (batched window solves) is ported by ROADMAP.md item 12")
 
@@ -49,14 +61,19 @@ def optimize_window(m: MeasurementMap, start: int, window: int, cfg: BackendConf
 
     `anchor` pins the first window pose where `use_anchor` (a 0-d bool
     tensor) is set, else the frontend pose does; `prev`/`prev_mask`
-    warm-start the values from the estimate store."""
-    check_backend_config(cfg, window)
+    warm-start the values from the estimate store.  Windows up to
+    `schur_max_window` with `use_schur` go to the direct Schur LM on the
+    window compacted to its most-observed slots; longer ones (full batch)
+    to LM-PCG on the whole pool, uncompacted: a full-batch solve over a
+    long sequence carries more active tracks than the window caps, and
+    compaction would silently drop its thinnest tracks."""
+    check_backend_config(cfg, online=True)
     w = slice_window(m, start, window)
     _, NS, ND, O = m.capacity
     ns_win = min(NS, cfg.window_max_static or NS)
     nd_win = min(ND, cfg.window_max_dynamic or ND)
     no_win = min(O, cfg.window_max_objects or O)
-    compacting = ns_win < NS or nd_win < ND or no_win < O
+    compacting = window <= cfg.schur_max_window and (ns_win < NS or nd_win < ND or no_win < O)
     if compacting:
         w, sp_idx, dp_idx, obj_idx = compact_window(w, ns_win, nd_win, no_win)
         if prev is not None:
@@ -67,7 +84,15 @@ def optimize_window(m: MeasurementMap, start: int, window: int, cfg: BackendConf
     masks = fm.build_masks(w, cfg)
     anchor_pose = se3_where(use_anchor, anchor, w.X_init[0])
     values = fm.init_values(w, masks, cfg, prev=prev, prev_mask=prev_mask)
-    result = lm_optimize_schur(values, w, masks, cfg, lm_cfg, anchor_pose)
+    if cfg.use_schur and window <= cfg.schur_max_window:
+        result = lm_optimize_schur(values, w, masks, cfg, lm_cfg, anchor_pose)
+    else:
+        result = lm_optimize(
+            lambda v: fm.world_motion_residuals(v, w, masks, cfg, anchor_pose),
+            fm.world_motion_families(cfg).robust, values, lm_cfg,
+            gn_diag_fn=lambda v, sw: fm.world_motion_gn_diag(v, sw, w, masks, cfg),
+            normal_fn=lambda v, sw, res: world_motion_normal_product(v, sw, res, w, masks, cfg, anchor_pose),
+        )
     if not compacting:
         return result, masks
 
@@ -95,3 +120,269 @@ def optimize_window(m: MeasurementMap, start: int, window: int, cfg: BackendConf
     )
     return result._replace(values=vals), masks
 
+
+def lm_config(cfg: BackendConfig) -> LMConfig:
+    """The LM settings of a backend config."""
+    return LMConfig(
+        max_iterations=cfg.lm_max_iterations, initial_lambda=cfg.lm_initial_lambda,
+        lambda_factor=cfg.lm_lambda_factor, max_lambda=cfg.lm_max_lambda, min_lambda=cfg.lm_min_lambda,
+        rel_error_tol=cfg.lm_rel_error_tol, abs_error_tol=cfg.lm_abs_error_tol,
+        cg_max_iterations=cfg.cg_max_iterations, cg_tol=cfg.cg_tol,
+    )
+
+
+@dataclasses.dataclass
+class EstimateStore:
+    """Global state estimates over all frames (device tensors)."""
+
+    X: SE3                        # (F,) camera poses
+    H: SE3                        # (F, O) object motions
+    static_points: torch.Tensor   # (NS, 3)
+    static_valid: torch.Tensor    # (NS,)
+    dyn_points: torch.Tensor      # (F, ND, 3)
+    dyn_valid: torch.Tensor       # (F, ND)
+    X_valid: torch.Tensor         # (F,)
+    motion_valid: torch.Tensor    # (F, O)
+
+    @staticmethod
+    def create(f: int, ns: int, nd: int, no: int, dtype=torch.float32, device=None) -> "EstimateStore":
+        zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=device)  # noqa: E731
+        return EstimateStore(
+            X=se3_identity((f,), dtype, device), H=se3_identity((f, no), dtype, device),
+            static_points=torch.zeros((ns, 3), dtype=dtype, device=device), static_valid=zb(ns),
+            dyn_points=torch.zeros((f, nd, 3), dtype=dtype, device=device), dyn_valid=zb(f, nd),
+            X_valid=zb(f), motion_valid=zb(f, no),
+        )
+
+
+class SlidingWindowTrigger:
+    """Frame-count arithmetic of `SlidingWindow::check`
+    (`backend/RGBDBackendModule.hpp:120-144`)."""
+
+    def __init__(self, size: int, overlap: int, first_frame: int = 0):
+        assert 0 <= overlap < size
+        self.size = size
+        self.overlap = overlap
+        self.start = first_frame
+
+    def check(self, frame_idx: int):
+        """The window start if [start, start + size) is complete at this
+        frame, else None."""
+        if frame_idx >= self.start + self.size - 1:
+            s = self.start
+            self.start = s + (self.size - self.overlap)
+            return s
+        return None
+
+
+class RGBDBackend:
+    """Owns the measurement map, the estimate store and the window solves, on one device
+    (CUDA unless `device="cpu"`)."""
+
+    def __init__(self, cfg: BackendConfig, cap: CapacityConfig, dtype=torch.float32, device=None):
+        check_backend_config(cfg, online=True)
+        self.cfg = cfg
+        self.cap = cap
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        f, ns, nd, no = cap.max_frames, cap.max_static_tracks, cap.max_dynamic_tracks, cap.max_objects
+        self.map = MeasurementMap.create(f, ns, nd, no, dtype, self.device)
+        self.est = EstimateStore.create(f, ns, nd, no, dtype, self.device)
+        self.n_frames = 0
+        self.trigger = SlidingWindowTrigger(cfg.opt_window_size, cfg.opt_window_overlap)
+        self.lm_cfg = lm_config(cfg)
+        self.last_result: Optional[LMResult] = None
+        self.solves: list = []      # (start, window, LMResult, CUDA events or None) per solve
+
+    def spin(self, packet: FrontendOutput):
+        """Insert one frontend packet; optimise if a window completed."""
+        k = self.n_frames
+        update_map(self.map, to_device(packet, self.device), k)
+        self.n_frames += 1
+        if self.cfg.use_full_batch_opt:
+            return None
+        start = self.trigger.check(k)
+        if start is not None:
+            self._optimize(start, self.cfg.opt_window_size)
+        return self.last_result
+
+    def finish(self):
+        """End of sequence: the full-batch solve or the final partial window."""
+        if self.cfg.use_full_batch_opt:
+            self._optimize(0, self._full_batch_len())
+        elif self.n_frames > self.trigger.start + 1:
+            self._optimize(self.trigger.start, min(self.cfg.opt_window_size, self.cap.max_frames))
+        return self.last_result
+
+    def _full_batch_len(self) -> int:
+        return min(self.cap.max_frames, max(self.cfg.opt_window_size, self.n_frames))
+
+    def _optimize(self, start: int, window: int):
+        window = min(window, self.cap.max_frames - start)
+        if window < 2:
+            return
+        events = None
+        if self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        est = self.est
+        # anchor: the previous estimate of the first window pose if it was
+        # already optimised (window overlap), else the frontend's; the gate
+        # stays a device bool, so the spin path never waits for a solve
+        use_anchor = est.X_valid[start]
+        sl = slice(start, start + window)
+        prev = {"X": est.X[sl], "H": est.H[sl], "sp": est.static_points, "dp": est.dyn_points[sl]}
+        prev_mask = {"X": est.X_valid[sl] & use_anchor, "H": est.motion_valid[sl] & use_anchor,
+                     "sp": est.static_valid & use_anchor, "dp": est.dyn_valid[sl] & use_anchor}
+        result, masks = optimize_window(self.map, start, window, self.cfg, self.lm_cfg, est.X[start],
+                                        use_anchor, prev, prev_mask)
+        self.last_result = result
+        self._write_back(start, window, result.values, masks)
+        if events is not None:
+            events[1].record()
+        self.solves.append((start, window, result, events))
+
+    def _write_back(self, start: int, window: int, values: dict, masks):
+        """Scatter the optimised window into the estimate store, in place."""
+        est = self.est
+        sl = slice(start, start + window)
+        est.X.R[sl] = values["X"].R
+        est.X.t[sl] = values["X"].t
+        est.X_valid[sl] = masks.frame
+        est.H.R[sl] = values["H"].R
+        est.H.t[sl] = values["H"].t
+        est.motion_valid[sl] = masks.motion_active
+        seen = masks.static_obs.any(0)
+        est.static_points.copy_(torch.where(seen[:, None], values["sp"], est.static_points))
+        est.static_valid.logical_or_(seen)
+        est.dyn_points[sl] = values["dp"]
+        est.dyn_valid[sl] = masks.dyn_obs
+
+    # ------------------------------------------------------------------
+    # Accessors (`Accessor<MAP>`, `backend/Accessor.hpp:51-207`)
+    # ------------------------------------------------------------------
+    def camera_poses(self):
+        """(F,) SE3 and validity of the optimised camera trajectory."""
+        return self.est.X, self.est.X_valid
+
+    def object_motions(self):
+        return self.est.H, self.est.motion_valid
+
+    def object_poses(self):
+        """L_k = H_k L_{k-1} propagated from the centroids, with the
+        reference's slerp gap-fill (`propagate_object_poses`)."""
+        centroids, cvalid = self.object_centroids()
+        return propagate_object_poses(self.est.H, self.est.motion_valid, centroids, cvalid)
+
+    def object_centroids(self):
+        """Per (frame, object) centroid of the optimised dynamic points
+        (`Accessor::computeObjectCentroid`): sums and counts by `index_add_`
+        over the (frame, track) rows, valid rows weighted 1."""
+        dp, dv, obj = self.est.dyn_points, self.est.dyn_valid, self.map.dyn_obj
+        F, ND = dv.shape
+        O = self.cap.max_objects
+        wgt = (dv & (obj >= 0)).to(dp.dtype)
+        idx = (torch.arange(F, device=dp.device)[:, None] * O + obj.clamp(min=0)).reshape(-1)
+        sums = torch.zeros((F * O, 3), dtype=dp.dtype, device=dp.device)
+        sums.index_add_(0, idx, (dp * wgt[..., None]).reshape(-1, 3))
+        counts = torch.zeros(F * O, dtype=dp.dtype, device=dp.device)
+        counts.index_add_(0, idx, wgt.reshape(-1))
+        counts = counts.reshape(F, O)
+        return sums.reshape(F, O, 3) / torch.clamp(counts[..., None], min=1.0), counts > 0
+
+
+def propagate_object_poses(H: SE3, hvalid: torch.Tensor, cen: torch.Tensor, cvalid: torch.Tensor,
+                           max_gap: int = 3):
+    """`propogateObjectPoses` (`src/common/DynamicObjects.cc:48-191`) over
+    every (frame, object) slot, the JAX package's two scans as host loops
+    over frames, each step batched over objects.
+
+    Forward: propagate L_k = H_k L_{k-1}; a motion resuming after a gap of
+    fewer than `max_gap` frames restarts from (last rotation, current
+    centroid), a longer gap re-initialises from the centroid.  Backward:
+    slerp-fill the interior frames of every short gap between the last
+    recorded pose and the resumption pose (`Pose3::slerp`)."""
+    F, O = hvalid.shape
+    dtype, dev = H.t.dtype, H.t.device
+    eye = torch.eye(3, dtype=dtype, device=dev).expand(O, 3, 3)
+    zeros3 = torch.zeros((O, 3), dtype=dtype, device=dev)
+    have = torch.zeros(O, dtype=torch.bool, device=dev)
+    R_p, t_p, R_last, t_last = eye, zeros3, eye, zeros3
+    age = torch.full((O,), 10 * F, dtype=torch.int32, device=dev)
+    f_last = torch.full((O,), -1, dtype=torch.int32, device=dev)
+    fwd = []
+    for k in range(F):
+        hv, cv = hvalid[k], cvalid[k]
+        prop = have & hv
+        resume = ~have & hv & (age < max_gap) & (f_last >= 0) & cv
+        start = ~have & ~resume & cv
+        valid = prop | resume | start
+        R_new = torch.where(prop[:, None, None], H.R[k] @ R_p, torch.where(resume[:, None, None], R_last, eye))
+        t_prop = torch.einsum("oij,oj->oi", H.R[k], t_p) + H.t[k]
+        t_new = torch.where(prop[:, None], t_prop, torch.where((resume | start)[:, None], cen[k], zeros3))
+        fwd.append((R_new, t_new, valid, resume, R_last, t_last, f_last))
+        R_last = torch.where(valid[:, None, None], R_new, R_last)
+        t_last = torch.where(valid[:, None], t_new, t_last)
+        f_last = torch.where(valid, torch.full_like(f_last, k), f_last)
+        age = torch.where(valid, torch.zeros_like(age), age + 1)
+        have, R_p, t_p = valid, R_new, t_new
+
+    active = torch.zeros(O, dtype=torch.bool, device=dev)
+    R0, t0, R1, t1 = eye, zeros3, eye, zeros3
+    f0 = torch.full((O,), -1, dtype=torch.int32, device=dev)
+    f1 = f0
+    R_out, t_out, v_out = [None] * F, [None] * F, [None] * F
+    for k in reversed(range(F)):
+        R_k, t_k, vk, rk, R_lk, t_lk, f_lk = fwd[k]
+        active = torch.where(rk, True, torch.where(vk, False, active))
+        R0 = torch.where(rk[:, None, None], R_lk, R0)
+        t0 = torch.where(rk[:, None], t_lk, t0)
+        R1 = torch.where(rk[:, None, None], R_k, R1)
+        t1 = torch.where(rk[:, None], t_k, t1)
+        f0 = torch.where(rk, f_lk, f0)
+        f1 = torch.where(rk, torch.full_like(f1, k), f1)
+        fill = active & ~vk & (k > f0) & (k < f1)
+        s = (k - f0).to(dtype) / torch.clamp((f1 - f0).to(dtype), min=1.0)
+        X0 = SE3(R0, t0)
+        Xf = se3_compose(X0, se3_exp(s[:, None] * se3_log(se3_compose(se3_inverse(X0), SE3(R1, t1)))))
+        R_out[k] = torch.where(fill[:, None, None], Xf.R, R_k)
+        t_out[k] = torch.where(fill[:, None], Xf.t, t_k)
+        v_out[k] = vk | fill
+    return SE3(torch.stack(R_out), torch.stack(t_out)), torch.stack(v_out)
+
+
+# --------------------------------------------------------------------------
+# Checkpoints
+# --------------------------------------------------------------------------
+
+
+def _backend_state(backend: RGBDBackend) -> dict:
+    est = backend.est
+    dev = backend.device
+    return {
+        "map": backend.map,
+        "est": {f.name: getattr(est, f.name) for f in dataclasses.fields(EstimateStore)},
+        "n_frames": torch.tensor(backend.n_frames, device=dev),
+        "window_start": torch.tensor(backend.trigger.start, device=dev),
+    }
+
+
+def save_backend_checkpoint(backend: RGBDBackend, path: str) -> None:
+    """The full solver state (map, estimates, window cursor) in one file
+    (`torch.save`; the JAX package writes an orbax checkpoint)."""
+    from ..utils.serialization import save_checkpoint
+
+    save_checkpoint(path, _backend_state(backend))
+
+
+def load_backend_checkpoint(backend: RGBDBackend, path: str) -> RGBDBackend:
+    """Restore the solver state into a fresh backend of the same config and
+    capacities, on its device, and resume."""
+    from ..utils.serialization import load_checkpoint
+
+    restored = load_checkpoint(path, _backend_state(backend))
+    backend.map = restored["map"]
+    backend.est = EstimateStore(**restored["est"])
+    backend.n_frames = int(restored["n_frames"])
+    backend.trigger.start = int(restored["window_start"])
+    return backend

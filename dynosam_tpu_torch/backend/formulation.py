@@ -194,3 +194,57 @@ def world_motion_residuals(values: dict, w: WindowData, masks: WindowMasks, cfg:
     r_smooth = factors.motion_smoothing_residual(H[:-1], H[1:]) / smooth_sigma
     r_smooth = torch.where(masks.smoothing[1:, ..., None], r_smooth, zero)
     return [r_anchor, r_odo, r_static, r_dyn, r_tern, r_smooth]
+
+
+# --------------------------------------------------------------------------
+# Analytic Gauss-Newton diagonal (damping + Jacobi preconditioner)
+# --------------------------------------------------------------------------
+
+
+def _skew_sq_diag(y: torch.Tensor) -> torch.Tensor:
+    """diag(hat(y)^T hat(y)) = (y_y^2+y_z^2, y_x^2+y_z^2, y_x^2+y_y^2)."""
+    x2, y2, z2 = y[..., 0] ** 2, y[..., 1] ** 2, y[..., 2] ** 2
+    return torch.stack([y2 + z2, x2 + z2, x2 + y2], dim=-1)
+
+
+def world_motion_gn_diag(values: dict, sqrt_w: list, w: WindowData, masks: WindowMasks,
+                         cfg: BackendConfig) -> dict:
+    """Exact-to-leading-order diag(J^T W J) of the WorldMotion families,
+    in the JAX package's arithmetic: pose-to-point Jacobians [hat(y) | -I]
+    with y the measured local point, orthonormal point Jacobians, and
+    1/sigma^2 per component for the pose-pose factors.  Family order is
+    that of `world_motion_residuals`."""
+    dtype, dev = values["sp"].dtype, values["sp"].device
+    W_, O = masks.smoothing.shape
+    w_anchor, w_odo, w_static, w_dyn, w_tern, w_smooth = [s ** 2 for s in sqrt_w]
+    pose_sig, smooth_sig = pose_sigmas(cfg, dtype, dev)
+
+    # X (W, 6)
+    dX = torch.zeros((W_, 6), dtype=dtype, device=dev)
+    dX[0] += w_anchor[0] / cfg.initial_pose_prior_sigma ** 2
+    odo_w = (w_odo * masks.odometry[1:].to(dtype))[:, None] / pose_sig ** 2
+    dX[:-1] += odo_w
+    dX[1:] += odo_w
+    ws = w_static * masks.static_obs.to(dtype) / cfg.static_point_noise_sigma ** 2
+    wd = w_dyn * masks.dyn_obs.to(dtype) / cfg.dynamic_point_noise_sigma ** 2
+    for wgt, xyz in ((ws, w.static_xyz), (wd, w.dyn_xyz)):
+        rot = torch.einsum("kn,knd->kd", wgt, _skew_sq_diag(xyz))
+        dX = dX + torch.cat([rot, wgt.sum(1)[:, None].expand(-1, 3)], dim=-1)
+
+    # sp (NS, 3), dp (W, ND, 3): orthonormal point Jacobians
+    dsp = ws.sum(0)[:, None].expand(-1, 3)
+    wt = w_tern * masks.ternary[1:].to(dtype) / cfg.motion_ternary_factor_noise_sigma ** 2   # (W-1, ND)
+    ddp = wd[..., None].expand(-1, -1, 3).clone()
+    ddp[:-1] += wt[..., None]                   # m_{k-1} slot (identity J)
+    ddp[1:] += wt[..., None]                    # m_k slot (rotation J)
+
+    # H (W, O, 6): ternary J_H = -[hat(y) | -I], y = H^-1 m_k ~ m_{k-1}
+    onehot = object_onehot(torch.where(masks.ternary[1:], w.dyn_obj[1:], -1), O).to(dtype)
+    rot_H = torch.einsum("kn,kno,knd->kod", wt, onehot, _skew_sq_diag(values["dp"][:-1]))
+    trans_H = torch.einsum("kn,kno->ko", wt, onehot)[..., None].expand(-1, -1, 3)
+    dH = torch.zeros((W_, O, 6), dtype=dtype, device=dev)
+    dH[1:] += torch.cat([rot_H, trans_H], dim=-1)
+    sm_w = (w_smooth * masks.smoothing[1:].to(dtype))[..., None] / smooth_sig ** 2
+    dH[:-1] += sm_w
+    dH[1:] += sm_w
+    return {"X": dX, "H": dH, "sp": dsp, "dp": ddp}

@@ -24,6 +24,9 @@ the normal system is rebuilt only after an accepted step.  A failed
 Cholesky gives a NaN step, which the LM rejects and which raises the
 lowest lambda it returns to (the NaN ratchet), as in the JAX package.
 
+`world_motion_normal_product` applies the same closed-form blocks as the
+matrix-free J^T W J product of the LM-PCG (`solver.lm_optimize`).
+
 Not ported (ROADMAP.md): the WorldPose build (item 11), the subtractive
 elimination and the generic chain solvers behind the JAX package's
 environment switches, and the distributed overrides (item 16).
@@ -37,7 +40,6 @@ import torch
 
 from ..core.lie import SE3, se3_between, se3_identity, se3_inverse, so3_hat
 from ..ops import factors
-from ..ops.robust import robust_sqrt_weights
 from ..utils.config import BackendConfig
 from .formulation import (
     WindowMasks,
@@ -49,7 +51,7 @@ from .formulation import (
     world_motion_residuals,
 )
 from .map import WindowData
-from .solver import LMConfig, LMResult, retract_tree, total_error
+from .solver import LMConfig, LMResult, retract_tree, sqrt_weights, total_error
 
 
 def _floor_consts(dtype):
@@ -324,6 +326,93 @@ def build_normal_system(values: dict, sqrt_w: list, w: WindowData, masks: Window
 
 
 # --------------------------------------------------------------------------
+# Matrix-free product of the LM-PCG solve
+# --------------------------------------------------------------------------
+
+
+def world_motion_normal_product(values: dict, sqrt_w: list, res0: list, w: WindowData,
+                                masks: WindowMasks, cfg: BackendConfig, anchor: SE3):
+    """(JtJ_mv, g) of the WorldMotion families at `values` with the IRLS
+    weights `sqrt_w` frozen: JtJ_mv(d) = J^T W J d on tangent dicts {X (W,
+    6), H (W, O, 6), sp (NS, 3), dp (W, ND, 3)} and g = J^T W r0 for the
+    residuals `res0` of `world_motion_residuals` (what the JAX LM-PCG gets
+    from `jax.linearize` + `jax.linear_transpose`).  The whitened Jacobian
+    blocks of every family are built here once; each product is then
+    batched contractions, gathers and `index_add_`, with no host read."""
+    X: SE3 = values["X"]
+    H: SE3 = values["H"]
+    sp, dp = values["sp"], values["dp"]
+    dtype, dev = sp.dtype, sp.device
+    W, O = H.batch_shape
+    ND = dp.shape[1]
+    pose_sigma, smooth_sigma = pose_sigmas(cfg, dtype, dev)
+    sig_t = cfg.motion_ternary_factor_noise_sigma
+
+    # IRLS weight x activation mask of each factor row
+    w_anchor = sqrt_w[0][0] ** 2
+    w_odo = sqrt_w[1] ** 2 * masks.odometry[1:].to(dtype)
+    w_s = sqrt_w[2] ** 2 * masks.static_obs.to(dtype)
+    w_d = sqrt_w[3] ** 2 * masks.dyn_obs.to(dtype)
+    w_t = sqrt_w[4] ** 2 * masks.ternary[1:].to(dtype)
+    w_sm = sqrt_w[5] ** 2 * masks.smoothing[1:].to(dtype)
+
+    J_anchor = _right_jacobian_inv(factors.prior_residual(X[0], anchor)) / cfg.initial_pose_prior_sigma
+    Ja_o, Jb_o = _between_jacobians(X[:-1], X[1:], odometry_measurements(w), pose_sigma)
+    Jx_s, Jp_s = _pose_point_jacobians(X, sp[None].expand(W, *sp.shape), cfg.static_point_noise_sigma)
+    Jx_d, Jp_d = _pose_point_jacobians(X, dp, cfg.dynamic_point_noise_sigma)
+    Ja_m, Jb_m = _between_jacobians(H[:-1], H[1:], se3_identity((), dtype, dev), smooth_sigma)
+    # ternary row k (factor (k-1, k)): d/dm_{k-1} = I, d/dm_k = -R^T,
+    # d/dH_k^{obj} = G = [-hat(y) | I] with y = H^-1 m_k; all over sigma_t
+    Hk, _ = select_motions(H, w.dyn_obj, masks.ternary | masks.dyn_obs)
+    Rm = Hk.R[1:]                                               # (W-1, ND, 3, 3)
+    y_t = torch.einsum("...ba,...b->...a", Rm, dp[1:] - Hk.t[1:])
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    G = torch.cat([-so3_hat(y_t), eye3.expand(*y_t.shape, 3)], dim=-1)
+    obj_idx = (torch.arange(1, W, device=dev)[:, None] * O + w.dyn_obj[1:].clamp(min=0)).reshape(-1)
+
+    def J(d: dict) -> list:
+        dX, dH, dsp, ddp = d["X"], d["H"], d["sp"], d["dp"]
+        dH_sel = dH.reshape(W * O, 6)[obj_idx].reshape(W - 1, ND, 6)
+        return [
+            J_anchor @ dX[0],
+            torch.einsum("kab,kb->ka", Ja_o, dX[:-1]) + torch.einsum("kab,kb->ka", Jb_o, dX[1:]),
+            torch.einsum("knab,kb->kna", Jx_s, dX) + torch.einsum("kab,nb->kna", Jp_s, dsp),
+            torch.einsum("knab,kb->kna", Jx_d, dX) + torch.einsum("kab,knb->kna", Jp_d, ddp),
+            (ddp[:-1] - torch.einsum("knba,knb->kna", Rm, ddp[1:])
+             + torch.einsum("knab,knb->kna", G, dH_sel)) / sig_t,
+            torch.einsum("koab,kob->koa", Ja_m, dH[:-1]) + torch.einsum("koab,kob->koa", Jb_m, dH[1:]),
+        ]
+
+    def Jt(u: list) -> dict:
+        """J^T of weighted rows u (each already multiplied by its weight)."""
+        u_a, u_o, u_s, u_d, u_t, u_m = u
+        gX = torch.einsum("knab,kna->kb", Jx_s, u_s) + torch.einsum("knab,kna->kb", Jx_d, u_d)
+        gX[0] += J_anchor.T @ u_a
+        gX[:-1] += torch.einsum("kab,ka->kb", Ja_o, u_o)
+        gX[1:] += torch.einsum("kab,ka->kb", Jb_o, u_o)
+        g_sp = torch.einsum("kab,kna->nb", Jp_s, u_s)
+        g_dp = torch.einsum("kab,kna->knb", Jp_d, u_d)
+        u_t = u_t / sig_t
+        g_dp[:-1] += u_t
+        g_dp[1:] -= torch.einsum("knab,knb->kna", Rm, u_t)
+        gH = torch.zeros((W * O, 6), dtype=dtype, device=dev)
+        gH.index_add_(0, obj_idx, torch.einsum("knab,kna->knb", G, u_t).reshape(-1, 6))
+        gH = gH.reshape(W, O, 6)
+        gH[:-1] += torch.einsum("koab,koa->kob", Ja_m, u_m)
+        gH[1:] += torch.einsum("koab,koa->kob", Jb_m, u_m)
+        return {"X": gX, "H": gH, "sp": g_sp, "dp": g_dp}
+
+    weights = (w_anchor, w_odo[:, None], w_s[..., None], w_d[..., None], w_t[..., None], w_sm[..., None])
+
+    def JtJ_mv(d: dict) -> dict:
+        return Jt([wt * u for wt, u in zip(weights, J(d))])
+
+    r_anchor, *rest = res0
+    g = Jt([wt * r for wt, r in zip(weights, [r_anchor[0], *rest])])
+    return JtJ_mv, g
+
+
+# --------------------------------------------------------------------------
 # Damped Schur step
 # --------------------------------------------------------------------------
 
@@ -478,13 +567,6 @@ def schur_step(sys: NormalSystem, lam: torch.Tensor, floor: float) -> dict:
 # --------------------------------------------------------------------------
 # LM driver
 # --------------------------------------------------------------------------
-
-
-def sqrt_weights(res: list, specs) -> list:
-    """IRLS square-root weights of each family at its residuals."""
-    return [robust_sqrt_weights(r, s.k, s.kind) if s.kind != "none"
-            else torch.ones(r.shape[:-1], dtype=r.dtype, device=r.device)
-            for r, s in zip(res, specs)]
 
 
 def lm_optimize_schur(values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig,

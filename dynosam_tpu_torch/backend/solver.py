@@ -1,17 +1,29 @@
-"""LM building blocks shared by the solvers (port of the parts of
-`dynosam_tpu/backend/solver.py` that the frontend refiners and the window
-solve use; the matrix-free LM-PCG engine is ROADMAP.md item 12).
+"""Levenberg-Marquardt over manifold value dicts (port of
+`dynosam_tpu/backend/solver.py`): the blocks the frontend refiners and the
+direct-Schur window solve share, and the LM-PCG engine of long windows and
+full-batch solves.
 
 Values are dicts of tensors and `SE3` leaves; SE3 leaves retract on the
-manifold with 6-dof tangents, plain tensors add."""
+manifold with 6-dof tangents, plain tensors add.
+
+The JAX LM-PCG builds ``J^T W J v`` as ``vjp(jvp(v))`` from
+`jax.linearize` once per LM iteration.  Here the caller's `normal_fn`
+builds the family Jacobian blocks in closed form once per linearisation
+and returns the product and the gradient ``g = J^T W r``; the PCG runs on
+the tangent raveled into one vector (as `jax.flatten_util` would) in
+chunks of `PCG_CHUNK` iterations, frozen on the device once its exit test
+fails, so the host reads once per chunk and the LM once per iteration.
+The Hutchinson diagonal (`gn_diag_fn=None`, varpro) is ROADMAP.md item 12.
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
 from ..core.lie import SE3, se3_retract
+from ..ops.robust import robust_sqrt_weights
 
 
 class RobustSpec(NamedTuple):
@@ -46,6 +58,13 @@ def total_error(residuals: Sequence[torch.Tensor], specs: Sequence[RobustSpec], 
     return total
 
 
+def sqrt_weights(res: list, specs) -> list:
+    """IRLS square-root weights of each family at its residuals."""
+    return [robust_sqrt_weights(r, s.k, s.kind) if s.kind != "none"
+            else torch.ones(r.shape[:-1], dtype=r.dtype, device=r.device)
+            for r, s in zip(res, specs)]
+
+
 class LMConfig(NamedTuple):
     max_iterations: int = 30
     initial_lambda: float = 1e-5
@@ -66,6 +85,7 @@ class LMResult(NamedTuple):
     iterations: torch.Tensor
     lam: torch.Tensor
     converged: torch.Tensor
+    cg_iterations: Optional[list] = None   # LM-PCG: CG iterations of each LM iteration
 
 
 def zero_delta(values: dict) -> dict:
@@ -85,3 +105,153 @@ def retract_tree(values: dict, delta: dict) -> dict:
         k: se3_retract(v, delta[k]) if isinstance(v, SE3) else v + delta[k]
         for k, v in values.items()
     }
+
+
+def tree_add(a, b):
+    return {k: a[k] + b[k] for k in a} if isinstance(a, dict) else a + b
+
+
+def tree_sub(a, b):
+    return {k: a[k] - b[k] for k in a} if isinstance(a, dict) else a - b
+
+
+def tree_scale(a, s):
+    return {k: v * s for k, v in a.items()} if isinstance(a, dict) else a * s
+
+
+def tree_dot(a, b):
+    if isinstance(a, dict):
+        return sum(torch.sum(a[k] * b[k]) for k in a)
+    return torch.sum(a * b)
+
+
+class Raveler:
+    """Tangent dict <-> one flat vector, leaves in dict order (the layout
+    of `jax.flatten_util.ravel_pytree` for a flat dict)."""
+
+    def __init__(self, template: dict):
+        self.keys = list(template)
+        self.shapes = [template[k].shape for k in self.keys]
+        self.sizes = [template[k].numel() for k in self.keys]
+
+    def ravel(self, d: dict) -> torch.Tensor:
+        return torch.cat([d[k].reshape(-1) for k in self.keys])
+
+    def unravel(self, v: torch.Tensor) -> dict:
+        return {k: x.view(s) for k, x, s in zip(self.keys, torch.split(v, self.sizes), self.shapes)}
+
+
+# --------------------------------------------------------------------------
+# PCG
+# --------------------------------------------------------------------------
+
+PCG_CHUNK = 8
+
+
+def pcg(A_mv, b, M_inv_mv, x0, max_iters: int, tol: float, chunk: int = PCG_CHUNK):
+    """Preconditioned CG (tensors or dicts of tensors).  Returns (x, n_iters,
+    final |r|^2), n_iters a 0-d int32 tensor.
+
+    The JAX `while_loop` tests ``(i < max_iters) & (|r|^2 > thr) & (gamma >
+    0)`` before every body.  Here each iteration evaluates that test on the
+    device and keeps x, r, z, p, gamma and i where it fails, so the result,
+    iteration count included, is the loop's own; the host reads the test
+    once per `chunk` iterations to stop early."""
+    r = tree_sub(b, A_mv(x0))
+    z = M_inv_mv(r)
+    gamma = tree_dot(r, z)
+    threshold = tol * tol * torch.clamp(tree_dot(b, b), min=1e-30)
+    x, p = x0, z
+    i = torch.zeros((), dtype=torch.int32, device=gamma.device)
+
+    def keep(act, new, old):
+        if isinstance(new, dict):
+            return {k: torch.where(act, new[k], old[k]) for k in new}
+        return torch.where(act, new, old)
+
+    def running():
+        return (i < max_iters) & (tree_dot(r, r) > threshold) & (gamma > 0)
+
+    done = 0
+    while done < max_iters:
+        for _ in range(min(chunk, max_iters - done)):
+            act = running()
+            Ap = A_mv(p)
+            alpha = gamma / torch.clamp(tree_dot(p, Ap), min=1e-30)
+            x_n = tree_add(x, tree_scale(p, alpha))
+            r_n = tree_sub(r, tree_scale(Ap, alpha))
+            z_n = M_inv_mv(r_n)
+            gamma_n = tree_dot(r_n, z_n)
+            beta = gamma_n / torch.clamp(gamma, min=1e-30)
+            p_n = tree_add(z_n, tree_scale(p, beta))
+            x, r, z, p = keep(act, x_n, x), keep(act, r_n, r), keep(act, z_n, z), keep(act, p_n, p)
+            gamma = torch.where(act, gamma_n, gamma)
+            i = i + act.to(torch.int32)
+        done += chunk
+        if done >= max_iters or not bool(running()):     # the chunk's one host read
+            break
+    return x, i, tree_dot(r, r)
+
+
+# --------------------------------------------------------------------------
+# Levenberg-Marquardt (LM-PCG)
+# --------------------------------------------------------------------------
+
+
+def lm_optimize(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict, cfg: LMConfig,
+                gn_diag_fn: Optional[Callable] = None, normal_fn: Optional[Callable] = None) -> LMResult:
+    """Minimise sum_f rho_f(|r_f(x)|) over the manifold dict `values`.
+
+    residual_fn(values) -> list of whitened, mask-zeroed residuals, one per
+    family of `specs`; gn_diag_fn(values, sqrt_w) -> diag(J^T W J) as a
+    tangent dict (damping and Jacobi preconditioner); normal_fn(values,
+    sqrt_w, residuals) -> (JtJ_mv, g): the product d -> J^T W J d on
+    tangent dicts and g = J^T W r, at `values` with the IRLS weights
+    frozen.  The loop is the JAX package's: accept on the true robust
+    cost, lambda down by `lambda_factor` on accept and up on reject,
+    gtsam-style convergence.  A rejected step keeps its linearisation (the
+    JAX loop recomputes the same one).  The host reads the accept and done
+    flags and the CG count once per LM iteration, besides PCG's reads."""
+    if gn_diag_fn is None:
+        raise NotImplementedError(
+            "the Hutchinson diagonal (gn_diag_fn=None, the varpro solve) is ported by ROADMAP.md item 12")
+    if normal_fn is None:
+        raise ValueError("lm_optimize needs normal_fn, the closed-form J^T W J product of the families")
+    specs = tuple(specs)
+    res = residual_fn(values)
+    err = total_error(res, specs)
+    err_init = err
+    dev = err.device
+    lam = torch.full((), cfg.initial_lambda, dtype=torch.float32, device=dev)
+    vals, it, done, lin, cg_iters = values, 0, False, None, []
+    rav = Raveler(zero_delta(values))
+    while it < cfg.max_iterations and not done:
+        if lin is None:
+            sqrt_w = sqrt_weights(res, specs)
+            JtJ_mv, g = normal_fn(vals, sqrt_w, res)
+            diag = rav.ravel({k: torch.clamp(torch.abs(v), min=cfg.diag_floor)
+                              for k, v in gn_diag_fn(vals, sqrt_w).items()})
+            lin = (lambda d, f=JtJ_mv: rav.ravel(f(rav.unravel(d))), -rav.ravel(g), diag)
+        JtJ, b, diag = lin
+        delta, n_cg, _ = pcg(lambda d: JtJ(d) + lam * (diag * d), b, lambda r: r / (diag * (1.0 + lam)),
+                             torch.zeros_like(b), cfg.cg_max_iterations, cfg.cg_tol)
+        new_vals = retract_tree(vals, rav.unravel(delta))
+        new_res = residual_fn(new_vals)
+        new_err = total_error(new_res, specs)
+        accept = new_err < err
+        err_out = torch.where(accept, new_err, err)
+        lam_out = torch.where(accept, torch.clamp(lam / cfg.lambda_factor, min=cfg.min_lambda),
+                              torch.clamp(lam * cfg.lambda_factor, max=cfg.max_lambda))
+        change = torch.abs(err - err_out)
+        converged = accept & ((change < cfg.rel_error_tol * torch.clamp(err, min=1e-30))
+                              | (change < cfg.abs_error_tol))
+        done_t = converged | (lam_out >= cfg.max_lambda)
+        flags = torch.stack([accept.to(torch.int32), done_t.to(torch.int32), n_cg])
+        accepted, done, n = flags.tolist()                  # the iteration's one host read
+        done = bool(done)
+        cg_iters.append(n)
+        if accepted:
+            vals, res, lin = new_vals, new_res, None
+        err, lam, it = err_out, lam_out, it + 1
+    return LMResult(values=vals, error=err, initial_error=err_init, iterations=it, lam=lam,
+                    converged=done, cg_iterations=cg_iters)

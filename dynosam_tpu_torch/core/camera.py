@@ -99,3 +99,24 @@ def project_jacobian_pose(params: CameraParams, p_cam: torch.Tensor) -> torch.Te
         dim=-1,
     )
     return torch.stack([ru, rv], dim=-2)
+
+
+def camera_params_from_yaml(path: str) -> CameraParams:
+    """Pinhole intrinsics from a CameraParams.yaml-style file
+    (`Camera.fx/fy/cx/cy/width/height` keys, the reference's
+    `CameraParams::fromYamlFile` surface)."""
+    import yaml
+
+    with open(path) as f:
+        y = yaml.safe_load(f) or {}
+
+    def get(*keys, default=None):
+        for k in keys:
+            if k in y:
+                return y[k]
+        return default
+
+    return CameraParams.create(
+        get("Camera.fx", "fx"), get("Camera.fy", "fy"), get("Camera.cx", "cx"), get("Camera.cy", "cy"),
+        int(get("Camera.width", "width", default=0)), int(get("Camera.height", "height", default=0)),
+    )

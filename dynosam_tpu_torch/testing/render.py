@@ -1,5 +1,5 @@
-"""Synthetic RGB-D + flow + mask sequence renderer (port of
-`dynosam_tpu/testing/render.py`, without the dataset-layout writer).
+"""Synthetic RGB-D + flow + mask sequence renderer and its KITTI-layout
+writer (port of `dynosam_tpu/testing/render.py`).
 
 A camera moves through a textured background plane while independently
 moving textured object planes cross it; every frame comes with exact depth,
@@ -11,6 +11,7 @@ runs as batched tensor code on the chosen device.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List
 
 import numpy as np
@@ -288,3 +289,78 @@ class RenderedScene:
         if self._frames is None:
             self._frames = self._render()
         return self._frames
+
+
+# --------------------------------------------------------------------------
+# Reference-layout dataset writer (dataset dir -> CLI -> report without
+# real sequences)
+# --------------------------------------------------------------------------
+
+
+def _write_flo(path: str, flow: np.ndarray) -> None:
+    """Middlebury .flo writer (inverse of `data/kitti._read_flo`)."""
+    h, w = flow.shape[:2]
+    with open(path, "wb") as f:
+        np.asarray([202021.25], np.float32).tofile(f)
+        np.asarray([w, h], np.int32).tofile(f)
+        flow.astype(np.float32).reshape(-1).tofile(f)
+
+
+def pose_matrix(X: SE3) -> np.ndarray:
+    """A pose as a float64 (4, 4) numpy matrix."""
+    T = np.eye(4)
+    T[:3, :3] = X.R.double().cpu().numpy()
+    T[:3, 3] = X.t.double().cpu().numpy()
+    return T
+
+
+def write_reference_layout(scene: "RenderedScene", out_dir: str, baseline: float = 387.5744,
+                           depth_scale: float = 256.0) -> str:
+    """Write a `RenderedScene` to disk in the KITTI-tracking layout that
+    `data/kitti.py` reads (`dataprovider/KittiDataProvider.hpp:352+`):
+
+      image_0/%06d.png   8-bit grayscale
+      depth/%06d.png     16-bit disparity, depth = baseline/(disp/scale)
+      flow/%06d.flo      dense flow k -> k+1
+      motion/%06d.png    16-bit instance masks
+      calib.txt          P2 row (overrides the per-sequence rig)
+      times.txt, pose_gt.txt (3x4 rows), object_pose.txt
+                         (`FrameID ObjectID B1-B4 t1 t2 t3 ry`)
+
+    The object_pose yaw encoding (L_cam = (R_y(ry + pi/2), t)) is exact
+    only for yaw-only object and camera rotations: build the scene with
+    `RenderConfig(yaw_only_objects=True)`.  PNGs are written by `cv2`."""
+    import cv2
+
+    cfg = scene.cfg
+    for sub in ("image_0", "depth", "flow", "motion"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    for k, f in enumerate(scene.frames()):
+        name = f"{k:06d}"
+        gray = np.clip(f.gray.cpu().numpy(), 0, 255).astype(np.uint8)
+        cv2.imwrite(os.path.join(out_dir, "image_0", name + ".png"), gray)
+        depth = f.depth.cpu().numpy().astype(np.float64)
+        disp = np.where(depth > 0, baseline * depth_scale / np.maximum(depth, 1e-6), 0.0)
+        cv2.imwrite(os.path.join(out_dir, "depth", name + ".png"),
+                    np.clip(np.round(disp), 0, 65535).astype(np.uint16))
+        _write_flo(os.path.join(out_dir, "flow", name + ".flo"), f.flow.cpu().numpy().astype(np.float32))
+        cv2.imwrite(os.path.join(out_dir, "motion", name + ".png"), f.mask.cpu().numpy().astype(np.uint16))
+
+    cam = scene.cam
+    with open(os.path.join(out_dir, "calib.txt"), "w") as f:
+        f.write(f"P2: {float(cam.fx)} 0 {float(cam.cx)} 0 0 {float(cam.fy)} {float(cam.cy)} 0 0 0 1 0\n")
+    with open(os.path.join(out_dir, "times.txt"), "w") as f:
+        for k in range(cfg.n_frames):
+            f.write(f"{k * 0.1:.6f}\n")
+    with open(os.path.join(out_dir, "pose_gt.txt"), "w") as f:
+        for k in range(cfg.n_frames):
+            f.write(" ".join(f"{v:.9f}" for v in pose_matrix(scene.X_gt[k])[:3, :4].reshape(-1)))
+            f.write("\n")
+    with open(os.path.join(out_dir, "object_pose.txt"), "w") as f:
+        for k in range(cfg.n_frames):
+            for i, lab in enumerate(scene.object_labels):
+                Lc = np.linalg.inv(pose_matrix(scene.X_gt[k])) @ pose_matrix(scene.object_pose_at(k, i))
+                ry = float(np.arctan2(Lc[0, 2], Lc[0, 0])) - np.pi / 2
+                t = Lc[:3, 3]
+                f.write(f"{k} {lab} 0 0 0 0 {t[0]:.9f} {t[1]:.9f} {t[2]:.9f} {ry:.9f}\n")
+    return out_dir

@@ -3,6 +3,7 @@
     python3 -m dynosam_tpu_torch.testing.trace [--detector {shi_tomasi,orb}] [--frames 12] [--warmup 4]
                                                [--out chiprun_out] [--chrome]
     python3 -m dynosam_tpu_torch.testing.trace --pipeline [--frames 22] [--warmup 10]
+    python3 -m dynosam_tpu_torch.testing.trace --full-batch
 
 Needs one NVIDIA card.  Renders the KITTI-width scene (`testing/scenes.py`).
 
@@ -21,6 +22,13 @@ count must be 4 + a multiple of 6).  After the warm-up frames, each traced
 frame's frontend step and, on the frames that complete a window, its
 window solve are profiled apart: the same figures for the frontend frames
 and for each window solve, then the operators of the window solves.
+
+`--full-batch`: the golden run (`testing/scenes.py:golden_dataset`,
+`golden_config`: 32 frames 160x120) through `DynoPipeline` with the
+full-batch backend; the frontend spins run unprofiled, then the one
+LM-PCG solve (`DynoPipeline.finish`) is profiled: the same figures for
+the solve, its LM and CG iterations, launches per CG iteration, and its
+operators.
 
 Every number comes from a profiled run; the profiler's own host cost is in
 its wall time.  With `--chrome` the Chrome trace of the last profiled
@@ -156,6 +164,31 @@ def _trace_pipeline(torch, profile, acts, args, device, card) -> dict:
             "frames_with_a_solve": sorted(solve_frames)}
 
 
+def _trace_full_batch(torch, profile, acts, args, device, card) -> dict:
+    from ..pipeline import DynoPipeline
+    from .scenes import golden_config, golden_dataset
+
+    ds = golden_dataset(device)
+    pipe = DynoPipeline(ds.camera_params(), golden_config(True), device=device)
+    for f in ds.frames():
+        pipe.spin_once(f)
+    torch.cuda.synchronize()
+    prof, wall = _profiled(torch, profile, acts, pipe.finish)
+    s = _stats(torch, prof, wall, 1)
+    r = pipe.backend.last_result
+    n_cg = sum(r.cg_iterations)
+    print(f"card: {card}")
+    print(_line(f"full-batch LM-PCG over {len(ds)} frames, {r.iterations} LM iterations, {n_cg} CG iterations, "
+                f"error {float(r.initial_error):.4g} -> {float(r.error):.4g}", s))
+    print(f"per CG iteration: {s['kernel_launches'] / n_cg:.1f} launches, {s['wall_ms'] / n_cg:.3f} ms host wall, "
+          f"{(s['device_busy_ms'] or 0) / n_cg:.4f} ms device busy")
+    _tables(torch, prof, rows=15)
+    if args.chrome:
+        _chrome(prof, args.out, "trace_full_batch_torch.json")
+    return {"card": card, "mode": "full_batch", "lm_iterations": r.iterations, "cg_iterations": r.cg_iterations,
+            "solve": s}
+
+
 def _tables(torch, prof, rows: int = 20) -> None:
     events = prof.key_averages()
     dev_attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
@@ -177,6 +210,8 @@ def main() -> int:
     ap.add_argument("--detector", choices=("shi_tomasi", "orb"), default="shi_tomasi")
     ap.add_argument("--pipeline", action="store_true",
                     help="trace the offline pipeline with the sliding-window backend")
+    ap.add_argument("--full-batch", action="store_true",
+                    help="trace the golden run's full-batch LM-PCG solve")
     ap.add_argument("--frames", type=int, default=None, help="default 12, or 22 with --pipeline")
     ap.add_argument("--warmup", type=int, default=None, help="default 4, or 10 with --pipeline")
     ap.add_argument("--out", default="chiprun_out")
@@ -197,7 +232,7 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     device = torch.device("cuda", 0)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    trace = _trace_pipeline if args.pipeline else _trace_frontend
+    trace = _trace_full_batch if args.full_batch else _trace_pipeline if args.pipeline else _trace_frontend
     print(json.dumps(trace(torch, profile, acts, args, device, card)))
     return 0
 

@@ -4,8 +4,9 @@ backend (port of `dynosam_tpu/throughput.py`, one window per solve).
 The JAX package fuses the whole run into one XLA program (a scan over
 trigger segments).  Here a host loop keeps the same order: frame 0, the
 warm-up frames 1..V-1 (V = window overlap), then per segment `stride =
-W - V` frontend steps, each followed by `update_map`, then one direct-Schur
-solve of the window [s * stride, s * stride + W) that just completed, with
+W - V` frontend steps, each followed by `update_map`, then one solve (direct
+Schur, or LM-PCG above `schur_max_window` frames) of the window
+[s * stride, s * stride + W) that just completed, with
 its estimates written back into the store.  A sequence has V + S * stride
 frames for a whole number S of segments.
 
@@ -20,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .backend.backend import check_backend_config, optimize_window
+from .backend.backend import check_backend_config, lm_config, optimize_window
 from .backend.formulation import WindowMasks
 from .backend.map import MeasurementMap, update_map
 from .backend.solver import LMConfig, LMResult
@@ -28,7 +29,7 @@ from .core.camera import CameraParams
 from .core.lie import SE3, se3_identity
 from .core.types import FrontendOutput
 from .frontend.frontend import FrameImages, FrontendState, check_frontend_config, frontend_step, to_device
-from .utils.config import BackendConfig, DynoConfig
+from .utils.config import DynoConfig
 from .utils.device import resolve_device
 
 
@@ -105,21 +106,14 @@ class SegmentPlan(NamedTuple):
 
 
 def _plan(cfg: DynoConfig, n_frames: int) -> SegmentPlan:
+    if cfg.backend.use_full_batch_opt:
+        raise ValueError("fused segments implement the sliding-window mode; use "
+                         "pipeline.run_from_packets for full-batch")
     W, V = cfg.backend.opt_window_size, cfg.backend.opt_window_overlap
     stride = W - V
     if not (n_frames >= W and (n_frames - V) % stride == 0):
         raise ValueError(f"sequence length {n_frames} must equal overlap {V} + n_segments * stride {stride}")
     return SegmentPlan(W, V, stride, (n_frames - V) // stride, n_frames)
-
-
-def _lm_cfg(bcfg: BackendConfig) -> LMConfig:
-    return LMConfig(
-        max_iterations=bcfg.lm_max_iterations, initial_lambda=bcfg.lm_initial_lambda,
-        lambda_factor=bcfg.lm_lambda_factor, max_lambda=bcfg.lm_max_lambda,
-        min_lambda=bcfg.lm_min_lambda, rel_error_tol=bcfg.lm_rel_error_tol,
-        abs_error_tol=bcfg.lm_abs_error_tol, cg_max_iterations=bcfg.cg_max_iterations,
-        cg_tol=bcfg.cg_tol,
-    )
 
 
 @dataclasses.dataclass
@@ -157,7 +151,7 @@ class OfflineRunner:
         self.plan = _plan(cfg, n_frames)
         self.device = resolve_device(device)
         self.cam, self.cfg, self.use_klt = cam, cfg, use_klt
-        self.lm_cfg = _lm_cfg(cfg.backend)
+        self.lm_cfg = lm_config(cfg.backend)
         cap = cfg.capacity
         f = max(n_frames, cap.max_frames)
         ns, nd, no = cap.max_static_tracks, cap.max_dynamic_tracks, cap.max_objects

@@ -1,7 +1,8 @@
 """Card-only checks of the port: each Hopper kernel against its plain
 PyTorch version on the same CUDA tensors, short frontend-only runs
 (Shi-Tomasi and ORB detectors) that must launch their kernels on every
-steady frame, and a backend window solve on the card against the CPU.
+steady frame, and backend solves (a direct-Schur window, a full-batch
+LM-PCG) on the card against the CPU.
 
 Marked `cuda`; a fixture skips them where no card is present.  On a machine
 with a card and the CUDA toolkit (this file imports neither JAX nor the
@@ -310,3 +311,26 @@ def test_window_solve_on_the_card_matches_the_cpu(cuda):
     assert float(lm_gpu.error) == pytest.approx(float(lm_cpu.error), rel=3e-2)
     assert abs(lm_gpu.iterations - lm_cpu.iterations) <= 1
     assert float((lm_gpu.values["X"].t.cpu() - lm_cpu.values["X"].t).abs().max()) <= 2e-3
+
+
+def test_lm_pcg_full_batch_on_the_card_matches_the_cpu(cuda):
+    """The full-batch LM-PCG (`use_schur=False`, 8 simulator frames, 30 LM
+    iterations) through `run_from_packets` on the card and on the CPU:
+    final error within rtol 1e-2 and camera translations within 1e-4 m (the
+    float32 floor of `tests/test_torch_solver.py`)."""
+    from dynosam_tpu_torch.pipeline import run_from_packets
+    from dynosam_tpu_torch.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu_torch.utils.config import BackendConfig, CapacityConfig, DynoConfig
+
+    scfg = ScenarioConfig(n_frames=8)
+    cfg = DynoConfig(backend=BackendConfig(use_full_batch_opt=True, use_schur=False),
+                     capacity=CapacityConfig(max_static_tracks=scfg.ns, max_dynamic_tracks=scfg.nd,
+                                             max_objects=scfg.no, max_frames=scfg.n_frames))
+    packets = Scenario(scfg).frontend_outputs()
+    out = {dev.type: run_from_packets(packets, cfg, device=dev).last_result
+           for dev in (torch.device("cpu"), cuda)}
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert gpu.values["X"].t.device.type == "cuda"
+    assert float(gpu.error) < 1e-3 * float(gpu.initial_error)
+    assert float(gpu.error) == pytest.approx(float(cpu.error), rel=1e-2)
+    assert float((gpu.values["X"].t.cpu() - cpu.values["X"].t).abs().max()) <= 1e-4

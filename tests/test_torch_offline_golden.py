@@ -2,7 +2,7 @@
 `dynosam_tpu_torch.throughput.run_offline(device="cpu")` over the golden
 scene's first 28 frames (4 + 4 x 6: four window solves) with the golden
 config's frontend and sliding windows must give a backend camera ATE
-under 0.06 m, the sliding-window band of
+under 0.06 m (the port's `eval.metrics.ate`), the sliding-window band of
 `tests/test_accuracy_regression.py::test_sliding_vs_batch_ordering`."""
 
 import jax.numpy as jnp
@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from dynosam_tpu.eval import metrics
 from dynosam_tpu.testing.render import RenderConfig, RenderedScene
 from dynosam_tpu_torch import convert
+from dynosam_tpu_torch.eval import metrics
 from dynosam_tpu_torch import throughput as ttp
 from dynosam_tpu_torch.frontend.frontend import FrameImages
 

@@ -1,14 +1,16 @@
-"""The port's frontend-only slice as a whole, and the guards around it.
+"""The port's online pipeline as a whole, and the guards around it.
 
-* The slice: `DynoPipeline(use_backend=False, device="cpu")` of the port on
-  the golden 32-frame scene (2 moving objects, 0.5 px flow noise and 1 %
-  depth noise) with the frontend and capacity parts of the golden config
-  (`tests/test_accuracy_regression.py`) must pass the frontend golden bands,
-  evaluated by the JAX package's own logger and evaluator
-  (`dynosam_tpu.eval.metrics` underneath).
-* Guards: the port imports neither JAX nor the JAX package, its entry
-  points refuse to fall back to the CPU, options outside the slice raise,
-  and a CPU run launches no kernel.
+* The slice: the port's `run_and_log` (`DynoPipeline` with the full-batch
+  `RGBDBackend`, `device="cpu"`) on the golden 32-frame scene of
+  `tests/test_accuracy_regression.py` (2 moving objects, 0.5 px flow noise
+  and 1 % depth noise, the JAX renderer's frames) with the golden config,
+  evaluated by the port's own `evaluate_all`: the frontend bands
+  (`:123-134`), the backend bands with the object improvement
+  (`:137-152`) and the sliding-vs-batch ordering (`:155-163`, the sliding
+  run through the port's `run_from_packets`).
+* Guards: the port imports neither JAX nor the JAX package (nor `cv2`),
+  its entry points refuse to fall back to the CPU, options outside the
+  slice raise, and a CPU run launches no kernel.
 """
 
 import dataclasses
@@ -22,12 +24,14 @@ import numpy as np
 import pytest
 import torch
 
-from dynosam_tpu.eval.evaluator import evaluate_all
 from dynosam_tpu.testing.render import RenderConfig, RenderedScene
-from dynosam_tpu.utils.logger import EstimationLogger
 from dynosam_tpu_torch import convert
+from dynosam_tpu_torch.data.base import DatasetProvider, GroundTruthFrame
+from dynosam_tpu_torch.eval import metrics
+from dynosam_tpu_torch.eval.evaluator import evaluate_all
 from dynosam_tpu_torch.frontend.frontend import FrameImages
-from dynosam_tpu_torch.pipeline import DynoPipeline
+from dynosam_tpu_torch.pipeline import DynoPipeline, run_and_log, run_from_packets
+from dynosam_tpu_torch.testing.scenes import RenderedDataset, golden_config
 from dynosam_tpu_torch.utils import config as tcfg
 
 torch.set_num_threads(2)
@@ -56,9 +60,37 @@ def _mat(R, t):
     return T
 
 
-def test_golden_frontend_bands(tmp_path):
-    """ATE < 0.010 m, RPE < 0.004 m and 0.03 deg, AME < 0.30 m and 3.0 deg,
-    RME < 0.08 m: the bands of `test_golden_frontend_bands`."""
+class JaxSceneDataset(DatasetProvider):
+    """The JAX renderer's golden frames (noise added, as torch tensors) with
+    the scene's ground truth."""
+
+    def __init__(self, scene, frames):
+        super().__init__("<golden>")
+        self.scene, self._frames = scene, frames
+
+    def __len__(self):
+        return len(self._frames)
+
+    def camera_params(self):
+        return convert.camera_from_numpy(self.scene.cam._asdict())
+
+    def frame(self, idx):
+        return self._frames[idx]
+
+    def ground_truth(self, idx):
+        sc = self.scene
+        return GroundTruthFrame(
+            frame_id=idx, timestamp=idx * 0.1, X_world=_mat(sc.X_gt[idx].R, sc.X_gt[idx].t),
+            object_poses={lab: _mat(sc.object_pose_at(idx, o).R, sc.object_pose_at(idx, o).t)
+                          for o, lab in enumerate(sc.object_labels)},
+            object_motions={lab: _mat(sc.H_gt_list[o].R, sc.H_gt_list[o].t)
+                            for o, lab in enumerate(sc.object_labels)})
+
+
+@pytest.fixture(scope="module")
+def golden_run(tmp_path_factory):
+    """`test_accuracy_regression.golden_run` on the port: the golden frames
+    through the port's `run_and_log` (full batch) and `evaluate_all`."""
     scene = RenderedScene(RenderConfig(n_frames=N_FRAMES, n_objects=2, seed=0))
     fr = np.random.default_rng(1)           # the golden noise recipe, in order
     frames = [
@@ -72,24 +104,25 @@ def test_golden_frontend_bands(tmp_path):
         )
         for f in scene.frames()
     ]
-    pipe = DynoPipeline(convert.camera_from_numpy(scene.cam._asdict()), golden_frontend_config(), device="cpu")
-    result = pipe.run(frames)
-    assert len(result.packets) == N_FRAMES
+    out = tmp_path_factory.mktemp("golden")
+    result = run_and_log(JaxSceneDataset(scene, frames), golden_config(True), str(out), device="cpu")
+    gt_T = np.stack([_mat(X.R, X.t) for X in scene.X_gt])
+    return result, evaluate_all(str(out)), gt_T
 
-    log = EstimationLogger(str(tmp_path), "frontend")
-    for k, pkt in enumerate(result.packets):
-        p = convert.frontend_output_to_numpy(pkt)
-        log.log_camera_pose(k, _mat(p.X_world.R, p.X_world.t), _mat(scene.X_gt[k].R, scene.X_gt[k].t))
-        log.log_timestamp(k, float(p.timestamp))
-        for j in np.nonzero(p.objects.motion_valid)[0]:
-            o = scene.object_labels.index(int(p.objects.label[j]))
-            log.log_object_motion(k, int(p.objects.label[j]), _mat(p.objects.motion.R[j], p.objects.motion.t[j]),
-                                  _mat(scene.H_gt_list[o].R, scene.H_gt_list[o].t))
-            L = scene.object_pose_at(k, o)
-            log.log_object_pose(k, int(p.objects.label[j]), _mat(p.objects.pose.R[j], p.objects.pose.t[j]),
-                                _mat(L.R, L.t))
-    log.flush()
-    ev = evaluate_all(str(tmp_path))["frontend"]
+
+def _backend_ate(be, gt_T):
+    X, xv = be.camera_poses()
+    xv = xv.numpy()
+    T = np.stack([_mat(R, t) for R, t in zip(X.R.numpy()[xv], X.t.numpy()[xv])])
+    return metrics.ate(T, gt_T[xv])["trans"].rmse
+
+
+def test_golden_frontend_bands(golden_run):
+    """ATE < 0.010 m, RPE < 0.004 m and 0.03 deg, AME < 0.30 m and 3.0 deg,
+    RME < 0.08 m: the bands of `test_golden_frontend_bands`."""
+    result, evals, _ = golden_run
+    assert len(result.packets) == N_FRAMES
+    ev = evals["frontend"]
     cam = ev["camera"]
     assert cam["n_frames"] == N_FRAMES
     assert cam["ate_trans_rmse"] < 0.010, cam
@@ -102,18 +135,52 @@ def test_golden_frontend_bands(tmp_path):
     assert objs["rme_trans_rmse"] < 0.08, objs
 
 
+def test_golden_backend_bands_and_object_improvement(golden_run):
+    """Backend camera ATE < 0.022 m, object AME < 0.15 m, and both AME
+    parts below 0.8x the frontend's (`:137-152`); the full-batch solve is
+    one LM-PCG over all 32 frames."""
+    result, evals, _ = golden_run
+    solves = result.backend.solves
+    assert [(s, w) for s, w, _, _ in solves] == [(0, N_FRAMES)]
+    r = solves[0][2]
+    assert float(r.error) < float(r.initial_error) and len(r.cg_iterations) == r.iterations
+    be = evals["rgbd_motion_world_backend"]
+    assert be["camera"]["n_frames"] == N_FRAMES
+    assert be["camera"]["ate_trans_rmse"] < 0.022, be["camera"]
+    objs_be, objs_fe = be["objects_mean"], evals["frontend"]["objects_mean"]
+    assert objs_be["ame_trans_rmse"] < 0.15, objs_be
+    assert objs_be["ame_trans_rmse"] < 0.8 * objs_fe["ame_trans_rmse"], (objs_be, objs_fe)
+    assert objs_be["ame_rot_deg_rmse"] < 0.8 * objs_fe["ame_rot_deg_rmse"], (objs_be, objs_fe)
+
+
+def test_sliding_vs_batch_ordering(golden_run):
+    """Sliding windows (10/4) through `run_from_packets`: ATE < 0.06 m, and
+    the full batch no worse than 1.10x it (`:155-163`)."""
+    result, evals, gt_T = golden_run
+    be_sw = run_from_packets(result.packets, golden_config(False), device="cpu")
+    assert [(s, w) for s, w, _, _ in be_sw.solves] == [(0, 10), (6, 10), (12, 10), (18, 10), (24, 8)]
+    sw_ate = _backend_ate(be_sw, gt_T)
+    fb_ate = evals["rgbd_motion_world_backend"]["camera"]["ate_trans_rmse"]
+    assert sw_ate < 0.06, sw_ate
+    assert fb_ate <= sw_ate * 1.10, (fb_ate, sw_ate)
+
+
 def test_port_imports_no_jax_and_cpu_run_launches_no_kernel():
-    """A fresh interpreter (isolated from any site hook) imports the port,
+    """A fresh interpreter (isolated from any site hook) imports the port
+    (the CLI, the loaders, the evaluator and serialisation included),
     renders two small frames and runs the pipeline on the CPU with the
-    Shi-Tomasi and with the ORB detector: no `jax` and no `dynosam_tpu.*`
-    module gets imported, and no kernel launches."""
+    Shi-Tomasi and with the ORB detector: no `jax`, no `dynosam_tpu.*` and
+    no `cv2` module gets imported, and no kernel launches."""
     code = f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
 import torch
 from dynosam_tpu_torch import kernels
-from dynosam_tpu_torch.pipeline import DynoPipeline
+import dynosam_tpu_torch.__main__, dynosam_tpu_torch.data.factory, dynosam_tpu_torch.eval.evaluator
+import dynosam_tpu_torch.utils.serialization
+from dynosam_tpu_torch.pipeline import DynoPipeline, run_and_log, run_from_packets
 from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
+from dynosam_tpu_torch.testing.scenes import RenderedDataset
 from dynosam_tpu_torch.utils.config import DynoConfig, FrontendConfig, PipelineConfig, CapacityConfig, TrackerConfig
 scene = RenderedScene(RenderConfig(n_frames=2, h=48, w=64, fx=48.0), device="cpu")
 kernels.reset_launch_counts()
@@ -125,7 +192,8 @@ for detector in ("shi_tomasi", "orb"):
     for f in scene.frames():
         pkt = pipe.spin_once(f)
     assert torch.isfinite(pkt.X_world.t).all()
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "dynosam_tpu.")) or m == "dynosam_tpu")
+bad = sorted(m for m in sys.modules if m in ("jax", "dynosam_tpu", "cv2")
+             or m.startswith(("jax.", "jaxlib", "dynosam_tpu.")))
 print("BAD", bad)
 print("COUNTS", kernels.launch_counts())
 """
@@ -164,10 +232,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TScene(TRenderConfig(n_frames=1))
+    backend_cfg = golden_config(True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DynoPipeline(cam, backend_cfg)
+    ds = RenderedDataset.__new__(RenderedDataset)      # never read: the device is resolved first
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_and_log(ds, backend_cfg, "unused")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_from_packets([], backend_cfg)
 
 
 @pytest.mark.parametrize("option", [
-    "3d3d", "2d2d", "legacy_3d3d", "propagate_mask", "byte_tracker", "backend",
+    "3d3d", "2d2d", "legacy_3d3d", "propagate_mask", "byte_tracker", "backend_updater_1",
 ])
 def test_options_outside_the_slice_raise(option):
     """Each option the slice does not port raises NotImplementedError that
@@ -185,7 +261,8 @@ def test_options_outside_the_slice_raise(option):
         cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
             fe, tracker=dataclasses.replace(tr, use_byte_tracker=True)))
     else:
-        cfg = dataclasses.replace(cfg, pipeline=tcfg.PipelineConfig(use_backend=True))
+        cfg = dataclasses.replace(cfg, pipeline=tcfg.PipelineConfig(use_backend=True),
+                                  backend=tcfg.BackendConfig(backend_updater_enum=1))
     cam = convert.camera_from_numpy(dict(fx=100.0, fy=100.0, cx=32.0, cy=24.0, width=64, height=48))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item"):
         DynoPipeline(cam, cfg, device="cpu")
