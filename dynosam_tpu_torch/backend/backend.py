@@ -3,7 +3,7 @@
 
 Per frame `RGBDBackend.spin` writes the frontend packet into the
 measurement map and, when `SlidingWindowTrigger` completes a window,
-solves it (`optimize_window`) warm-started from the estimate store and
+solves it (`solve_window`) warm-started from the estimate store and
 writes the result back; `finish` runs the final partial window or the one
 full-batch solve.  Windows up to `schur_max_window` frames use the direct
 Schur LM (`backend/schur.py`) on a compacted window; longer windows (full
@@ -19,8 +19,7 @@ varpro (item 12).
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -131,9 +130,11 @@ def lm_config(cfg: BackendConfig) -> LMConfig:
     )
 
 
-@dataclasses.dataclass
-class EstimateStore:
-    """Global state estimates over all frames (device tensors)."""
+class EstimateStore(NamedTuple):
+    """Global state estimates over all frames (device tensors), written in
+    place by `solve_window`: the store of the online backend and of the
+    offline runner alike.  The JAX package keeps two (`EstimateStore`, and
+    `throughput.EstStore` for traced code, whose P holds H under updater 0)."""
 
     X: SE3                        # (F,) camera poses
     H: SE3                        # (F, O) object motions
@@ -153,6 +154,36 @@ class EstimateStore:
             dyn_points=torch.zeros((f, nd, 3), dtype=dtype, device=device), dyn_valid=zb(f, nd),
             X_valid=zb(f), motion_valid=zb(f, no),
         )
+
+
+def solve_window(est: EstimateStore, m: MeasurementMap, start: int, window: int, cfg: BackendConfig,
+                 lm_cfg: LMConfig):
+    """Solve frames [start, start + window) warm-started from `est` and
+    write the result back into it, in place; returns (LMResult,
+    WindowMasks in pool coordinates).
+
+    The anchor is the previous estimate of the first window pose if it was
+    already optimised (window overlap), else the frontend's.  The gate
+    stays a device bool, so the caller never waits for a solve."""
+    use_anchor = est.X_valid[start]
+    sl = slice(start, start + window)
+    prev = {"X": est.X[sl], "H": est.H[sl], "sp": est.static_points, "dp": est.dyn_points[sl]}
+    prev_mask = {"X": est.X_valid[sl] & use_anchor, "H": est.motion_valid[sl] & use_anchor,
+                 "sp": est.static_valid & use_anchor, "dp": est.dyn_valid[sl] & use_anchor}
+    result, masks = optimize_window(m, start, window, cfg, lm_cfg, est.X[start], use_anchor, prev, prev_mask)
+    values = result.values
+    est.X.R[sl] = values["X"].R
+    est.X.t[sl] = values["X"].t
+    est.X_valid[sl] = masks.frame
+    est.H.R[sl] = values["H"].R
+    est.H.t[sl] = values["H"].t
+    est.motion_valid[sl] = masks.motion_active
+    seen = masks.static_obs.any(0)
+    est.static_points.copy_(torch.where(seen[:, None], values["sp"], est.static_points))
+    est.static_valid.logical_or_(seen)
+    est.dyn_points[sl] = values["dp"]
+    est.dyn_valid[sl] = masks.dyn_obs
+    return result, masks
 
 
 class SlidingWindowTrigger:
@@ -225,38 +256,11 @@ class RGBDBackend:
         if self.device.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             events[0].record()
-        est = self.est
-        # anchor: the previous estimate of the first window pose if it was
-        # already optimised (window overlap), else the frontend's; the gate
-        # stays a device bool, so the spin path never waits for a solve
-        use_anchor = est.X_valid[start]
-        sl = slice(start, start + window)
-        prev = {"X": est.X[sl], "H": est.H[sl], "sp": est.static_points, "dp": est.dyn_points[sl]}
-        prev_mask = {"X": est.X_valid[sl] & use_anchor, "H": est.motion_valid[sl] & use_anchor,
-                     "sp": est.static_valid & use_anchor, "dp": est.dyn_valid[sl] & use_anchor}
-        result, masks = optimize_window(self.map, start, window, self.cfg, self.lm_cfg, est.X[start],
-                                        use_anchor, prev, prev_mask)
+        result, _ = solve_window(self.est, self.map, start, window, self.cfg, self.lm_cfg)
         self.last_result = result
-        self._write_back(start, window, result.values, masks)
         if events is not None:
             events[1].record()
         self.solves.append((start, window, result, events))
-
-    def _write_back(self, start: int, window: int, values: dict, masks):
-        """Scatter the optimised window into the estimate store, in place."""
-        est = self.est
-        sl = slice(start, start + window)
-        est.X.R[sl] = values["X"].R
-        est.X.t[sl] = values["X"].t
-        est.X_valid[sl] = masks.frame
-        est.H.R[sl] = values["H"].R
-        est.H.t[sl] = values["H"].t
-        est.motion_valid[sl] = masks.motion_active
-        seen = masks.static_obs.any(0)
-        est.static_points.copy_(torch.where(seen[:, None], values["sp"], est.static_points))
-        est.static_valid.logical_or_(seen)
-        est.dyn_points[sl] = values["dp"]
-        est.dyn_valid[sl] = masks.dyn_obs
 
     # ------------------------------------------------------------------
     # Accessors (`Accessor<MAP>`, `backend/Accessor.hpp:51-207`)
@@ -361,7 +365,7 @@ def _backend_state(backend: RGBDBackend) -> dict:
     dev = backend.device
     return {
         "map": backend.map,
-        "est": {f.name: getattr(est, f.name) for f in dataclasses.fields(EstimateStore)},
+        "est": est._asdict(),
         "n_frames": torch.tensor(backend.n_frames, device=dev),
         "window_start": torch.tensor(backend.trigger.start, device=dev),
     }

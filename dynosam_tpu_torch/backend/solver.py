@@ -148,7 +148,7 @@ class Raveler:
 PCG_CHUNK = 8
 
 
-def pcg(A_mv, b, M_inv_mv, x0, max_iters: int, tol: float, chunk: int = PCG_CHUNK):
+def pcg(A_mv, b, M_inv_mv, x0, max_iters: int, tol: float):
     """Preconditioned CG (tensors or dicts of tensors).  Returns (x, n_iters,
     final |r|^2), n_iters a 0-d int32 tensor.
 
@@ -156,7 +156,7 @@ def pcg(A_mv, b, M_inv_mv, x0, max_iters: int, tol: float, chunk: int = PCG_CHUN
     0)`` before every body.  Here each iteration evaluates that test on the
     device and keeps x, r, z, p, gamma and i where it fails, so the result,
     iteration count included, is the loop's own; the host reads the test
-    once per `chunk` iterations to stop early."""
+    once per `PCG_CHUNK` iterations to stop early."""
     r = tree_sub(b, A_mv(x0))
     z = M_inv_mv(r)
     gamma = tree_dot(r, z)
@@ -174,7 +174,7 @@ def pcg(A_mv, b, M_inv_mv, x0, max_iters: int, tol: float, chunk: int = PCG_CHUN
 
     done = 0
     while done < max_iters:
-        for _ in range(min(chunk, max_iters - done)):
+        for _ in range(min(PCG_CHUNK, max_iters - done)):
             act = running()
             Ap = A_mv(p)
             alpha = gamma / torch.clamp(tree_dot(p, Ap), min=1e-30)
@@ -187,7 +187,7 @@ def pcg(A_mv, b, M_inv_mv, x0, max_iters: int, tol: float, chunk: int = PCG_CHUN
             x, r, z, p = keep(act, x_n, x), keep(act, r_n, r), keep(act, z_n, z), keep(act, p_n, p)
             gamma = torch.where(act, gamma_n, gamma)
             i = i + act.to(torch.int32)
-        done += chunk
+        done += PCG_CHUNK
         if done >= max_iters or not bool(running()):     # the chunk's one host read
             break
     return x, i, tree_dot(r, r)
@@ -198,8 +198,8 @@ def pcg(A_mv, b, M_inv_mv, x0, max_iters: int, tol: float, chunk: int = PCG_CHUN
 # --------------------------------------------------------------------------
 
 
-def lm_optimize(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict, cfg: LMConfig,
-                gn_diag_fn: Optional[Callable] = None, normal_fn: Optional[Callable] = None) -> LMResult:
+def lm_optimize(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict, cfg: LMConfig, *,
+                normal_fn: Callable, gn_diag_fn: Optional[Callable] = None) -> LMResult:
     """Minimise sum_f rho_f(|r_f(x)|) over the manifold dict `values`.
 
     residual_fn(values) -> list of whitened, mask-zeroed residuals, one per
@@ -215,8 +215,6 @@ def lm_optimize(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict
     if gn_diag_fn is None:
         raise NotImplementedError(
             "the Hutchinson diagonal (gn_diag_fn=None, the varpro solve) is ported by ROADMAP.md item 12")
-    if normal_fn is None:
-        raise ValueError("lm_optimize needs normal_fn, the closed-form J^T W J product of the families")
     specs = tuple(specs)
     res = residual_fn(values)
     err = total_error(res, specs)

@@ -19,15 +19,17 @@ still imports nothing of JAX:
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
+from .backend.backend import EstimateStore
 from .backend.map import MeasurementMap, WindowData
 from .core.camera import CameraParams
 from .core.lie import SE3
 from .core.types import DynamicObs, FrontendOutput, ObjectObs, StaticObs
 from .frontend.frontend import FrontendState
-from .throughput import EstStore
 from .frontend.tracker import TrackerState
 from .utils.config import DynoConfig, _update_dataclass
 from .utils.device import resolve_device
@@ -113,8 +115,12 @@ def window_data_from_numpy(src, device=None) -> WindowData:
     return w._replace(start=int(np.asarray(src.start)))
 
 
-def est_store_from_numpy(src, device=None) -> EstStore:
-    return _tuple_from_numpy(EstStore, src, resolve_device(device))
+def est_store_from_numpy(src, device=None) -> EstimateStore:
+    """A JAX `EstimateStore`, or a JAX `throughput.EstStore` of updater 0
+    (its P holds the object motions H), as the port's store."""
+    if not hasattr(src, "H"):
+        src = SimpleNamespace(**{f: getattr(src, "P" if f == "H" else f) for f in EstimateStore._fields})
+    return _tuple_from_numpy(EstimateStore, src, resolve_device(device))
 
 
 def frontend_output_to_numpy(tree):

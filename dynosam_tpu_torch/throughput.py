@@ -21,78 +21,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .backend.backend import check_backend_config, lm_config, optimize_window
+from .backend.backend import EstimateStore, check_backend_config, lm_config, solve_window
 from .backend.formulation import WindowMasks
 from .backend.map import MeasurementMap, update_map
-from .backend.solver import LMConfig, LMResult
+from .backend.solver import LMResult
 from .core.camera import CameraParams
-from .core.lie import SE3, se3_identity
 from .core.types import FrontendOutput
 from .frontend.frontend import FrameImages, FrontendState, check_frontend_config, frontend_step, to_device
 from .utils.config import DynoConfig
 from .utils.device import resolve_device
-
-
-class EstStore(NamedTuple):
-    """Global estimates over all frames (the JAX package's `EstStore`,
-    updater 0: P holds the object motions H)."""
-
-    X: SE3                        # (F,) camera poses
-    P: SE3                        # (F, O) object motions
-    static_points: torch.Tensor   # (NS, 3)
-    static_valid: torch.Tensor    # (NS,)
-    dyn_points: torch.Tensor      # (F, ND, 3)
-    dyn_valid: torch.Tensor       # (F, ND)
-    X_valid: torch.Tensor         # (F,)
-    motion_valid: torch.Tensor    # (F, O)
-
-    @staticmethod
-    def create(f: int, ns: int, nd: int, no: int, dtype=torch.float32, device=None) -> "EstStore":
-        zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=device)  # noqa: E731
-        return EstStore(
-            X=se3_identity((f,), dtype, device), P=se3_identity((f, no), dtype, device),
-            static_points=torch.zeros((ns, 3), dtype=dtype, device=device), static_valid=zb(ns),
-            dyn_points=torch.zeros((f, nd, 3), dtype=dtype, device=device), dyn_valid=zb(f, nd),
-            X_valid=zb(f), motion_valid=zb(f, no),
-        )
-
-
-def _window_inputs(est: EstStore, start: int, window: int):
-    """Anchor and warm-start values/masks for the window at `start`."""
-    use_anchor = est.X_valid[start]
-    sl = slice(start, start + window)
-    prev = {"X": est.X[sl], "H": est.P[sl], "sp": est.static_points, "dp": est.dyn_points[sl]}
-    prev_mask = {"X": est.X_valid[sl] & use_anchor, "H": est.motion_valid[sl] & use_anchor,
-                 "sp": est.static_valid & use_anchor, "dp": est.dyn_valid[sl] & use_anchor}
-    return est.X[start], use_anchor, prev, prev_mask
-
-
-def _writeback(est: EstStore, values: dict, masks: WindowMasks, start: int) -> EstStore:
-    """Write a solved window into the store, in place (the JAX package's
-    dynamic-slice updates); returns ``est``."""
-    sl = slice(start, start + masks.frame.shape[0])
-    est.X.R[sl] = values["X"].R
-    est.X.t[sl] = values["X"].t
-    est.X_valid[sl] = masks.frame
-    est.P.R[sl] = values["H"].R
-    est.P.t[sl] = values["H"].t
-    est.motion_valid[sl] = masks.motion_active
-    est.dyn_points[sl] = values["dp"]
-    est.dyn_valid[sl] = masks.dyn_obs
-    seen = masks.static_obs.any(0)
-    est.static_points.copy_(torch.where(seen[:, None], values["sp"], est.static_points))
-    est.static_valid.logical_or_(seen)
-    return est
-
-
-def _solve_window(est: EstStore, m: MeasurementMap, start: int, window: int, cfg: DynoConfig,
-                  lm_cfg: LMConfig):
-    """Solve the window at `start` warm-started from the store and write it
-    back; returns (est, LMResult, WindowMasks in pool coordinates)."""
-    anchor, use_anchor, prev, prev_mask = _window_inputs(est, start, window)
-    result, masks = optimize_window(m, start, window, cfg.backend, lm_cfg, anchor, use_anchor,
-                                    prev, prev_mask)
-    return _writeback(est, result.values, masks, start), result, masks
 
 
 class SegmentPlan(NamedTuple):
@@ -134,7 +71,7 @@ class WindowSolve:
 
 class OfflineResult(NamedTuple):
     packets: list           # FrontendOutput per frame
-    est: EstStore
+    est: EstimateStore
     windows: list           # WindowSolve per window, in order
 
 
@@ -157,7 +94,7 @@ class OfflineRunner:
         ns, nd, no = cap.max_static_tracks, cap.max_dynamic_tracks, cap.max_objects
         self.fe_state = FrontendState.create(ns, nd, no, device=self.device)
         self.map = MeasurementMap.create(f, ns, nd, no, device=self.device)
-        self.est = EstStore.create(f, ns, nd, no, device=self.device)
+        self.est = EstimateStore.create(f, ns, nd, no, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.packets: list = []
@@ -201,8 +138,7 @@ class OfflineRunner:
         if self.device.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             events[0].record()
-        self.est, result, masks = _solve_window(self.est, self.map, start, self.plan.window, self.cfg,
-                                                self.lm_cfg)
+        result, masks = solve_window(self.est, self.map, start, self.plan.window, self.cfg.backend, self.lm_cfg)
         if events is not None:
             events[1].record()
         win = WindowSolve(start, result, masks, events)
@@ -235,7 +171,7 @@ def make_offline_runner(cam: CameraParams, cfg: DynoConfig, n_frames: int, use_k
 
 def run_offline(frames, cam: CameraParams, cfg: DynoConfig, use_klt: bool = True, seed: int = 0,
                 device=None) -> OfflineResult:
-    """Offline entry: a list of FrameImages -> (packets, EstStore, window
+    """Offline entry: a list of FrameImages -> (packets, EstimateStore, window
     solves); the JAX package's last LM result is `windows[-1].result`."""
     frames = list(frames)
     return make_offline_runner(cam, cfg, len(frames), use_klt=use_klt, device=device, seed=seed).run(frames)

@@ -92,7 +92,7 @@ def test_run_from_packets_matches_jax(replay):
     for _, _, r, _ in tb.solves:
         assert float(r.error) < float(r.initial_error)
     a, b = jax.tree.map(np.asarray, dataclasses.asdict(jb.est)), convert.frontend_output_to_numpy(
-        dataclasses.asdict(tb.est))
+        tb.est._asdict())
     for f in ("static_valid", "dyn_valid", "X_valid", "motion_valid"):
         assert np.array_equal(a[f], b[f]), f
     assert b["X_valid"].all()
@@ -147,9 +147,9 @@ def test_object_centroids_and_poses_match_jax():
     jb.est = dataclasses.replace(jb.est, dyn_points=jnp.asarray(dp), dyn_valid=jnp.asarray(dv), H=H,
                                  motion_valid=jnp.asarray(hvalid))
     tb.map = tb.map._replace(dyn_obj=torch.as_tensor(obj))
-    tb.est = dataclasses.replace(tb.est, dyn_points=torch.as_tensor(dp), dyn_valid=torch.as_tensor(dv),
-                                 H=SE3(torch.as_tensor(np.array(H.R)), torch.as_tensor(np.array(H.t))),
-                                 motion_valid=torch.as_tensor(hvalid))
+    tb.est = tb.est._replace(dyn_points=torch.as_tensor(dp), dyn_valid=torch.as_tensor(dv),
+                             H=SE3(torch.as_tensor(np.array(H.R)), torch.as_tensor(np.array(H.t))),
+                             motion_valid=torch.as_tensor(hvalid))
     (jc, jcv), (tc, tcv) = jb.object_centroids(), tb.object_centroids()
     assert np.array_equal(np.asarray(jcv), tcv.numpy())
     assert not tcv.numpy()[5:7, 2].any() and tcv.numpy()[:, 1].all()

@@ -172,4 +172,4 @@ def test_full_batch_lm_pcg_matches_jax(full_batch):
 def test_lm_optimize_raises_without_the_analytic_diagonal():
     """gn_diag_fn=None is the Hutchinson path (varpro), not ported."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item 12"):
-        tsolver.lm_optimize(lambda v: [], (), {}, tsolver.LMConfig())
+        tsolver.lm_optimize(lambda v: [], (), {}, tsolver.LMConfig(), normal_fn=lambda v, sw, r: None)
