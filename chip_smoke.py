@@ -71,7 +71,27 @@ no result line:
              start at 0, 6, 12 and (the final partial window) 18, every
              window's final error is below its initial error, the frontend
              and backend camera ATE are under 0.05 and 0.06 m, and K1, K2
-             and K3 launched on every frame after the first and K4 on none.
+             and K3 launched on every frame after the first and K4 on none;
+9. world pose -- the online phase's run with WorldPose (`backend_updater_enum`
+             1) and the fixed-lag boundary prior: the same report plus
+             each boundary-prior build's time and host reads; fails unless
+             the windows are those of the online phase, every error drops,
+             the backend log is `rgbd_LL_world_backend` with camera ATE
+             under 0.06 m, and K1-K3 launched on every frame after the first;
+10. batched -- the offline pipeline with `opt_windows_per_dispatch` 2 over
+             the first 16 frames of the pipeline path's scene (windows 0
+             and 6 in one dispatch): ms per dispatch, LM iterations and host
+             reads per window; the same packets replayed through a
+             sequential runner give the windows' sequential reads; fails
+             unless the batched store's masks equal the sequential store's
+             and its camera translations are within twice the later
+             window's anchor shift plus BATCHED_TOL_M of them, and K1-K3
+             launched on every frame after the first.
+
+The golden phase also runs drift recovery (`tests/test_accuracy_regression.py:166-228`)
+for both updaters: the golden packets with a growing camera drift through
+the full-batch backend, 100 LM iterations allowed; it fails unless each
+recovered ATE is below the corrupted ATE / 1.8 and 0.11 m (JAX's bounds).
 
 Launch counts are set to 0 just before each path and read just after it.
 
@@ -119,6 +139,19 @@ GOLDEN_BACKEND_AME_M = 0.15
 GOLDEN_IMPROVEMENT = 0.8     # backend AME (both parts) below 0.8x the frontend's
 GOLDEN_SLIDING_ATE_M = 0.06
 GOLDEN_ORDERING = 1.10       # full-batch ATE at most 1.10x the sliding windows'
+# drift recovery (tests/test_accuracy_regression.py:166-228): the drift per
+# frame (rotation, translation tangent) and JAX's bounds
+DRIFT_PER_FRAME = (0.0, 0.0015, 0.0, 0.02, 0.008, 0.0)
+DRIFT_FACTOR = 1.8           # recovered ATE below the corrupted ATE / 1.8
+DRIFT_ATE_M = 0.11
+# batched windows against the sequential run: the later window of a
+# dispatch warm-starts and anchors on the store as it stood before the
+# dispatch (there: the frontend pose of its first frame), not on the
+# previous window's estimate, so the window moves with the difference
+# between the two anchors; the stores may differ by twice that shift plus
+# BATCHED_TOL_M for the LM's stopping tolerance
+BATCHED_TOL_M = 1e-4
+BATCHED_FRAMES = 16          # overlap 4 + 2 segments of 6: one dispatch of 2 windows
 
 # FLOPs counted per unit of work (adds, subtracts, multiplies, divides,
 # square roots; clamps and index arithmetic not counted).
@@ -137,7 +170,9 @@ PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response"),
                 "orb": ("orb_sample", "lk", "point_sample"),
                 "pipeline": ("lk", "point_sample", "response"),
                 "golden": ("lk", "point_sample", "response"),
-                "online": ("lk", "point_sample", "response")}
+                "online": ("lk", "point_sample", "response"),
+                "world_pose": ("lk", "point_sample", "response"),
+                "batched": ("lk", "point_sample", "response")}
 COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
            "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample"}
 
@@ -539,11 +574,12 @@ class SyncCounter:
         self._catch = warnings.catch_warnings(record=True)
         self._log = self._catch.__enter__()
         warnings.simplefilter("always")
+        self._mode = self.torch.cuda.get_sync_debug_mode()
         self.torch.cuda.set_sync_debug_mode("warn")
         return self
 
     def __exit__(self, *exc):
-        self.torch.cuda.set_sync_debug_mode("default")
+        self.torch.cuda.set_sync_debug_mode(self._mode)
         self.count = sum("synchroniz" in str(w.message) for w in self._log)
         self._catch.__exit__(*exc)
         return False
@@ -618,13 +654,15 @@ def run_pipeline_path(torch, device, card) -> dict:
 class PipelineProbe:
     """For one run of the online pipeline: times each `DynoPipeline.spin_once`
     on the host clock between two synchronisations and reads the kernel
-    launches after it, and counts the host reads of each backend solve
-    (`RGBDBackend._optimize`) with `SyncCounter`.  Launch counts are zeroed
+    launches after it, counts the host reads of each backend solve
+    (`RGBDBackend._optimize`) with `SyncCounter`, and times each fixed-lag
+    prior build (`RGBDBackend._slide_prior`, synchronised before and after)
+    and counts its reads apart from its solve's.  Launch counts are zeroed
     on entry and read on exit."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.times, self.per_frame, self.reads = [], [], []
+        self.times, self.per_frame, self.reads, self.priors = [], [], [], []
 
     def __enter__(self):
         from dynosam_tpu_torch import kernels
@@ -634,6 +672,7 @@ class PipelineProbe:
         torch, probe = self.torch, self
         self._kernels, self._classes = kernels, (DynoPipeline, RGBDBackend)
         self._spin, self._optimize = DynoPipeline.spin_once, RGBDBackend._optimize
+        self._prior = RGBDBackend._slide_prior
 
         def spin_once(pipe, images):
             torch.cuda.synchronize()
@@ -651,7 +690,17 @@ class PipelineProbe:
                 probe._optimize(backend, start, window)
             probe.reads.append(sc.count)
 
+        def slide_prior(backend, start):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with SyncCounter(torch) as sc:
+                out = probe._prior(backend, start)
+            torch.cuda.synchronize()
+            probe.priors.append((start, (time.perf_counter() - t0) * 1e3, sc.count))
+            return out
+
         DynoPipeline.spin_once, RGBDBackend._optimize = spin_once, optimize
+        RGBDBackend._slide_prior = slide_prior
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         return self
@@ -660,6 +709,7 @@ class PipelineProbe:
         self.torch.cuda.synchronize()
         self.totals = self._kernels.launch_counts()
         self._classes[0].spin_once, self._classes[1]._optimize = self._spin, self._optimize
+        self._classes[1]._slide_prior = self._prior
         return False
 
 
@@ -733,55 +783,194 @@ def run_golden_phase(torch, device, card) -> dict:
         _require(ok, f"{label}: {name} {value} against {limit}")
     print(f"{label}: sliding windows {[(s, w) for s, w, _, _ in be_sw.solves]}, each "
           f"{[r.iterations for _, _, r, _ in be_sw.solves]} LM iterations", flush=True)
+    run_drift_recovery(torch, device, card, result.packets, np.stack([ds.ground_truth(k).X_world for k in range(n)]))
     return dict(totals=probe.totals)
 
 
-def run_online_phase(torch, device, card) -> dict:
+def run_online_phase(torch, device, card, world_pose: bool = False) -> dict:
     """The default-config online pipeline at KITTI width through
-    `run_and_log` and `evaluate_all`."""
+    `run_and_log` and `evaluate_all`; with `world_pose`, under WorldPose
+    (updater 1) with the fixed-lag boundary prior."""
+    import dataclasses
     import tempfile
 
     from dynosam_tpu_torch.eval.evaluator import evaluate_all
-    from dynosam_tpu_torch.pipeline import run_and_log
+    from dynosam_tpu_torch.pipeline import backend_log_prefix, run_and_log
     from dynosam_tpu_torch.testing.scenes import RenderedDataset, kitti_online_config, kitti_scene
 
-    label = "online"
+    label = "world pose" if world_pose else "online"
+    cfg = kitti_online_config()
+    if world_pose:
+        cfg = dataclasses.replace(cfg, backend=dataclasses.replace(cfg.backend, backend_updater_enum=1,
+                                                                   use_fixed_lag_prior=True))
+    prefix = backend_log_prefix(cfg.backend.backend_updater_enum)
     n = PIPELINE_FRAMES
     scene, frames = kitti_scene(device, n_frames=n)
     with tempfile.TemporaryDirectory() as out:
         with PipelineProbe(torch) as probe:
-            result = run_and_log(RenderedDataset(scene, frames), kitti_online_config(), out, device=device)
+            result = run_and_log(RenderedDataset(scene, frames), cfg, out, device=device)
         evals = evaluate_all(out)
-    # end to end: a second run timed by `DynoPipeline.run` itself, from the
-    # first spin through `finish` (the final window's solve included),
-    # synchronised once at the end and not after every spin as the probe is
-    with tempfile.TemporaryDirectory() as out:
-        timed = run_and_log(RenderedDataset(scene, frames), kitti_online_config(), out, device=device)
     h, w = frames[0].gray.shape
+    if not world_pose:
+        # end to end: a second run timed by `DynoPipeline.run` itself, from
+        # the first spin through `finish` (the final window's solve
+        # included), synchronised once at the end and not after every spin
+        # as the probe is
+        with tempfile.TemporaryDirectory() as out:
+            timed = run_and_log(RenderedDataset(scene, frames), cfg, out, device=device)
+        print(f"{label}: DynoPipeline + RGBDBackend (default BackendConfig, max_frames 512), {n} frames {w}x{h}: "
+              f"end to end {timed.fps:.2f} frames/s, {1e3 / timed.fps:.1f} ms/frame ({n} spins and finish, "
+              f"DynoPipeline.run's host clock, a second run) on {card}", flush=True)
     steady = list(range(2, n))
     spin_s = sum(probe.times)
-    print(f"{label}: DynoPipeline + RGBDBackend (default BackendConfig, max_frames 512), {n} frames {w}x{h}: "
-          f"end to end {timed.fps:.2f} frames/s, {1e3 / timed.fps:.1f} ms/frame ({n} spins and finish, "
-          f"DynoPipeline.run's host clock, a second run) on {card}", flush=True)
     print(f"{label}: per spin_once (host clock, synchronised before and after each; finish not included): "
           f"{spin_s / n * 1e3:.1f} ms mean over {n} spins, steady frames 2..{n - 1} "
           f"{sum(probe.times[k] for k in steady) / len(steady) * 1e3:.1f} ms mean; ms per spin "
           f"{[round(t * 1e3, 1) for t in probe.times]}", flush=True)
     for k, lf in enumerate(probe.per_frame):
         print(f"{label}: frame {k} launches {lf}", flush=True)
-    check_launches(probe, label, PATH_KERNELS["online"], n)
+    check_launches(probe, label, PATH_KERNELS["world_pose" if world_pose else "online"], n)
     backend = result.backend
     starts = [(s, w_) for s, w_, _, _ in backend.solves]
     _require(starts == [(0, 10), (6, 10), (12, 10), (18, 10)], f"{label}: windows {starts}")
+    # a window's reads as counted around `_optimize` exclude its prior build's
     report_solves(label, backend, probe.reads, card)
+    for start, ms, reads in probe.priors:
+        print(f"{label}: boundary prior for the window at {start}: {ms:.2f} ms (host clock, synchronised), "
+              f"host reads {reads} on {card}", flush=True)
+    _require(len(probe.priors) == (4 if world_pose else 0), f"{label}: {len(probe.priors)} prior builds")
+    _require(bool(torch.isfinite(backend._prior_L).all()) if world_pose else True, f"{label}: prior not finite")
     fe_ate = evals["frontend"]["camera"]["ate_trans_rmse"]
-    be_ate = evals["rgbd_motion_world_backend"]["camera"]["ate_trans_rmse"]
-    print(f"{label}: camera ATE frontend {fe_ate:.5f} m (limit {ATE_LIMIT_M}), backend {be_ate:.5f} m "
-          f"(limit {BACKEND_ATE_LIMIT_M}), backend frames {evals['rgbd_motion_world_backend']['camera']['n_frames']}",
-          flush=True)
+    _require(prefix in evals, f"{label}: no {prefix} logs, modules {sorted(evals)}")
+    be_ate = evals[prefix]["camera"]["ate_trans_rmse"]
+    print(f"{label}: camera ATE frontend {fe_ate:.5f} m (limit {ATE_LIMIT_M}), backend ({prefix}) {be_ate:.5f} m "
+          f"(limit {BACKEND_ATE_LIMIT_M}), backend frames {evals[prefix]['camera']['n_frames']}", flush=True)
     _require(np.isfinite(fe_ate) and fe_ate < ATE_LIMIT_M, f"{label}: frontend ATE {fe_ate} m")
     _require(np.isfinite(be_ate) and be_ate < BACKEND_ATE_LIMIT_M, f"{label}: backend ATE {be_ate} m")
     return dict(totals=probe.totals)
+
+
+def run_drift_recovery(torch, device, card, packets, ground_truth) -> None:
+    """Drift recovery on the golden packets for both updaters
+    (`tests/test_accuracy_regression.py:166-228`): a growing camera drift
+    on every packet, odometry sigmas loosened 10x, the full-batch backend
+    with 100 LM iterations allowed; fails unless each recovered ATE is
+    below the corrupted ATE / DRIFT_FACTOR and DRIFT_ATE_M."""
+    import dataclasses
+
+    from dynosam_tpu_torch.core.lie import se3_compose, se3_exp
+    from dynosam_tpu_torch.eval import metrics
+    from dynosam_tpu_torch.pipeline import run_from_packets
+    from dynosam_tpu_torch.testing.scenes import golden_config
+
+    label = "drift recovery"
+    drift = torch.tensor(DRIFT_PER_FRAME, device=device)
+    corrupted = [p._replace(X_world=se3_compose(se3_exp(drift * float(k)), p.X_world)) for k, p in enumerate(packets)]
+
+    def ate(R, t, valid):
+        T = np.tile(np.eye(4), (int(valid.sum()), 1, 1))
+        T[:, :3, :3] = R.double().cpu().numpy()[valid]
+        T[:, :3, 3] = t.double().cpu().numpy()[valid]
+        return metrics.ate(T, ground_truth[valid])["trans"].rmse
+
+    every = np.ones(len(packets), bool)
+    corrupted_ate = ate(torch.stack([p.X_world.R for p in corrupted]), torch.stack([p.X_world.t for p in corrupted]),
+                        every)
+    print(f"{label}: corrupted camera ATE {corrupted_ate:.5f} m", flush=True)
+    _require(corrupted_ate > 0.08, f"{label}: the drift is not material ({corrupted_ate} m)")
+    for updater in (0, 1):
+        cfg = golden_config(True)
+        cfg = dataclasses.replace(cfg, backend=dataclasses.replace(
+            cfg.backend, backend_updater_enum=updater, lm_max_iterations=100, odometry_translation_sigma=1.0,
+            odometry_rotation_sigma=0.5))
+        torch.cuda.synchronize()
+        with SyncCounter(torch) as sc:
+            be = run_from_packets(corrupted, cfg, device=device)
+        torch.cuda.synchronize()
+        (start, window, r, events), = be.solves
+        X, xv = be.camera_poses()
+        rec = ate(X.R, X.t, xv.cpu().numpy())
+        cg = sum(r.cg_iterations)
+        ms = events[0].elapsed_time(events[1])
+        print(f"{label}: updater {updater}: full-batch solve [{start}, {start + window}) {ms:.2f} ms (CUDA events), "
+              f"{r.iterations} LM iterations, {cg} CG iterations, host reads {sc.count}, error {float(r.initial_error):.6g} -> {float(r.error):.6g}; recovered ATE {rec:.5f} m (limits "
+              f"{corrupted_ate / DRIFT_FACTOR:.5f} and {DRIFT_ATE_M}) on {card}", flush=True)
+        _require(np.isfinite(rec) and rec < corrupted_ate / DRIFT_FACTOR and rec < DRIFT_ATE_M,
+                 f"{label}: updater {updater} recovered ATE {rec} m against corrupted {corrupted_ate} m")
+
+
+def run_batched_phase(torch, device, card) -> dict:
+    """The offline pipeline with two windows per dispatch over the first
+    BATCHED_FRAMES frames of the pipeline path's scene, against a
+    sequential runner replaying the same packets."""
+    import dataclasses
+
+    from dynosam_tpu_torch import kernels
+    from dynosam_tpu_torch.testing.scenes import kitti_pipeline_config, kitti_scene
+    from dynosam_tpu_torch.throughput import make_offline_runner
+
+    label = "batched"
+    n = BATCHED_FRAMES
+    scene, frames = kitti_scene(device, n_frames=PIPELINE_FRAMES)
+    frames = frames[:n]
+    base = kitti_pipeline_config(n)
+    cfg = dataclasses.replace(base, backend=dataclasses.replace(base.backend, opt_windows_per_dispatch=2))
+    runner = make_offline_runner(scene.cam, cfg, n, device=device)
+    _require(runner.wpd == 2, f"{label}: {runner.wpd} windows per dispatch")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    prev = kernels.launch_counts()
+    per_frame, dispatches = [], []
+    for f in frames:
+        runner.frontend(f)
+        due = runner.windows_due()
+        if due:
+            with SyncCounter(torch) as sc:
+                wins = runner.solve_group(due) if len(due) > 1 else [runner.solve(due[0])]
+            dispatches.append((wins, sc.count))
+        torch.cuda.synchronize()
+        now = kernels.launch_counts()
+        per_frame.append({k: now[k] - prev[k] for k in now})
+        prev = now
+    totals = kernels.launch_counts()
+    for k in range(1, n):
+        missing = [name for name in PATH_KERNELS["batched"] if per_frame[k][name] < 1]
+        _require(not missing, f"{label}, frame {k}: kernels {missing} never launched")
+
+    seq = make_offline_runner(scene.cam, base, n, device=device)
+    seq_reads = []
+    for p in runner.packets:
+        seq.add_packet(p)
+        for s in seq.windows_due():
+            with SyncCounter(torch) as sc:
+                seq.solve(s)
+            seq_reads.append(sc.count)
+    torch.cuda.synchronize()
+    _require([[w.start for w in wins] for wins, _ in dispatches] == [[0, 6]],
+             f"{label}: dispatches {[[w.start for w in wins] for wins, _ in dispatches]}")
+    for wins, reads in dispatches:
+        ms = wins[0].solve_ms()
+        its = [w.result.iterations for w in wins]
+        print(f"{label}: dispatch of windows {[w.start for w in wins]}: {ms:.2f} ms (CUDA events), LM iterations "
+              f"{its}, host reads {reads} ({reads / len(wins):.1f} per window); sequential replay of the same "
+              f"windows: {[round(w.solve_ms(), 2) for w in seq.windows]} ms, host reads {seq_reads} "
+              f"({sum(seq_reads) / len(seq_reads):.1f} per window) on {card}", flush=True)
+        for w in wins:
+            r = w.result
+            _require(np.isfinite(float(r.error)) and float(r.error) < float(r.initial_error),
+                     f"{label}: window {w.start} error {float(r.initial_error)} -> {float(r.error)}")
+    a, b = runner.est, seq.est
+    for f in ("X_valid", "motion_valid", "static_valid", "dyn_valid"):
+        _require(bool(torch.equal(getattr(a, f), getattr(b, f))), f"{label}: {f} differs from the sequential run's")
+    _require(bool(a.X_valid[:n].all()), f"{label}: the store misses frames")
+    diff = float((a.X.t[:n] - b.X.t[:n]).abs().max())
+    later = [w.start for wins, _ in dispatches for w in wins[1:]]
+    shift = max(float((runner.map.X_init.t[s] - b.X.t[s]).abs().max()) for s in later)
+    limit = 2 * shift + BATCHED_TOL_M
+    print(f"{label}: camera translations against the sequential run: max |difference| {diff:.3g} m "
+          f"(limit {limit:.3g}: anchor shift {shift:.3g} m at frames {later})", flush=True)
+    _require(np.isfinite(diff) and diff <= limit, f"{label}: {diff} m from the sequential run")
+    return dict(totals=totals)
 
 
 def main() -> int:
@@ -847,6 +1036,8 @@ def _run(torch) -> int:
     paths["pipeline"] = run_pipeline_path(torch, device, card)
     paths["golden"] = run_golden_phase(torch, device, card)
     paths["online"] = run_online_phase(torch, device, card)
+    paths["world_pose"] = run_online_phase(torch, device, card, world_pose=True)
+    paths["batched"] = run_batched_phase(torch, device, card)
 
     for r in rows:
         by_path = {p: paths[p]["totals"][COUNTER[r["name"]]] for p in paths}

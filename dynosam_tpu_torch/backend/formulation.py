@@ -1,9 +1,17 @@
-"""Graph construction of the backend window, WorldMotion formulation
-(port of `dynosam_tpu/backend/formulation.py`, updater 0).
+"""Graph construction of the backend window (port of
+`dynosam_tpu/backend/formulation.py`), both formulations:
 
-Values {X_k, H_k^j, m^w_{i,k}}; factors PoseToPoint per static and dynamic
-observation, LandmarkMotionTernary(m_{k-1}, m_k, H_k), Between(H_{k-1},
-H_k, I) smoothing, frontend odometry and a prior anchoring the first pose.
+  * WorldMotion (updater 0): values {X_k, H_k^j, m^w_{i,k}}; factors
+    PoseToPoint per static and dynamic observation,
+    LandmarkMotionTernary(m_{k-1}, m_k, H_k), Between(H_{k-1}, H_k, I)
+    smoothing;
+  * WorldPose (updater 1): values {X_k, L_k^j, m^w_{i,k}}; factors
+    PoseToPoint, LandmarkMotionPose(m_{k-1}, m_k, L_{k-1}, L_k),
+    LandmarkPoseSmoothing on L triplets and the optional ObjectKinematic
+    factor;
+
+both with frontend odometry and a prior anchoring the first pose
+(isotropic, or the fixed-lag boundary marginal in square-root form).
 The graph is the masked (frame x slot) grid: each factor family is one
 dense batched residual with a validity mask.
 """
@@ -100,7 +108,20 @@ def init_values(w: WindowData, masks: WindowMasks, cfg: BackendConfig,
     sp = _first_valid_world_point(w.static_xyz, masks.static_obs, X)
     dp = se3_apply(X[:, None], w.dyn_xyz)                       # (W, ND, 3)
     dp = torch.where(masks.dyn_obs[..., None], dp, torch.zeros_like(dp))
-    vals = {"X": X, "H": H, "sp": sp, "dp": dp}
+    return _merge_prev({"X": X, "H": H, "sp": sp, "dp": dp}, prev, prev_mask)
+
+
+def init_values_world_pose(w: WindowData, masks: WindowMasks, cfg: BackendConfig,
+                           prev: Optional[dict] = None, prev_mask: Optional[dict] = None) -> dict:
+    """WorldPose linearisation point: L from the frontend-propagated object
+    poses, X and points as `init_values`; `prev` (keys X, L, sp, dp)
+    overrides wherever `prev_mask` is set."""
+    vals = init_values(w, masks, cfg)
+    return _merge_prev({"X": vals["X"], "L": w.obj_pose_init, "sp": vals["sp"], "dp": vals["dp"]},
+                       prev, prev_mask)
+
+
+def _merge_prev(vals: dict, prev: Optional[dict], prev_mask: Optional[dict]) -> dict:
     if prev is None:
         return vals
 
@@ -115,6 +136,11 @@ def init_values(w: WindowData, masks: WindowMasks, cfg: BackendConfig,
 # --------------------------------------------------------------------------
 # Residual families
 # --------------------------------------------------------------------------
+
+
+def pose_key(updater: int) -> str:
+    """The per-object value of a formulation: H (updater 0) or L (1)."""
+    return "H" if updater == 0 else "L"
 
 
 class FamilySpec(NamedTuple):
@@ -149,8 +175,9 @@ def odometry_measurements(w: WindowData) -> SE3:
 
 
 def select_motions(H: SE3, obj: torch.Tensor, active: torch.Tensor):
-    """Per-(frame, track) motion H_k^{obj} where `active`, identity
-    elsewhere; also the (W, ND, O) float one-hot of the selection."""
+    """Per-(frame, track) object value (motion H_k^{obj} or pose
+    L_k^{obj}) where `active`, identity elsewhere; also the (W, ND, O)
+    float one-hot of the selection."""
     no = H.batch_shape[1]
     onehot = object_onehot(torch.where(active, obj, -1), no)
     sel = onehot.any(-1)
@@ -163,19 +190,34 @@ def select_motions(H: SE3, obj: torch.Tensor, active: torch.Tensor):
     return SE3(R, t), onehot.to(H.t.dtype)
 
 
-def world_motion_residuals(values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig,
-                           anchor: Optional[SE3] = None) -> list:
-    """The six residual families, whitened and masked:
-    [anchor (1, 6), odometry (W-1, 6), static (W, NS, 3), dynamic (W, ND, 3),
-    ternary (W-1, ND, 3), smoothing (W-1, O, 6)]."""
+def world_pose_families(cfg: BackendConfig) -> FamilySpec:
+    names = ["anchor", "odometry", "static_obs", "dyn_obs", "motion_pose", "pose_smoothing"]
+    robust = [RobustSpec(), RobustSpec(), RobustSpec("huber", cfg.huber_k_static),
+              RobustSpec("huber", cfg.huber_k_dynamic), RobustSpec("huber", cfg.huber_k_dynamic), RobustSpec()]
+    if cfg.use_object_kinematic_factor:
+        names.append("kinematic")
+        robust.append(RobustSpec())
+    return FamilySpec(names=tuple(names), robust=tuple(robust))
+
+
+def _camera_point_residuals(values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig,
+                            anchor: Optional[SE3], anchor_prior_L: Optional[torch.Tensor]) -> list:
+    """The families both formulations share: [anchor (1, 6), odometry
+    (W-1, 6), static (W, NS, 3), dynamic (W, ND, 3)].  The anchor is
+    whitened by 1 / `initial_pose_prior_sigma`, or by the transposed
+    Cholesky factor `anchor_prior_L` (6, 6) of a full-information prior
+    (the fixed-lag boundary marginal)."""
     X: SE3 = values["X"]
-    H: SE3 = values["H"]
     sp, dp = values["sp"], values["dp"]
-    pose_sigma, smooth_sigma = pose_sigmas(cfg, sp.dtype, sp.device)
+    pose_sigma, _ = pose_sigmas(cfg, sp.dtype, sp.device)
     zero = torch.zeros((), dtype=sp.dtype, device=sp.device)
 
     anchor_pose = anchor if anchor is not None else w.X_init[0]
-    r_anchor = factors.prior_residual(X[0], anchor_pose)[None, :] / cfg.initial_pose_prior_sigma
+    r_anchor = factors.prior_residual(X[0], anchor_pose)
+    if anchor_prior_L is None:
+        r_anchor = r_anchor[None, :] / cfg.initial_pose_prior_sigma
+    else:
+        r_anchor = (anchor_prior_L.T @ r_anchor)[None, :]
 
     r_odo = factors.between_residual(X[:-1], X[1:], odometry_measurements(w)) / pose_sigma
     r_odo = torch.where(masks.odometry[1:, None], r_odo, zero)
@@ -185,6 +227,19 @@ def world_motion_residuals(values: dict, w: WindowData, masks: WindowMasks, cfg:
 
     r_dyn = factors.pose_to_point_residual(X[:, None], dp, w.dyn_xyz)
     r_dyn = torch.where(masks.dyn_obs[..., None], r_dyn / cfg.dynamic_point_noise_sigma, zero)
+    return [r_anchor, r_odo, r_static, r_dyn]
+
+
+def world_motion_residuals(values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig,
+                           anchor: Optional[SE3] = None, anchor_prior_L: Optional[torch.Tensor] = None) -> list:
+    """The six WorldMotion families, whitened and masked: the shared four
+    of `_camera_point_residuals`, ternary (W-1, ND, 3) and smoothing
+    (W-1, O, 6)."""
+    H: SE3 = values["H"]
+    dp = values["dp"]
+    _, smooth_sigma = pose_sigmas(cfg, dp.dtype, dp.device)
+    zero = torch.zeros((), dtype=dp.dtype, device=dp.device)
+    shared = _camera_point_residuals(values, w, masks, cfg, anchor, anchor_prior_L)
 
     Hk, _ = select_motions(H, w.dyn_obj, masks.ternary | masks.dyn_obs)
     r_tern = factors.landmark_motion_ternary_residual(dp[:-1], dp[1:], Hk[1:])
@@ -193,7 +248,43 @@ def world_motion_residuals(values: dict, w: WindowData, masks: WindowMasks, cfg:
 
     r_smooth = factors.motion_smoothing_residual(H[:-1], H[1:]) / smooth_sigma
     r_smooth = torch.where(masks.smoothing[1:, ..., None], r_smooth, zero)
-    return [r_anchor, r_odo, r_static, r_dyn, r_tern, r_smooth]
+    return shared + [r_tern, r_smooth]
+
+
+def pose_triple(masks: WindowMasks) -> torch.Tensor:
+    """(W-2, O) pose-smoothing triplets (k-2, k-1, k): three consecutive
+    active frames of the object."""
+    return masks.smoothing[1:-1] & masks.smoothing[2:]
+
+
+def kinematic_mask(w: WindowData, masks: WindowMasks) -> torch.Tensor:
+    """(W-1, O) ObjectKinematic factor rows (k-1, k)."""
+    return masks.smoothing[1:] & w.motion_valid[1:]
+
+
+def world_pose_residuals(values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig,
+                         anchor: Optional[SE3] = None, anchor_prior_L: Optional[torch.Tensor] = None) -> list:
+    """The WorldPose families, whitened and masked: the shared four,
+    motion-pose (W-1, ND, 3), pose smoothing on triplets (W-2, O, 6) and,
+    with `use_object_kinematic_factor`, kinematic (W-1, O, 6) against the
+    frontend's measured motions."""
+    L: SE3 = values["L"]
+    dp = values["dp"]
+    _, smooth_sigma = pose_sigmas(cfg, dp.dtype, dp.device)
+    zero = torch.zeros((), dtype=dp.dtype, device=dp.device)
+    out = _camera_point_residuals(values, w, masks, cfg, anchor, anchor_prior_L)
+
+    Lk, _ = select_motions(L, w.dyn_obj, masks.ternary | masks.dyn_obs)
+    r_mp = factors.landmark_motion_pose_residual(dp[:-1], dp[1:], Lk[:-1], Lk[1:])
+    out.append(torch.where(masks.ternary[1:, ..., None], r_mp / cfg.motion_ternary_factor_noise_sigma, zero))
+
+    r_ps = factors.landmark_pose_smoothing_residual(L[:-2], L[1:-1], L[2:]) / smooth_sigma
+    out.append(torch.where(pose_triple(masks)[..., None], r_ps, zero))
+
+    if cfg.use_object_kinematic_factor:
+        r_kin = factors.object_kinematic_residual(w.motion_init[1:], L[:-1], L[1:]) / cfg.object_kinematic_sigma
+        out.append(torch.where(kinematic_mask(w, masks)[..., None], r_kin, zero))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -207,19 +298,15 @@ def _skew_sq_diag(y: torch.Tensor) -> torch.Tensor:
     return torch.stack([y2 + z2, x2 + z2, x2 + y2], dim=-1)
 
 
-def world_motion_gn_diag(values: dict, sqrt_w: list, w: WindowData, masks: WindowMasks,
-                         cfg: BackendConfig) -> dict:
-    """Exact-to-leading-order diag(J^T W J) of the WorldMotion families,
-    in the JAX package's arithmetic: pose-to-point Jacobians [hat(y) | -I]
-    with y the measured local point, orthonormal point Jacobians, and
-    1/sigma^2 per component for the pose-pose factors.  Family order is
-    that of `world_motion_residuals`."""
-    dtype, dev = values["sp"].dtype, values["sp"].device
-    W_, O = masks.smoothing.shape
-    w_anchor, w_odo, w_static, w_dyn, w_tern, w_smooth = [s ** 2 for s in sqrt_w]
-    pose_sig, smooth_sig = pose_sigmas(cfg, dtype, dev)
-
-    # X (W, 6)
+def _camera_point_diag(sqrt_w: list, w: WindowData, masks: WindowMasks, cfg: BackendConfig):
+    """The shared families' part of diag(J^T W J): X (W, 6) from the anchor,
+    odometry and pose-to-point factors (Jacobians [hat(y) | -I], y the
+    measured local point), sp (NS, 3) and the observation part of dp
+    (W, ND, 3) (orthonormal point Jacobians)."""
+    w_anchor, w_odo, w_static, w_dyn = [s ** 2 for s in sqrt_w[:4]]
+    dtype, dev = w_static.dtype, w_static.device
+    W_ = masks.frame.shape[0]
+    pose_sig, _ = pose_sigmas(cfg, dtype, dev)
     dX = torch.zeros((W_, 6), dtype=dtype, device=dev)
     dX[0] += w_anchor[0] / cfg.initial_pose_prior_sigma ** 2
     odo_w = (w_odo * masks.odometry[1:].to(dtype))[:, None] / pose_sig ** 2
@@ -230,11 +317,23 @@ def world_motion_gn_diag(values: dict, sqrt_w: list, w: WindowData, masks: Windo
     for wgt, xyz in ((ws, w.static_xyz), (wd, w.dyn_xyz)):
         rot = torch.einsum("kn,knd->kd", wgt, _skew_sq_diag(xyz))
         dX = dX + torch.cat([rot, wgt.sum(1)[:, None].expand(-1, 3)], dim=-1)
+    return dX, ws.sum(0)[:, None].expand(-1, 3), wd[..., None].expand(-1, -1, 3).clone()
 
-    # sp (NS, 3), dp (W, ND, 3): orthonormal point Jacobians
-    dsp = ws.sum(0)[:, None].expand(-1, 3)
+
+def world_motion_gn_diag(values: dict, sqrt_w: list, w: WindowData, masks: WindowMasks,
+                         cfg: BackendConfig) -> dict:
+    """Exact-to-leading-order diag(J^T W J) of the WorldMotion families,
+    in the JAX package's arithmetic: pose-to-point Jacobians [hat(y) | -I]
+    with y the measured local point, orthonormal point Jacobians, and
+    1/sigma^2 per component for the pose-pose factors.  Family order is
+    that of `world_motion_residuals`."""
+    dtype, dev = values["sp"].dtype, values["sp"].device
+    W_, O = masks.smoothing.shape
+    w_tern, w_smooth = [s ** 2 for s in sqrt_w[4:]]
+    _, smooth_sig = pose_sigmas(cfg, dtype, dev)
+    dX, dsp, ddp = _camera_point_diag(sqrt_w, w, masks, cfg)
+
     wt = w_tern * masks.ternary[1:].to(dtype) / cfg.motion_ternary_factor_noise_sigma ** 2   # (W-1, ND)
-    ddp = wd[..., None].expand(-1, -1, 3).clone()
     ddp[:-1] += wt[..., None]                   # m_{k-1} slot (identity J)
     ddp[1:] += wt[..., None]                    # m_k slot (rotation J)
 
@@ -248,3 +347,43 @@ def world_motion_gn_diag(values: dict, sqrt_w: list, w: WindowData, masks: Windo
     dH[:-1] += sm_w
     dH[1:] += sm_w
     return {"X": dX, "H": dH, "sp": dsp, "dp": ddp}
+
+
+def world_pose_gn_diag(values: dict, sqrt_w: list, w: WindowData, masks: WindowMasks,
+                       cfg: BackendConfig) -> dict:
+    """diag(J^T W J) of the WorldPose families in the JAX package's
+    arithmetic: the camera and point parts of `world_motion_gn_diag`; the
+    motion-pose factor's pose Jacobians [R hat(z) | -R], z the point in
+    the object frame approximated by the world point minus the object
+    translation, add skew-sq-diag(z) and 1 per component to both L_{k-1}
+    and L_k; pose-smoothing triplets and kinematic pairs add 1/sigma^2 per
+    component to each of their poses."""
+    L: SE3 = values["L"]
+    dp = values["dp"]
+    dtype, dev = dp.dtype, dp.device
+    W_, O = masks.smoothing.shape
+    w_mp, w_ps, *w_rest = [s ** 2 for s in sqrt_w[4:]]
+    _, smooth_sig = pose_sigmas(cfg, dtype, dev)
+    dX, dsp, ddp = _camera_point_diag(sqrt_w, w, masks, cfg)
+
+    wm = w_mp * masks.ternary[1:].to(dtype) / cfg.motion_ternary_factor_noise_sigma ** 2   # (W-1, ND)
+    ddp[:-1] += wm[..., None]
+    ddp[1:] += wm[..., None]
+
+    onehot = object_onehot(torch.where(masks.ternary[1:], w.dyn_obj[1:], -1), O).to(dtype)   # (W-1, ND, O)
+    z = dp[:-1] - torch.einsum("kno,kod->knd", onehot, L.t[:-1])
+    rot_L = torch.einsum("kn,kno,knd->kod", wm, onehot, _skew_sq_diag(z))
+    trans_L = torch.einsum("kn,kno->ko", wm, onehot)[..., None].expand(-1, -1, 3)
+    contrib = torch.cat([rot_L, trans_L], dim=-1)
+    dL = torch.zeros((W_, O, 6), dtype=dtype, device=dev)
+    dL[:-1] += contrib
+    dL[1:] += contrib
+    ps_w = (w_ps * pose_triple(masks).to(dtype))[..., None] / smooth_sig ** 2
+    dL[:-2] += ps_w
+    dL[1:-1] += ps_w
+    dL[2:] += ps_w
+    if cfg.use_object_kinematic_factor and w_rest:
+        kin_w = (w_rest[0] * kinematic_mask(w, masks).to(dtype))[..., None] / cfg.object_kinematic_sigma ** 2
+        dL[:-1] += kin_w
+        dL[1:] += kin_w
+    return {"X": dX, "L": dL, "sp": dsp, "dp": ddp}

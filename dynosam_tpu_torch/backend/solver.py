@@ -13,7 +13,11 @@ and returns the product and the gradient ``g = J^T W r``; the PCG runs on
 the tangent raveled into one vector (as `jax.flatten_util` would) in
 chunks of `PCG_CHUNK` iterations, frozen on the device once its exit test
 fails, so the host reads once per chunk and the LM once per iteration.
-The Hutchinson diagonal (`gn_diag_fn=None`, varpro) is ROADMAP.md item 12.
+
+Without an analytic diagonal (`gn_diag_fn=None`, the varpro solve) the
+damping and the preconditioner come from Hutchinson's estimate over
+Rademacher probes, which the caller passes in or which a `torch.Generator`
+draws (the JAX package draws them from `fold_in(PRNGKey(seed), it)`).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from ..ops.robust import robust_sqrt_weights
 class RobustSpec(NamedTuple):
     """Robust kernel of one residual family."""
 
-    kind: str = "none"   # none | huber
+    kind: str = "none"   # none | huber | tukey | cauchy
     k: float = 1.0
 
 
@@ -38,13 +42,16 @@ def robust_loss(r: torch.Tensor, spec: RobustSpec) -> torch.Tensor:
     sq = torch.sum(r * r, dim=-1)
     if spec.kind == "none":
         return 0.5 * sq
+    norm = torch.sqrt(torch.clamp(sq, min=1e-30))
+    k2 = spec.k * spec.k
     if spec.kind == "huber":
-        k = spec.k
-        norm = torch.sqrt(torch.clamp(sq, min=1e-30))
-        return torch.where(norm <= k, 0.5 * sq, k * norm - 0.5 * k * k)
-    raise NotImplementedError(
-        f"robust kind {spec.kind!r} waits for the backend slice (ROADMAP.md item 12)"
-    )
+        return torch.where(norm <= spec.k, 0.5 * sq, spec.k * norm - 0.5 * k2)
+    if spec.kind == "cauchy":
+        return 0.5 * k2 * torch.log1p(sq / k2)
+    if spec.kind == "tukey":
+        inside = (k2 / 6.0) * (1.0 - (1.0 - sq / k2) ** 3)
+        return torch.where(norm <= spec.k, inside, torch.full_like(inside, k2 / 6.0))
+    raise ValueError(spec.kind)
 
 
 def total_error(residuals: Sequence[torch.Tensor], specs: Sequence[RobustSpec], batch_dims: int = 0):
@@ -117,6 +124,10 @@ def tree_sub(a, b):
 
 def tree_scale(a, s):
     return {k: v * s for k, v in a.items()} if isinstance(a, dict) else a * s
+
+
+def tree_mul(a, b):
+    return {k: a[k] * b[k] for k in a}
 
 
 def tree_dot(a, b):
@@ -193,46 +204,79 @@ def pcg(A_mv, b, M_inv_mv, x0, max_iters: int, tol: float):
     return x, i, tree_dot(r, r)
 
 
+HUTCHINSON_PROBES = 8      # the JAX package's n_samples
+
+
+def rademacher_probes(template: dict, n_samples: int, generator: torch.Generator) -> list:
+    """`n_samples` tangent dicts shaped as `template`, entries +-1 drawn
+    from `generator`."""
+    return [{k: (torch.randint(0, 2, v.shape, generator=generator, device=v.device) * 2 - 1).to(v.dtype)
+             for k, v in template.items()} for _ in range(n_samples)]
+
+
+def hutchinson_diag(A_mv: Callable, probes: Sequence[dict]) -> dict:
+    """Stochastic estimate of diag(A): the mean of z * A z over the
+    Rademacher probes z (tangent dicts)."""
+    acc = None
+    for z in probes:
+        t = tree_mul(z, A_mv(z))
+        acc = t if acc is None else tree_add(acc, t)
+    return tree_scale(acc, 1.0 / len(probes))
+
+
 # --------------------------------------------------------------------------
 # Levenberg-Marquardt (LM-PCG)
 # --------------------------------------------------------------------------
 
 
 def lm_optimize(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict, cfg: LMConfig, *,
-                normal_fn: Callable, gn_diag_fn: Optional[Callable] = None) -> LMResult:
+                normal_fn: Callable, gn_diag_fn: Optional[Callable] = None,
+                probes: Optional[Callable] = None, generator: Optional[torch.Generator] = None) -> LMResult:
     """Minimise sum_f rho_f(|r_f(x)|) over the manifold dict `values`.
 
     residual_fn(values) -> list of whitened, mask-zeroed residuals, one per
-    family of `specs`; gn_diag_fn(values, sqrt_w) -> diag(J^T W J) as a
-    tangent dict (damping and Jacobi preconditioner); normal_fn(values,
-    sqrt_w, residuals) -> (JtJ_mv, g): the product d -> J^T W J d on
-    tangent dicts and g = J^T W r, at `values` with the IRLS weights
-    frozen.  The loop is the JAX package's: accept on the true robust
-    cost, lambda down by `lambda_factor` on accept and up on reject,
-    gtsam-style convergence.  A rejected step keeps its linearisation (the
-    JAX loop recomputes the same one).  The host reads the accept and done
-    flags and the CG count once per LM iteration, besides PCG's reads."""
-    if gn_diag_fn is None:
-        raise NotImplementedError(
-            "the Hutchinson diagonal (gn_diag_fn=None, the varpro solve) is ported by ROADMAP.md item 12")
+    family of `specs`; normal_fn(values, sqrt_w, residuals) -> (JtJ_mv, g):
+    the product d -> J^T W J d on tangent dicts and g = J^T W r, at
+    `values` with the IRLS weights frozen; gn_diag_fn(values, sqrt_w) ->
+    diag(J^T W J) as a tangent dict (damping and Jacobi preconditioner).
+    Without `gn_diag_fn` the diagonal is `hutchinson_diag` of J^T W J
+    over the probes of LM iteration `it`: `probes(it)` (a list of tangent
+    dicts), else `HUTCHINSON_PROBES` drawn from `generator` (a fresh one
+    seeded 0 when None), drawn anew each iteration as the JAX package
+    does.
+
+    The loop is the JAX package's: accept on the true robust cost, lambda
+    down by `lambda_factor` on accept and up on reject, gtsam-style
+    convergence.  A rejected step keeps its linearisation (the JAX loop
+    recomputes the same one).  The host reads the accept and done flags
+    and the CG count once per LM iteration, besides PCG's reads."""
     specs = tuple(specs)
     res = residual_fn(values)
     err = total_error(res, specs)
     err_init = err
     dev = err.device
+    if gn_diag_fn is None and probes is None and generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
     lam = torch.full((), cfg.initial_lambda, dtype=torch.float32, device=dev)
     vals, it, done, lin, cg_iters = values, 0, False, None, []
     rav = Raveler(zero_delta(values))
+
+    def floored(d: dict) -> torch.Tensor:
+        return rav.ravel({k: torch.clamp(torch.abs(v), min=cfg.diag_floor) for k, v in d.items()})
+
     while it < cfg.max_iterations and not done:
         if lin is None:
             sqrt_w = sqrt_weights(res, specs)
             JtJ_mv, g = normal_fn(vals, sqrt_w, res)
-            diag = rav.ravel({k: torch.clamp(torch.abs(v), min=cfg.diag_floor)
-                              for k, v in gn_diag_fn(vals, sqrt_w).items()})
-            lin = (lambda d, f=JtJ_mv: rav.ravel(f(rav.unravel(d))), -rav.ravel(g), diag)
-        JtJ, b, diag = lin
-        delta, n_cg, _ = pcg(lambda d: JtJ(d) + lam * (diag * d), b, lambda r: r / (diag * (1.0 + lam)),
-                             torch.zeros_like(b), cfg.cg_max_iterations, cfg.cg_tol)
+            lin = (JtJ_mv, -rav.ravel(g), None if gn_diag_fn is None else floored(gn_diag_fn(vals, sqrt_w)))
+        JtJ_mv, b, diag = lin
+        if diag is None:
+            zs = probes(it) if probes is not None else rademacher_probes(zero_delta(vals), HUTCHINSON_PROBES, generator)
+            diag = floored(hutchinson_diag(JtJ_mv, zs))
+        delta, n_cg, _ = pcg(lambda d: rav.ravel(JtJ_mv(rav.unravel(d))) + lam * (diag * d), b,
+                             lambda r: r / (diag * (1.0 + lam)), torch.zeros_like(b),
+                             cfg.cg_max_iterations, cfg.cg_tol)
         new_vals = retract_tree(vals, rav.unravel(delta))
         new_res = residual_fn(new_vals)
         new_err = total_error(new_res, specs)

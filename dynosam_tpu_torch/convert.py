@@ -115,11 +115,16 @@ def window_data_from_numpy(src, device=None) -> WindowData:
     return w._replace(start=int(np.asarray(src.start)))
 
 
-def est_store_from_numpy(src, device=None) -> EstimateStore:
-    """A JAX `EstimateStore`, or a JAX `throughput.EstStore` of updater 0
-    (its P holds the object motions H), as the port's store."""
+def est_store_from_numpy(src, device=None, updater: int = 0) -> EstimateStore:
+    """A JAX `EstimateStore`, or a JAX `throughput.EstStore` (its P holds
+    the object motions H under `updater` 0, the poses L under 1; the
+    other field is identity), as the port's store."""
     if not hasattr(src, "H"):
-        src = SimpleNamespace(**{f: getattr(src, "P" if f == "H" else f) for f in EstimateStore._fields})
+        P = src.P
+        ident = SimpleNamespace(R=np.broadcast_to(np.eye(3, dtype=P.R.dtype), P.R.shape), t=np.zeros_like(P.t))
+        key = "H" if updater == 0 else "L"
+        src = SimpleNamespace(**{f: P if f == key else ident if f in ("H", "L") else getattr(src, f)
+                                 for f in EstimateStore._fields})
     return _tuple_from_numpy(EstimateStore, src, resolve_device(device))
 
 

@@ -1,5 +1,6 @@
-"""Robust IRLS weights (port of `dynosam_tpu/ops/robust.py`, Huber only —
-the kernel the frontend refiners use)."""
+"""Robust IRLS weights (port of `dynosam_tpu/ops/robust.py`): gtsam's
+m-estimators on the whitened residual norm, applied as square-root weights
+onto whitened residuals."""
 
 from __future__ import annotations
 
@@ -12,15 +13,25 @@ def huber_weight(r_norm: torch.Tensor, k: float) -> torch.Tensor:
     return torch.where(r_norm <= k, torch.ones_like(r_norm), k / safe)
 
 
+def tukey_weight(r_norm: torch.Tensor, c: float) -> torch.Tensor:
+    """gtsam Tukey: w = (1 - (|r| / c)^2)^2 inside c, 0 outside."""
+    w = torch.square(1.0 - torch.square(r_norm / c))
+    return torch.where(r_norm <= c, w, torch.zeros_like(w))
+
+
+def cauchy_weight(r_norm: torch.Tensor, k: float) -> torch.Tensor:
+    """gtsam Cauchy: w = 1 / (1 + (|r| / k)^2)."""
+    return 1.0 / (1.0 + torch.square(r_norm / k))
+
+
+_WEIGHTS = {"huber": huber_weight, "tukey": tukey_weight, "cauchy": cauchy_weight}
+
+
 def robust_sqrt_weights(residual_whitened: torch.Tensor, k: float, kind: str = "huber"):
     """(..., D) whitened residual -> (...,) sqrt IRLS weights."""
     norm = torch.linalg.vector_norm(residual_whitened, dim=-1)
-    if kind == "huber":
-        w = huber_weight(norm, k)
-    elif kind == "none":
-        w = torch.ones_like(norm)
-    else:
-        raise NotImplementedError(
-            f"robust kind {kind!r} waits for the backend slice (ROADMAP.md item 12)"
-        )
-    return torch.sqrt(w)
+    if kind == "none":
+        return torch.ones_like(norm)
+    if kind not in _WEIGHTS:
+        raise ValueError(f"unknown robust kind {kind}")
+    return torch.sqrt(_WEIGHTS[kind](norm, k))

@@ -107,6 +107,12 @@ class DynoPipeline:
         )
 
 
+def backend_log_prefix(updater: int) -> str:
+    """The backend module's log prefix: the reference's WorldMotion
+    (updater 0) and LLWorld (updater 1) estimator names."""
+    return "rgbd_motion_world_backend" if updater == 0 else "rgbd_LL_world_backend"
+
+
 def _mat(R, t) -> np.ndarray:
     T = np.eye(4)
     T[:3, :3] = R
@@ -147,7 +153,7 @@ def run_and_log(dataset, cfg: DynoConfig, output_path: str, use_klt: bool = True
     fe_log.flush()
 
     if result.backend is not None:
-        be_log = EstimationLogger(output_path, "rgbd_motion_world_backend")
+        be_log = EstimationLogger(output_path, backend_log_prefix(cfg.backend.backend_updater_enum))
         X, xvalid = map(to_numpy, result.backend.camera_poses())
         H, hvalid = map(to_numpy, result.backend.object_motions())
         labels_map = to_numpy(result.backend.map.obj_label)

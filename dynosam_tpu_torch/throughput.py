@@ -1,5 +1,5 @@
 """Offline pipeline: the frontend on every frame and the sliding-window
-backend (port of `dynosam_tpu/throughput.py`, one window per solve).
+backend (port of `dynosam_tpu/throughput.py`).
 
 The JAX package fuses the whole run into one XLA program (a scan over
 trigger segments).  Here a host loop keeps the same order: frame 0, the
@@ -8,7 +8,11 @@ W - V` frontend steps, each followed by `update_map`, then one solve (direct
 Schur, or LM-PCG above `schur_max_window` frames) of the window
 [s * stride, s * stride + W) that just completed, with
 its estimates written back into the store.  A sequence has V + S * stride
-frames for a whole number S of segments.
+frames for a whole number S of segments.  With `opt_windows_per_dispatch`
+wpd > 1 the windows solve in groups of wpd once the group's last window
+completes, all from the store as it stood before the group
+(`backend.solve_windows`); a wpd that does not divide S falls back to 1.
+The fixed-lag prior is not applied here, as in the JAX package's runner.
 
 The frontend's RANSAC hypotheses come from a `torch.Generator` seeded by
 `seed` (the JAX package draws them from `online_keys`).
@@ -21,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .backend.backend import EstimateStore, check_backend_config, lm_config, solve_window
+from .backend.backend import EstimateStore, lm_config, solve_windows
 from .backend.formulation import WindowMasks
 from .backend.map import MeasurementMap, update_map
 from .backend.solver import LMResult
@@ -56,7 +60,9 @@ def _plan(cfg: DynoConfig, n_frames: int) -> SegmentPlan:
 @dataclasses.dataclass
 class WindowSolve:
     """One window solve: its first frame, the LM result and masks (pool
-    coordinates), and on a card the CUDA events around the solve."""
+    coordinates), and on a card the CUDA events around the solve (around
+    the whole dispatch, shared by its windows, when windows solve in
+    groups)."""
 
     start: int
     result: LMResult
@@ -78,14 +84,15 @@ class OfflineResult(NamedTuple):
 class OfflineRunner:
     """The offline pipeline over a fixed number of frames, one host step at
     a time: `step(frame)` runs the frontend on the next frame, writes its
-    packet into the measurement map, and solves the window that frame
-    completes, if any.  `run(frames)` steps through a whole sequence."""
+    packet into the measurement map, and solves the windows that frame
+    makes due, if any.  `run(frames)` steps through a whole sequence."""
 
     def __init__(self, cam: CameraParams, cfg: DynoConfig, n_frames: int, use_klt: bool = True,
                  device=None, seed: int = 0):
         check_frontend_config(cfg.frontend)
-        check_backend_config(cfg.backend)
         self.plan = _plan(cfg, n_frames)
+        wpd = max(1, int(cfg.backend.opt_windows_per_dispatch))
+        self.wpd = wpd if self.plan.n_segments % wpd == 0 else 1
         self.device = resolve_device(device)
         self.cam, self.cfg, self.use_klt = cam, cfg, use_klt
         self.lm_cfg = lm_config(cfg.backend)
@@ -132,23 +139,39 @@ class OfflineRunner:
             return k - (W - 1)
         return None
 
+    def windows_due(self) -> list:
+        """The first frames of the windows to solve now: the window just
+        completed, or with wpd > 1 the group of wpd consecutive windows
+        once its last one completes ([] if none)."""
+        start = self.window_due()
+        stride = self.plan.stride
+        if start is None or (start // stride + 1) % self.wpd:
+            return []
+        return [start - i * stride for i in reversed(range(self.wpd))]
+
     def solve(self, start: int) -> WindowSolve:
         """Solve the window at `start` and write it into the estimate store."""
+        return self.solve_group([start])[0]
+
+    def solve_group(self, starts: list) -> list:
+        """Solve the windows at `starts` in one dispatch
+        (`backend.solve_windows`) and write them into the store in order."""
         events = None
         if self.device.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             events[0].record()
-        result, masks = solve_window(self.est, self.map, start, self.plan.window, self.cfg.backend, self.lm_cfg)
+        out = solve_windows(self.est, self.map, starts, self.plan.window, self.cfg.backend, self.lm_cfg)
         if events is not None:
             events[1].record()
-        win = WindowSolve(start, result, masks, events)
-        self.windows.append(win)
-        return win
+        wins = [WindowSolve(s, r, mk, events) for s, (r, mk) in zip(starts, out)]
+        self.windows.extend(wins)
+        return wins
 
-    def step(self, frame: FrameImages) -> Optional[WindowSolve]:
+    def step(self, frame: FrameImages) -> list:
+        """The frontend on the next frame, then the windows due: [WindowSolve]."""
         self.frontend(frame)
-        start = self.window_due()
-        return None if start is None else self.solve(start)
+        due = self.windows_due()
+        return self.solve_group(due) if due else []
 
     def result(self) -> OfflineResult:
         return OfflineResult(self.packets, self.est, self.windows)
@@ -165,7 +188,8 @@ def make_offline_runner(cam: CameraParams, cfg: DynoConfig, n_frames: int, use_k
                         device=None, seed: int = 0) -> OfflineRunner:
     """The offline runner for a fixed sequence length, on `device` (the card
     unless the caller asks for another).  Raises before any work for an
-    option outside the ported path or a length the plan cannot split."""
+    option outside the ported path, full batch, or a length the plan
+    cannot split."""
     return OfflineRunner(cam, cfg, n_frames, use_klt=use_klt, device=device, seed=seed)
 
 

@@ -1,8 +1,9 @@
 """Card-only checks of the port: each Hopper kernel against its plain
 PyTorch version on the same CUDA tensors, short frontend-only runs
 (Shi-Tomasi and ORB detectors) that must launch their kernels on every
-steady frame, and backend solves (a direct-Schur window, a full-batch
-LM-PCG) on the card against the CPU.
+steady frame, backend solves (a direct-Schur window of each formulation,
+a batched dispatch of two windows, a full-batch LM-PCG) on the card
+against the CPU, and drift recovery in full for both updaters.
 
 Marked `cuda`; a fixture skips them where no card is present.  On a machine
 with a card and the CUDA toolkit (this file imports neither JAX nor the
@@ -334,3 +335,99 @@ def test_lm_pcg_full_batch_on_the_card_matches_the_cpu(cuda):
     assert float(gpu.error) < 1e-3 * float(gpu.initial_error)
     assert float(gpu.error) == pytest.approx(float(cpu.error), rel=1e-2)
     assert float((gpu.values["X"].t.cpu() - cpu.values["X"].t).abs().max()) <= 1e-4
+
+
+def test_world_pose_window_and_batched_windows_on_the_card_match_the_cpu(cuda):
+    """WorldPose (updater 1) on the window-10 simulator scenario, card
+    against CPU: one Schur step at lambda 1e-4 within 2e-2 of each delta's
+    max-abs (the ~1e10-conditioned WorldPose step moves by 30 % when its
+    inputs move by one part in 1e7, `tests/test_torch_world_pose.py`; card
+    and CPU sum in other orders) and a 7-iteration LM with a full
+    `anchor_prior_L` within rtol 3e-2 in error and 2e-3 m in camera
+    translations (the float32 tolerances of the WorldMotion window above);
+    and two windows of a 16-frame scenario in one batched
+    dispatch (`backend.solve_windows`), card against CPU, camera
+    translations within 2e-3 m, masks equal."""
+    from dynosam_tpu_torch.backend import backend as tbe
+    from dynosam_tpu_torch.backend import formulation as fm
+    from dynosam_tpu_torch.backend import map as bmap
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.backend.solver import LMConfig
+    from dynosam_tpu_torch.frontend.frontend import to_device
+    from dynosam_tpu_torch.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu_torch.utils.config import BackendConfig
+
+    Lp = torch.linalg.cholesky(torch.eye(6, dtype=torch.float64) * 1e8 + 1e7).float()
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        cfg, w, masks, _, _ = _window_problem(dev)
+        v0 = fm.init_values_world_pose(w, masks, cfg)
+        anchor = w.X_init[0]
+        res = fm.world_pose_residuals(v0, w, masks, cfg, anchor)
+        sys = schur.build_normal_system_pose(v0, schur.sqrt_weights(res, fm.world_pose_families(cfg).robust),
+                                             w, masks, cfg, anchor, res)
+        step = schur.schur_step(sys, torch.tensor(1e-4, device=dev), 1e-6, formulation=1)
+        lm = schur.lm_optimize_schur(v0, w, masks, cfg, LMConfig(max_iterations=7), anchor, formulation=1,
+                                     anchor_prior_L=Lp.to(dev))
+        scfg = ScenarioConfig(n_frames=16)
+        m = bmap.MeasurementMap.create(16, scfg.ns, scfg.nd, scfg.no, device=dev)
+        for k, p in enumerate(Scenario(scfg).frontend_outputs()):
+            bmap.update_map(m, to_device(p, dev), k)
+        bcfg = BackendConfig(window_max_static=128, window_max_dynamic=96, window_max_objects=3,
+                             lm_max_iterations=7)
+        est = tbe.EstimateStore.create(16, scfg.ns, scfg.nd, scfg.no, device=dev)
+        tbe.solve_windows(est, m, [0, 6], 10, bcfg, tbe.lm_config(bcfg))
+        out[dev.type] = (step, lm, est)
+    torch.cuda.synchronize()
+    (s_cpu, lm_cpu, est_cpu), (s_gpu, lm_gpu, est_gpu) = out["cpu"], out["cuda"]
+    for k in ("X", "P", "sp", "dp"):
+        d = float((s_gpu[k].cpu() - s_cpu[k]).abs().max()) / float(s_cpu[k].abs().max())
+        assert d <= 2e-2, (k, d)
+    assert float(lm_gpu.error) < float(lm_gpu.initial_error)
+    assert float(lm_gpu.error) == pytest.approx(float(lm_cpu.error), rel=3e-2)
+    assert float((lm_gpu.values["X"].t.cpu() - lm_cpu.values["X"].t).abs().max()) <= 2e-3
+    for f in ("X_valid", "motion_valid", "dyn_valid", "static_valid"):
+        assert torch.equal(getattr(est_gpu, f).cpu(), getattr(est_cpu, f)), f
+    assert float((est_gpu.X.t.cpu() - est_cpu.X.t).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("updater", [0, 1])
+def test_drift_recovery_on_the_card(cuda, updater):
+    """`tests/test_accuracy_regression.py:166-228` on the card, in full: the
+    golden scene's frontend packets with a growing camera drift, odometry
+    sigmas loosened 10x, the full-batch backend with 100 LM iterations
+    allowed; the recovered camera ATE below the corrupted ATE / 1.8 and
+    below 0.11 m (JAX's bounds)."""
+    import dataclasses
+
+    from dynosam_tpu_torch.core.lie import se3_compose, se3_exp
+    from dynosam_tpu_torch.eval import metrics
+    from dynosam_tpu_torch.pipeline import DynoPipeline, run_from_packets
+    from dynosam_tpu_torch.testing.scenes import GOLDEN_FRAMES, golden_config, golden_dataset
+
+    ds = golden_dataset(cuda)
+    fe_cfg = dataclasses.replace(golden_config(True), pipeline=dataclasses.replace(golden_config().pipeline,
+                                                                                   use_backend=False))
+    packets = DynoPipeline(ds.camera_params(), fe_cfg, device=cuda).run(ds.frames()).packets
+    drift = torch.tensor([0.0, 0.0015, 0.0, 0.02, 0.008, 0.0], device=cuda)
+    corrupted = [p._replace(X_world=se3_compose(se3_exp(drift * float(k)), p.X_world)) for k, p in enumerate(packets)]
+    gt = np.stack([ds.ground_truth(k).X_world for k in range(GOLDEN_FRAMES)])
+
+    def ate(R, t, valid):
+        T = np.tile(np.eye(4), (int(valid.sum()), 1, 1))
+        T[:, :3, :3] = R.double().cpu().numpy()[valid]
+        T[:, :3, 3] = t.double().cpu().numpy()[valid]
+        return metrics.ate(T, gt[valid])["trans"].rmse
+
+    corrupted_ate = ate(torch.stack([p.X_world.R for p in corrupted]), torch.stack([p.X_world.t for p in corrupted]),
+                        np.ones(GOLDEN_FRAMES, bool))
+    assert corrupted_ate > 0.08, corrupted_ate
+    cfg = golden_config(True)
+    cfg = dataclasses.replace(cfg, backend=dataclasses.replace(
+        cfg.backend, backend_updater_enum=updater, lm_max_iterations=100, odometry_translation_sigma=1.0,
+        odometry_rotation_sigma=0.5))
+    be = run_from_packets(corrupted, cfg, device=cuda)
+    X, xv = be.camera_poses()
+    rec = ate(X.R, X.t, xv.cpu().numpy())
+    assert rec < corrupted_ate / 1.8, (rec, corrupted_ate)
+    assert rec < 0.11, rec

@@ -19,6 +19,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -243,7 +244,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    "3d3d", "2d2d", "legacy_3d3d", "propagate_mask", "byte_tracker", "backend_updater_1",
+    "3d3d", "2d2d", "legacy_3d3d", "propagate_mask", "byte_tracker",
 ])
 def test_options_outside_the_slice_raise(option):
     """Each option the slice does not port raises NotImplementedError that
@@ -257,12 +258,101 @@ def test_options_outside_the_slice_raise(option):
     elif option == "propagate_mask":
         cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
             fe, tracker=dataclasses.replace(tr, use_propogate_mask=True)))
-    elif option == "byte_tracker":
+    else:
         cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
             fe, tracker=dataclasses.replace(tr, use_byte_tracker=True)))
-    else:
-        cfg = dataclasses.replace(cfg, pipeline=tcfg.PipelineConfig(use_backend=True),
-                                  backend=tcfg.BackendConfig(backend_updater_enum=1))
     cam = convert.camera_from_numpy(dict(fx=100.0, fy=100.0, cx=32.0, cy=24.0, width=64, height=48))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item"):
         DynoPipeline(cam, cfg, device="cpu")
+
+
+class _Replay:
+    """A dataset of no frames with the simulator's camera ground truth,
+    for both packages' `run_and_log` (`DynoPipeline.run` patched to
+    replay packets)."""
+
+    start = 0
+
+    def __init__(self, cam, scenario, gt_cls):
+        self.cam, self.sc, self.gt_cls = cam, scenario, gt_cls
+
+    def camera_params(self):
+        return self.cam
+
+    def prefetched_frames(self):
+        return iter(())
+
+    def ground_truth(self, idx):
+        X = self.sc.X_gt[idx]
+        return self.gt_cls(frame_id=idx, timestamp=idx * 0.1, X_world=_mat(X.R, X.t), object_poses={},
+                           object_motions={})
+
+
+def _read_rows(path):
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return rows[0], [[float(x) for x in r] for r in rows[1:]]
+
+
+def test_world_pose_backend_logs_match_jax(tmp_path, monkeypatch):
+    """Updater 1 (WorldPose) through `run_and_log` with sliding windows 5/2
+    over 10 simulator frames, `DynoPipeline.run` replaying the packets
+    through each package's own backend: the backend logs go under
+    `rgbd_LL_world_backend` in both packages, and on one backend state
+    (JAX's estimates handed to the port's backend) the port's camera and
+    object-motion logs hold JAX's rows and values (motions H_k = L_k
+    L_{k-1}^-1 from the accessor) to 1e-5; the port's own solve of the
+    same packets is read back by `evaluate_all` under that prefix, its
+    camera ATE within 3e-3 m of JAX's."""
+    from dynosam_tpu import pipeline as jpipe
+    from dynosam_tpu.core.camera import CameraParams as JCameraParams
+    from dynosam_tpu.data.base import GroundTruthFrame as JGT
+    from dynosam_tpu.eval.evaluator import evaluate_all as jevaluate_all
+    from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu.utils import config as jcfg
+    from dynosam_tpu_torch.pipeline import PipelineResult
+
+    scfg = ScenarioConfig(n_frames=10)
+    sc = Scenario(scfg)
+    packets = sc.frontend_outputs()
+    tp = [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu") for p in packets]
+    kw = dict(backend_updater_enum=1, opt_window_size=5, opt_window_overlap=2, lm_max_iterations=8)
+
+    def cfg(mod):
+        return mod.DynoConfig(backend=mod.BackendConfig(**kw), pipeline=mod.PipelineConfig(use_backend=True),
+                              capacity=mod.CapacityConfig(max_static_tracks=scfg.ns, max_dynamic_tracks=scfg.nd,
+                                                          max_objects=scfg.no, max_frames=scfg.n_frames))
+
+    jb = jpipe.run_from_packets(packets, cfg(jcfg))
+    monkeypatch.setattr(jpipe.DynoPipeline, "run", lambda self, frames: jpipe.PipelineResult(
+        packets=packets, backend=jb, frontend_state=None, fps=0.0))
+    jpipe.run_and_log(_Replay(JCameraParams.create(100.0, 100.0, 32.0, 24.0, 64, 48), sc, JGT), cfg(jcfg),
+                      str(tmp_path / "jax"))
+
+    from dynosam_tpu_torch.data.base import GroundTruthFrame
+    from dynosam_tpu_torch.pipeline import DynoPipeline as TPipe
+
+    cam = convert.camera_from_numpy(dict(fx=100.0, fy=100.0, cx=32.0, cy=24.0, width=64, height=48))
+    shared = run_from_packets(tp, cfg(tcfg), device="cpu")
+    from types import SimpleNamespace
+
+    shared.est = convert.est_store_from_numpy(
+        SimpleNamespace(**jax.tree.map(np.asarray, dataclasses.asdict(jb.est))), device="cpu")
+    own = run_from_packets(tp, cfg(tcfg), device="cpu")
+    for name, backend in (("shared", shared), ("port", own)):
+        monkeypatch.setattr(TPipe, "run", lambda self, frames, b=backend: PipelineResult(
+            packets=tp, backend=b, frontend_state=None, fps=0.0))
+        run_and_log(_Replay(cam, sc, GroundTruthFrame), cfg(tcfg), str(tmp_path / name), device="cpu")
+
+    for log in ("camera_pose_log", "object_motion_log"):
+        hj, rj = _read_rows(tmp_path / "jax" / f"rgbd_LL_world_backend_{log}.csv")
+        ht, rt = _read_rows(tmp_path / "shared" / f"rgbd_LL_world_backend_{log}.csv")
+        assert ht == hj and len(rt) == len(rj) > 0, log
+        np.testing.assert_allclose(np.asarray(rt), np.asarray(rj), rtol=0, atol=1e-5)
+    assert not list((tmp_path / "port").glob("rgbd_motion_world_backend*"))
+    ev, jev = evaluate_all(str(tmp_path / "port")), jevaluate_all(str(tmp_path / "jax"))
+    assert ev["rgbd_LL_world_backend"]["camera"]["n_frames"] == scfg.n_frames
+    assert abs(ev["rgbd_LL_world_backend"]["camera"]["ate_trans_rmse"]
+               - jev["rgbd_LL_world_backend"]["camera"]["ate_trans_rmse"]) <= 3e-3

@@ -1,7 +1,10 @@
 """The port's offline pipeline (`dynosam_tpu_torch/throughput.py`): the
 segment loop against the JAX package's `update_map` + `_solve_window`
-sequence, the LM-PCG windows, and the options outside the ported path
-(the whole pipeline on the golden scene is `tests/test_torch_offline_golden.py`).
+sequence (updater 0 and 1), the LM-PCG windows, the backend options of
+the runner (fixed-lag prior, varpro, grouped dispatches), and the options
+that raise (the whole pipeline on the golden scene is
+`tests/test_torch_offline_golden.py`, grouped dispatches against JAX are
+`tests/test_torch_batch_windows.py`).
 
 * Segment loop: simulator packets, 16 frames, window 10, overlap 4 (two
   window solves, the second warm-started from the first's write-back),
@@ -15,6 +18,8 @@ sequence, the LM-PCG windows, and the options outside the ported path
   second window, warm-started from the first and stopped after 7
   iterations of an IRLS with Huber k 1e-4, drifts along its frames by
   that much.
+* Updater 1: masks equal after each window, camera translations after
+  the second within twice the float32 floor measured in the test.
 * LM-PCG windows: `use_schur=False` (window 10, compacted) and a window of
   20 frames (above `schur_max_window`, the whole pool) run and lower their
   error; the 20-frame window, 15 LM iterations, agrees with JAX's runner
@@ -33,11 +38,13 @@ import pytest
 import torch
 
 from dynosam_tpu import throughput as jtp
+from dynosam_tpu.backend import formulation as jfm
 from dynosam_tpu.backend import map as jmap
 from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
 from dynosam_tpu.utils import config as jcfg
 from dynosam_tpu_torch import convert
 from dynosam_tpu_torch import throughput as ttp
+from dynosam_tpu_torch.backend import backend as tbe
 from dynosam_tpu_torch.utils import config as tcfg
 
 torch.set_num_threads(2)
@@ -101,30 +108,153 @@ def golden_config(n_frames, **backend_kw):
     )
 
 
-@pytest.mark.parametrize("option", [
-    "updater_1", "fixed_lag", "full_batch", "varpro", "batched_windows", "sequence_length",
-])
+@pytest.mark.parametrize("option", ["full_batch", "sequence_length"])
 def test_options_outside_the_slice_raise(option):
-    """Each option outside the ported path raises NotImplementedError that
-    names its ROADMAP.md item; full batch (the JAX runner asserts it away:
-    `run_from_packets` runs it) and a length the plan cannot split raise
-    ValueError; all before any work runs (the camera is never read)."""
-    kw = {
-        "updater_1": dict(backend_updater_enum=1), "fixed_lag": dict(use_fixed_lag_prior=True),
-        "full_batch": dict(use_full_batch_opt=True), "varpro": dict(use_varpro=True),
-        "batched_windows": dict(opt_windows_per_dispatch=2), "sequence_length": {},
-    }[option]
+    """Full batch (the JAX runner asserts it away: `run_from_packets` runs
+    it) and a length the plan cannot split raise ValueError before any
+    work runs (the camera is never read)."""
     cfg = golden_config(28)
-    cfg = dataclasses.replace(cfg, backend=dataclasses.replace(cfg.backend, **kw))
     if option == "sequence_length":
         with pytest.raises(ValueError, match="must equal overlap 4 \\+ n_segments \\* stride 6"):
             ttp.make_offline_runner(None, cfg, 27, device="cpu")
-    elif option == "full_batch":
+    else:
+        cfg = dataclasses.replace(cfg, backend=dataclasses.replace(cfg.backend, use_full_batch_opt=True))
         with pytest.raises(ValueError, match="run_from_packets for full-batch"):
             ttp.make_offline_runner(None, cfg, 28, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item 1[12]"):
-            ttp.make_offline_runner(None, cfg, 28, device="cpu")
+
+
+def _jiggled(packets, rng):
+    """The packets with their static and dynamic measurements scaled by
+    (1 + 1e-7 N(0, 1))."""
+    def j(x):
+        return x * (1 + 1e-7 * jnp.asarray(rng.standard_normal(x.shape), jnp.float32))
+
+    return [p._replace(static_obs=p.static_obs._replace(xyz=j(p.static_obs.xyz)),
+                       dynamic_obs=p.dynamic_obs._replace(xyz=j(p.dynamic_obs.xyz))) for p in packets]
+
+
+def test_segment_loop_world_pose_matches_jax():
+    """Updater 1 (WorldPose) through the segment loop of
+    `test_segment_loop_matches_jax_after_each_window`: after each window the
+    store's masks equal JAX's (its L written under the L key), and after
+    the second window the camera translations are within twice the float32
+    floor measured here (the spread of JAX's loop and of the port's when
+    the static and dynamic measurements move by one part in 1e7, 2
+    draws)."""
+    scfg = ScenarioConfig(n_frames=16)
+    packets = Scenario(scfg).frontend_outputs()
+    jc, tc = _loop_cfg(jcfg, scfg), _loop_cfg(tcfg, scfg)
+    jc = dataclasses.replace(jc, backend=dataclasses.replace(jc.backend, backend_updater_enum=1))
+    tc = dataclasses.replace(tc, backend=dataclasses.replace(tc.backend, backend_updater_enum=1))
+    solve = jax.jit(jtp._solve_window, static_argnames=("window", "cfg", "lm_cfg", "pose_key", "updater"))
+    lm_cfg = jtp._lm_cfg(jc.backend)
+
+    def jax_loop(pk, check=None):
+        m = jmap.MeasurementMap.create(16, scfg.ns, scfg.nd, scfg.no)
+        est = jtp.EstStore.create(16, scfg.ns, scfg.nd, scfg.no)
+        for k, p in enumerate(pk):
+            m = jmap.update_map(m, p, k)
+            if k >= 9 and (k - 9) % 6 == 0:
+                est, _ = solve(est, m, jnp.int32(k - 9), window=10, cfg=jc, lm_cfg=lm_cfg, pose_key="L", updater=1)
+                if check is not None:
+                    check.append(jax.tree.map(np.asarray, est))
+        return np.asarray(est.X.t)
+
+    def port_loop(pk, check=None):
+        runner = ttp.make_offline_runner(None, tc, 16, device="cpu")
+        for p in pk:
+            runner.add_packet(convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu"))
+            for s in runner.windows_due():
+                runner.solve(s)
+                if check is not None:
+                    check.append(jax.tree.map(np.array, convert.frontend_output_to_numpy(runner.est)))
+        return runner.est.X.t.numpy()
+
+    jsnaps, tsnaps = [], []
+    jt0, tt0 = jax_loop(packets, jsnaps), port_loop(packets, tsnaps)
+    assert len(jsnaps) == len(tsnaps) == 2
+    for a, t in zip(jsnaps, tsnaps):
+        b = convert.est_store_from_numpy(a, device="cpu", updater=1)
+        for f in ("static_valid", "dyn_valid", "X_valid", "motion_valid"):
+            assert np.array_equal(getattr(a, f), getattr(t, f)), f
+        assert torch.equal(b.L.t, torch.as_tensor(a.P.t)) and not b.H.t.any()
+    assert not tsnaps[-1].H.t.any() and tsnaps[-1].L.t.any()
+    rng = np.random.default_rng(0)
+    draws = [_jiggled(packets, rng) for _ in range(2)]
+    j_floor = max(np.abs(jax_loop(d) - jt0).max() for d in draws)
+    t_floor = max(np.abs(port_loop(d) - tt0).max() for d in draws)
+    assert np.abs(tt0 - jt0).max() <= 2 * (j_floor + t_floor), (np.abs(tt0 - jt0).max(), j_floor, t_floor)
+
+
+def test_offline_runner_does_not_apply_the_fixed_lag_prior():
+    """`use_fixed_lag_prior` is accepted and, as in the JAX package's runner
+    (its `_solve_window` passes no `anchor_prior_L`), leaves the offline
+    solves unchanged: the store equals the run without the option."""
+    scfg = ScenarioConfig(n_frames=16)
+    packets = [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
+               for p in Scenario(scfg).frontend_outputs()]
+    cfg = _loop_cfg(tcfg, scfg)
+    runs = []
+    for flag in (False, True):
+        c = dataclasses.replace(cfg, backend=dataclasses.replace(cfg.backend, use_fixed_lag_prior=flag))
+        runner = ttp.make_offline_runner(None, c, 16, device="cpu")
+        for p in packets:
+            runner.add_packet(p)
+            for s in runner.windows_due():
+                runner.solve(s)
+        runs.append(runner.est)
+    assert torch.equal(runs[0].X.t, runs[1].X.t) and torch.equal(runs[0].dyn_points, runs[1].dyn_points)
+
+
+def test_offline_runner_varpro_windows():
+    """`use_varpro` in the offline runner: windows solve by variable
+    projection on the whole pool (2 LM iterations of 10 CG iterations
+    here); each lowers its error and writes finite estimates, and the
+    store's masks equal JAX's runner's on the same packets (the masks do
+    not depend on the Hutchinson probes, which differ)."""
+    scfg = ScenarioConfig(n_frames=16)
+    packets = Scenario(scfg).frontend_outputs()
+    kw = dict(use_varpro=True, lm_max_iterations=2, cg_max_iterations=10)
+    jc, tc = _loop_cfg(jcfg, scfg), _loop_cfg(tcfg, scfg)
+    tc = dataclasses.replace(tc, backend=dataclasses.replace(tc.backend, **kw))
+    runner = ttp.make_offline_runner(None, tc, 16, device="cpu")
+    for p in packets:
+        runner.add_packet(convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu"))
+        for s in runner.windows_due():
+            r = runner.solve(s).result
+            assert float(r.error) < float(r.initial_error)
+    assert [w.start for w in runner.windows] == [0, 6]
+    assert torch.isfinite(runner.est.X.t).all() and runner.est.X_valid[:16].all()
+    m = jmap.MeasurementMap.create(16, scfg.ns, scfg.nd, scfg.no)
+    for k, p in enumerate(packets):
+        m = jmap.update_map(m, p, k)
+    masks = jfm.build_masks(jmap.slice_window(m, 6, 10), jc.backend)
+    t = convert.frontend_output_to_numpy(runner.est)
+    assert np.array_equal(np.asarray(masks.dyn_obs), t.dyn_valid[6:16])
+    assert np.array_equal(np.asarray(masks.motion_active), t.motion_valid[6:16])
+
+
+def test_offline_runner_solves_grouped_windows():
+    """`opt_windows_per_dispatch=2` over 16 frames: one dispatch of both
+    windows (`solve_group`), the same solve as `backend.solve_windows` from
+    an empty store, every frame covered."""
+    scfg = ScenarioConfig(n_frames=16)
+    packets = [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
+               for p in Scenario(scfg).frontend_outputs()]
+    cfg = _loop_cfg(tcfg, scfg)
+    cfg = dataclasses.replace(cfg, backend=dataclasses.replace(cfg.backend, opt_windows_per_dispatch=2))
+    out = ttp.make_offline_runner(None, cfg, 16, device="cpu")
+    dispatches = []
+    for p in packets:
+        out.add_packet(p)
+        due = out.windows_due()
+        if due:
+            dispatches.append(due)
+            out.solve_group(due)
+    assert dispatches == [[0, 6]]
+    est = tbe.EstimateStore.create(16, scfg.ns, scfg.nd, scfg.no, device="cpu")
+    tbe.solve_windows(est, out.map, [0, 6], 10, cfg.backend, tbe.lm_config(cfg.backend))
+    assert torch.equal(est.X.t, out.est.X.t) and out.est.X_valid[:16].all()
 
 
 @pytest.mark.parametrize("option", ["no_schur", "long_window"])
