@@ -88,6 +88,46 @@ no result line:
              window's anchor shift plus BATCHED_TOL_M of them, and K1-K3
              launched on every frame after the first.
 
+11. ego modes -- the main path's frames through the frontend-only pipeline
+             with `ego_motion_solver` "3d2d" (the main path's, for its host
+             reads), "3d3d", "2d2d" and "2d2d" with the 2-point solver
+             (`ransac_use_2point_mono`): frames/s, host reads
+             per frame (sync debug mode) and the frames whose ego solve is
+             valid; fails unless K1-K3 launched on every steady frame and
+             K4 on none, or a camera ATE is above 0.05 m;
+12. masks  -- the online pipeline (`kitti_online_config`, 22 frames) with
+             `use_propogate_mask` and `use_byte_tracker`, fed host frames
+             whose instance ids are permuted on every frame and whose first
+             object is deleted on frames 7 and 14; fails unless ByteTrack
+             gives each rendered object one id while it is whole in view,
+             propagation restores MASK_RESTORED of the deleted object's
+             rendered pixels at MASK_PRECISION, the frontend and backend
+             camera ATE are under 0.05 and 0.06 m, and K1-K3 launched on
+             every frame after the first;
+13. rectify -- the 12 rendered frames distorted (radtan [-0.15, 0.03, 0,
+             0]) and read back as host frames through a `DatasetProvider`
+             with `distortion` set, so the card rectifies them (the mask
+             by the same index on the host): the rectifier's full-frame K2
+             call (N = H * W, gray and flow planes bilinear, depth
+             nearest) against its plain version (fails above PS_TOL_REL or
+             on a nearest sample that differs), timed beside its plain
+             version, `grid_sample` and its bound; fails unless the
+             rectified interior recovers the render (RECTIFY_*), and the
+             frontend-only pipeline on the rectified frames launches K1-K3
+             on every steady frame with camera ATE <= 0.05 m;
+14. stereo -- the block matcher at 1280x384, D = 64, on a textured pair of
+             disparity 8: ms per call, peak memory; fails unless more than
+             80 % of interior pixels are within 1 px, the median depth is
+             within 10 % of the truth and the result equals the CPU run's
+             (valid pixels, sub-pixel values within STEREO_CPU_TOL);
+15. streaming -- the pipeline path's 22 frames written in the KITTI layout,
+             read back by `KittiDataset` through the native decoder (fails
+             unless `native/libdynoloader.so` loads) as they decode, into
+             `throughput.run_streaming`: frames/s with decode overlapped;
+             fails unless the store equals `run_offline`'s on the decoded
+             frames bit for bit, the backend camera ATE is under 0.06 m and
+             K1-K3 launched on every frame after the first.
+
 The golden phase also runs drift recovery (`tests/test_accuracy_regression.py:166-228`)
 for both updaters: the golden packets with a growing camera drift through
 the full-batch backend, 100 LM iterations allowed; it fails unless each
@@ -152,6 +192,39 @@ DRIFT_ATE_M = 0.11
 # BATCHED_TOL_M for the LM's stopping tolerance
 BATCHED_TOL_M = 1e-4
 BATCHED_FRAMES = 16          # overlap 4 + 2 segments of 6: one dispatch of 2 windows
+# slice 8: the alternate ego modes (path key, label, solver, 2-point prior),
+# after the main path's 3d2d mode run the same way for its host reads
+EGO_MODES = (("ego_3d2d", "ego 3d2d (the main path's mode)", "3d2d", False),
+             ("ego_3d3d", "ego 3d3d", "3d3d", False), ("ego_2d2d", "ego 2d2d", "2d2d", False),
+             ("ego_2point", "ego 2d2d 2-point", "2d2d", True))
+# masks: the first object is deleted from the segmenter's mask on these two
+# non-adjacent frames (JAX propagates from the previous frame's segmenter
+# mask, not the propagated one); propagation must restore this share of its
+# rendered pixels, with this share of the restored label on the object.
+# The forward scatter of rounded targets (JAX's algorithm) leaves holes
+# where the 0.5 px flow noise sends two pixels to one target: 0.68 of the
+# pixels came back in a 640x192 CPU rehearsal
+MASK_DELETED = (7, 14)
+MASK_RESTORED = 0.5
+MASK_PRECISION = 0.95
+# rectify: the lens of `tests/test_distortion.py:77-140`; the interior margin
+# (rows, columns) and what the rectified render must recover there: median
+# |gray difference| (grey levels, after two bilinear resamplings), the share
+# of depth pixels within RECTIFY_DEPTH_REL (nearest neighbour twice on a
+# sloped surface lands a pixel off) and of mask pixels equal, the share of
+# flow vectors within RECTIFY_FLOW_PX
+RECTIFY_COEFFS = (-0.15, 0.03, 0.0, 0.0)
+RECTIFY_MARGIN = (16, 32)
+RECTIFY_GRAY = 1.0
+RECTIFY_SHARE = 0.98
+RECTIFY_DEPTH_REL = 0.01
+RECTIFY_FLOW_PX = 0.1
+RECTIFY_FLOW_SHARE = 0.95
+# stereo: a pair of constant disparity; the acceptance of `tests/test_stereo.py`
+STEREO_DISPARITY = 8
+STEREO_HIT = 0.8             # share of interior pixels within 1 px
+STEREO_DEPTH_REL = 0.10      # median depth against the true depth
+STEREO_CPU_TOL = 1e-4        # px, sub-pixel values against the CPU run (float32 order)
 
 # FLOPs counted per unit of work (adds, subtracts, multiplies, divides,
 # square roots; clamps and index arithmetic not counted).
@@ -172,7 +245,15 @@ PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response"),
                 "golden": ("lk", "point_sample", "response"),
                 "online": ("lk", "point_sample", "response"),
                 "world_pose": ("lk", "point_sample", "response"),
-                "batched": ("lk", "point_sample", "response")}
+                "batched": ("lk", "point_sample", "response"),
+                "ego_3d2d": ("lk", "point_sample", "response"),
+                "ego_3d3d": ("lk", "point_sample", "response"),
+                "ego_2d2d": ("lk", "point_sample", "response"),
+                "ego_2point": ("lk", "point_sample", "response"),
+                "masks": ("lk", "point_sample", "response"),
+                "rectify": ("lk", "point_sample", "response"),
+                "stereo": (),
+                "streaming": ("lk", "point_sample", "response")}
 COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
            "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample"}
 
@@ -973,6 +1054,395 @@ def run_batched_phase(torch, device, card) -> dict:
     return dict(totals=totals)
 
 
+# ------------------------------------------------------ slice 8: new paths
+def run_ego_phase(torch, scene, frames, device, card) -> dict:
+    """The frontend-only pipeline over the main path's frames in each
+    alternate ego-motion mode; per frame the launches, host reads (sync
+    debug mode) and whether the ego solve was valid."""
+    import dataclasses
+
+    from dynosam_tpu_torch import kernels
+    from dynosam_tpu_torch.pipeline import DynoPipeline
+    from dynosam_tpu_torch.testing.scenes import kitti_config
+
+    out = {}
+    for path, label, solver, two_point in EGO_MODES:
+        base = kitti_config()
+        fe = dataclasses.replace(base.frontend, ego_motion_solver=solver, camera_solver=dataclasses.replace(
+            base.frontend.camera_solver, ransac_use_2point_mono=two_point))
+        pipe = DynoPipeline(scene.cam, dataclasses.replace(base, frontend=fe), device=device)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        prev = kernels.launch_counts()
+        per_frame, times, reads, ego_ok = [], [], [], []
+        for f in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with SyncCounter(torch) as sc:
+                pipe.spin_once(f)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            reads.append(sc.count)
+            now = kernels.launch_counts()
+            per_frame.append({k: now[k] - prev[k] for k in now})
+            prev = now
+            ego_ok.append(bool(pipe.frontend_state.rel_prev_valid))
+        packets = pipe.packets
+        est = np.stack([p.X_world.t.double().cpu().numpy() for p in packets])
+        gt = np.stack([x.t.double().cpu().numpy() for x in scene.X_gt[:len(packets)]])
+        res = dict(per_frame=per_frame, totals=kernels.launch_counts(), times=times, ate=ate_rmse(est, gt),
+                   finite=bool(np.isfinite(est).all()), n_motion=[int(p.objects.motion_valid.sum()) for p in packets],
+                   n_static=[int(p.static_obs.valid.sum()) for p in packets])
+        steady = reads[2:]
+        valid = [k for k, ok in enumerate(ego_ok) if ok]
+        print(f"{label}: host reads per frame {reads} (steady mean {sum(steady) / len(steady):.1f}, PyTorch's sync "
+              f"debug mode); frames with a valid ego solve {valid} ({len(valid)} of {len(frames) - 1} after the "
+              f"first) on {card}", flush=True)
+        report_path(res, label, PATH_KERNELS[path], frames, card)
+        out[path] = res
+    return out
+
+
+def _permute_ids(masks, rng):
+    """Each (H, W) int32 host mask with its instance ids mapped to a fresh
+    permutation of 11.. (the segmenter's unstable ids)."""
+    out = []
+    for m in masks:
+        labels = [int(x) for x in np.unique(m) if x > 0]
+        pm = np.zeros_like(m)
+        for lab, new in zip(labels, rng.permutation(len(labels)) + 11):
+            pm[m == lab] = new
+        out.append(pm)
+    return out
+
+
+def run_masks_phase(torch, device, card, n: int = PIPELINE_FRAMES, size=(384, 1280)) -> dict:
+    """The online pipeline with mask propagation and ByteTrack on host frames
+    whose instance ids are permuted on every frame and whose first object is
+    deleted on two non-adjacent frames."""
+    import dataclasses
+    import tempfile
+
+    from dynosam_tpu_torch.eval.evaluator import evaluate_all
+    from dynosam_tpu_torch.frontend import byte_tracker, tracker
+    from dynosam_tpu_torch.pipeline import run_and_log
+    from dynosam_tpu_torch.testing.scenes import RenderedDataset, kitti_online_config, kitti_scene
+
+    label = "masks"
+    scene, frames = kitti_scene(device, n_frames=n, h=size[0], w=size[1])
+    rendered = [f.mask.cpu().numpy() for f in frames]
+    masks = _permute_ids(rendered, np.random.default_rng(5))
+    lost_label = scene.object_labels[0]
+    for k in MASK_DELETED:
+        masks[k][rendered[k] == lost_label] = 0
+    host = [f._replace(
+        gray=f.gray.cpu(), depth=f.depth.cpu(), flow=f.flow.cpu(), mask=torch.as_tensor(m))
+        for f, m in zip(frames, masks)]
+    cfg = kitti_online_config()
+    tr = dataclasses.replace(cfg.frontend.tracker, use_propogate_mask=True, use_byte_tracker=True)
+    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, tracker=tr))
+
+    relabelled, propagated = [], []
+    relabel, propagate = byte_tracker.relabel_mask, tracker.propagate_mask
+
+    def record_relabel(*a, **kw):
+        relabelled.append(relabel(*a, **kw))
+        return relabelled[-1]
+
+    def record_propagate(*a, **kw):
+        propagated.append(propagate(*a, **kw))
+        return propagated[-1]
+
+    byte_tracker.relabel_mask, tracker.propagate_mask = record_relabel, record_propagate
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            with PipelineProbe(torch) as probe:
+                run_and_log(RenderedDataset(scene, host), cfg, out, device=device)
+            evals = evaluate_all(out)
+    finally:
+        byte_tracker.relabel_mask, tracker.propagate_mask = relabel, propagate
+    check_launches(probe, label, PATH_KERNELS["masks"], n)
+    _require(len(relabelled) == n and len(propagated) == n - 1,
+             f"{label}: {len(relabelled)} relabels and {len(propagated)} propagations over {n} frames")
+    # each object's ids over the frames where its rendered box is off the
+    # image border (a box truncated by the border shrinks against the
+    # constant-velocity prediction, and ByteTrack, as the reference's,
+    # re-identifies the sliver)
+    ids = {lab: set() for lab in scene.object_labels}
+    counted = {lab: 0 for lab in scene.object_labels}
+    h, w = rendered[0].shape
+    for k, (ren, rel) in enumerate(zip(rendered, relabelled)):
+        for lab in scene.object_labels:
+            ys, xs = np.nonzero(ren == lab)
+            whole = xs.size and xs.min() > 0 and ys.min() > 0 and xs.max() < w - 1 and ys.max() < h - 1
+            if whole and not (k in MASK_DELETED and lab == lost_label):
+                ids[lab] |= set(int(x) for x in np.unique(rel[ren == lab]))
+                counted[lab] += 1
+    print(f"{label}: ByteTrack ids per rendered object {ids} over the frames where it is whole in view "
+          f"{counted} (of {n}) on {card}", flush=True)
+    _require(counted[lost_label] >= max(MASK_DELETED), f"{label}: object {lost_label} in view on {counted} frames")
+    _require(all(len(v) == 1 for v in ids.values()) and len({min(v) for v in ids.values()}) == len(ids),
+             f"{label}: ByteTrack ids {ids}")
+    lost_id = min(ids[lost_label])
+    for k in MASK_DELETED:
+        prop = propagated[k - 1].cpu().numpy()
+        truth = rendered[k] == lost_label
+        restored = int(((prop == lost_id) & truth).sum())
+        share = restored / max(int(truth.sum()), 1)
+        stray = int(((prop == lost_id) & ~truth).sum())
+        precision = restored / max(restored + stray, 1)
+        print(f"{label}: frame {k}: object {lost_label} deleted from the mask; propagation restored {restored} of "
+              f"its {int(truth.sum())} rendered pixels ({share:.3f}, limit {MASK_RESTORED}), {stray} elsewhere "
+              f"(precision {precision:.4f}, limit {MASK_PRECISION})", flush=True)
+        _require(share >= MASK_RESTORED and precision >= MASK_PRECISION,
+                 f"{label}: frame {k} restored {share:.3f} of the object's pixels at precision {precision:.4f}")
+    print(f"{label}: ms per spin {[round(t * 1e3, 1) for t in probe.times]}; {n / sum(probe.times):.2f} "
+          f"frames/s over the spins (host clock, synchronised) on {card}", flush=True)
+    fe_ate = evals["frontend"]["camera"]["ate_trans_rmse"]
+    be_ate = evals["rgbd_motion_world_backend"]["camera"]["ate_trans_rmse"]
+    print(f"{label}: camera ATE frontend {fe_ate:.5f} m (limit {ATE_LIMIT_M}), backend {be_ate:.5f} m "
+          f"(limit {BACKEND_ATE_LIMIT_M})", flush=True)
+    _require(np.isfinite(fe_ate) and fe_ate < ATE_LIMIT_M, f"{label}: frontend ATE {fe_ate} m")
+    _require(np.isfinite(be_ate) and be_ate < BACKEND_ATE_LIMIT_M, f"{label}: backend ATE {be_ate} m")
+    return dict(totals=probe.totals)
+
+
+def distort_frames(torch, cam, dist, frames):
+    """Frames as a distorted lens would see them: at each distorted pixel v,
+    the rendered frame at u = U(v) (gray and flow bilinear, depth and mask
+    nearest) and the flow D(u + flow(u)) - v."""
+    from dynosam_tpu_torch.core.distortion import distort_points, pixel_grid, undistort_points
+    from dynosam_tpu_torch.ops.klt import sample_channels
+
+    h, w = frames[0].gray.shape
+    grid = pixel_grid(h, w, frames[0].gray.device)
+    src = undistort_points(grid, cam, dist)
+    out = []
+    for f in frames:
+        gray, fx, fy, depth, mask = sample_channels(
+            (f.gray, *f.flow.unbind(-1), f.depth, f.mask), ("bilinear",) * 3 + ("nearest",) * 2, src)
+        flow = distort_points(src + torch.stack([fx, fy], -1), cam, dist) - grid
+        out.append(f._replace(gray=gray.reshape(h, w), depth=depth.reshape(h, w), flow=flow.reshape(h, w, 2),
+                              mask=mask.reshape(h, w)))
+    return out
+
+
+def run_rectify_phase(torch, scene, frames, device, card, k2_row) -> dict:
+    """Distort the rendered frames, rectify them on the card through a
+    DatasetProvider with `distortion` set, hold the rectifier's full-frame
+    K2 call against its plain version, check the rectified frames against
+    the render, and run the frontend-only pipeline on them."""
+    from dynosam_tpu_torch.core.distortion import Distortion, undistort_rectify_map
+    from dynosam_tpu_torch.frontend.frontend import to_device
+    from dynosam_tpu_torch.frontend.rectify import make_rectifier
+    from dynosam_tpu_torch.kernels import point_sample as ps
+    from dynosam_tpu_torch.testing.scenes import RenderedDataset, kitti_config
+
+    label = "rectify"
+    cam = scene.cam
+    h, w = frames[0].gray.shape
+    dist = Distortion(RECTIFY_COEFFS, "radtan")
+    distorted = distort_frames(torch, cam, dist, frames)
+    rectify = make_rectifier(cam, dist, device=device)
+
+    # the rectifier's K2 call at its shape: N = H * W map points, gray and
+    # the two flow planes bilinear, depth nearest, read in place
+    f = distorted[1]
+    flat = undistort_rectify_map(cam, dist, device).reshape(-1, 2).contiguous()
+    chans = (f.gray, *f.flow.unbind(-1), f.depth)
+    modes = ("bilinear",) * 3 + ("nearest",)
+    before = ps.launches
+    got = ps.point_sample(chans, flat, modes)
+    _require(ps.launches == before + 1, f"{label}: the full-frame call did not launch K2 once")
+    want = ps.point_sample_plain(chans, flat, modes)
+    torch.cuda.synchronize()
+    rel = max(float((got[:, c] - want[:, c]).abs().max()) / max(float(want[:, c].abs().max()), 1e-9)
+              for c in range(3))
+    near = float((got[:, 3] - want[:, 3]).abs().max())
+    n = flat.shape[0]
+    ms = cuda_ms(torch, lambda: ps.point_sample(chans, flat, modes), 200)
+    plain_ms = cuda_ms(torch, lambda: ps.point_sample_plain(chans, flat, modes), 20)
+    # library yardstick: grid_sample of the three bilinear channels, stacked
+    # once outside the timing (align_corners, border padding)
+    stacked = torch.stack([f.gray, f.flow[..., 0], f.flow[..., 1]])[None]
+    grid = torch.stack([flat[:, 0] / (w - 1) * 2 - 1, flat[:, 1] / (h - 1) * 2 - 1], -1)[None, None]
+    lib = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+        stacked, grid, mode="bilinear", padding_mode="border", align_corners=True)
+    lib_d = float((lib()[0, :, 0].t() - want[:, :3]).abs().max())
+    library_ms = cuda_ms(torch, lib, 200)
+    taps = distinct_taps(torch, flat[:, 0], flat[:, 1], h, w)
+    # the pixels the map's taps touch in each of the four planes (flow's two
+    # interleaved, 8 B a pixel), the points and the (N, 4) output
+    nbytes = taps * (4 + 8 + 4) + n * 8 + n * 4 * 4
+    b_ms, b_by = bound_ms(nbytes, 3 * n * FLOP_BILINEAR)
+    print(f"{label}: K2 full-frame call, N {n} ({h}x{w}), gray and flow planes bilinear, depth nearest: "
+          f"{ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us, grid_sample of the 3 bilinear channels "
+          f"{library_ms * 1e3:.1f} us, agrees to {lib_d:.3g}; bound {b_ms * 1e3:.2f} us by {b_by}, {taps} pixels "
+          f"read); bilinear max |d| / max |value| {rel:.3g} (tol {PS_TOL_REL}), nearest max |d| {near:.3g} "
+          f"(tol 0) on {card}", flush=True)
+    _require(np.isfinite(rel) and rel <= PS_TOL_REL, f"{label}: K2 full-frame bilinear samples disagree: {rel}")
+    _require(near == 0.0, f"{label}: K2 full-frame nearest samples differ: {near}")
+    k2_row.update(ms_rectify=ms, plain_ms_rectify=plain_ms, library_ms_rectify=library_ms,
+                  bound_ms_rectify=b_ms, bound_by_rectify=b_by)
+    rect_ms = cuda_ms(torch, lambda: rectify(f), 20)
+    print(f"{label}: one frame's rectification (K2 call and flow undistortion): {rect_ms:.3f} ms (CUDA events) "
+          f"on {card}", flush=True)
+
+    # host frames, as a loader decodes them: gray, flow and depth are
+    # rectified on the card, the mask on the host (ByteTrack relabels it
+    # there)
+    ds = RenderedDataset(scene, [to_device(x, "cpu") for x in distorted])
+    ds.distortion, ds.device = dist, device
+    rect = list(ds.frames())
+    _require(all(r.gray.is_cuda and not r.mask.is_cuda for r in rect),
+             f"{label}: a loader's frame was not rectified on the card with its mask on the host")
+    sl = (slice(RECTIFY_MARGIN[0], h - RECTIFY_MARGIN[0]), slice(RECTIFY_MARGIN[1], w - RECTIFY_MARGIN[1]))
+    g_err, d_ok, m_ok, fl_ok = [], [], [], []
+    for r, f0 in zip(rect, frames):
+        g_err.append(float((r.gray[sl] - f0.gray[sl]).abs().median()))
+        d_ok.append(float(((r.depth[sl] - f0.depth[sl]).abs() <= RECTIFY_DEPTH_REL * f0.depth[sl]).float().mean()))
+        m_ok.append(float((r.mask[sl].to(f0.mask.device) == f0.mask[sl]).float().mean()))
+        fl_ok.append(float(((r.flow[sl] - f0.flow[sl]).norm(dim=-1) < RECTIFY_FLOW_PX).float().mean()))
+    print(f"{label}: interior {sl[0].start}..{sl[0].stop} x {sl[1].start}..{sl[1].stop} of {len(rect)} frames: "
+          f"median |gray - render| {max(g_err):.3g} (limit {RECTIFY_GRAY}), depth within {RECTIFY_DEPTH_REL:.0%} "
+          f"on >= {min(d_ok):.4f}, "
+          f"mask equal on >= {min(m_ok):.4f} (limit {RECTIFY_SHARE}), flow within {RECTIFY_FLOW_PX} px on >= "
+          f"{min(fl_ok):.4f} (limit {RECTIFY_FLOW_SHARE})", flush=True)
+    _require(max(g_err) <= RECTIFY_GRAY, f"{label}: gray {g_err}")
+    _require(min(d_ok) >= RECTIFY_SHARE and min(m_ok) >= RECTIFY_SHARE, f"{label}: depth {d_ok}, mask {m_ok}")
+    _require(min(fl_ok) >= RECTIFY_FLOW_SHARE, f"{label}: flow {fl_ok}")
+    ds._rectifier = None
+    res = run_main_path(torch, scene, ds.frames(), kitti_config(), device)
+    report_path(res, label, PATH_KERNELS["rectify"], rect, card)
+    return res
+
+
+def textured_pair(h: int, w: int, d: int, seed: int = 0):
+    """A textured left image and the right image of a rig with disparity d
+    everywhere (`tests/test_stereo.py:11-23` at another size)."""
+    from scipy.ndimage import gaussian_filter
+
+    tex = gaussian_filter(np.random.default_rng(seed).uniform(0, 255, (h, w + 32)), 1.0).astype(np.float32)
+    return tex[:, 16:16 + w].copy(), tex[:, 16 + d:16 + d + w].copy()
+
+
+def run_stereo_phase(torch, device, card, size=(384, 1280)) -> dict:
+    """The block matcher at KITTI width with D = 64 on a pair of known
+    disparity: time, peak memory, accuracy and equality with the CPU run."""
+    from dynosam_tpu_torch import kernels
+    from dynosam_tpu_torch.core.camera import CameraParams, StereoParams
+    from dynosam_tpu_torch.frontend.stereo import block_match, disparity_to_depth
+
+    label = "stereo"
+    h, w = size
+    d, D = STEREO_DISPARITY, 64
+    left, right = textured_pair(h, w, d)
+    lt, rt = torch.as_tensor(left, device=device), torch.as_tensor(right, device=device)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    disp = block_match(lt, rt, max_disparity=D)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    totals = kernels.launch_counts()
+    ms = cuda_ms(torch, lambda: block_match(lt, rt, max_disparity=D), 10, warmup=1)
+    cpu = block_match(torch.as_tensor(left), torch.as_tensor(right), max_disparity=D)
+    got = disp.cpu()
+    same_valid = bool(torch.equal(got > 0, cpu > 0))
+    v = got > 0
+    sub = float((got[v] - cpu[v]).abs().max()) if bool(v.any()) else 0.0
+    inner = got[8:-8, D + 8:-8]
+    hit = float(((inner - d).abs() < 1.0).float().mean())
+    cam = CameraParams.create(718.0, 718.0, w / 2, h / 2, w, h)
+    depth = disparity_to_depth(disp, StereoParams(cam, 0.54))[8:-8, D + 8:-8]
+    true_depth = 718.0 * 0.54 / d
+    med = float(depth[depth > 0].median())
+    print(f"{label}: block_match {h}x{w}, D {D}, true disparity {d}: {ms:.2f} ms per call (CUDA events), peak "
+          f"{peak / 2**20:.1f} MiB above the inputs on {card}", flush=True)
+    print(f"{label}: {hit:.4f} of interior pixels within 1 px of the true disparity (limit {STEREO_HIT}); median "
+          f"depth {med:.4f} m against {true_depth:.4f} m (limit {STEREO_DEPTH_REL:.0%}); against the CPU run: "
+          f"valid pixels equal {same_valid}, max |d| {sub:.3g} px (tol {STEREO_CPU_TOL})", flush=True)
+    _require(hit > STEREO_HIT, f"{label}: {hit} of pixels within 1 px")
+    _require(abs(med - true_depth) / true_depth < STEREO_DEPTH_REL, f"{label}: median depth {med}")
+    _require(same_valid and sub <= STEREO_CPU_TOL, f"{label}: differs from the CPU run ({same_valid}, {sub})")
+    _require(not any(totals.values()), f"{label}: kernels launched {totals}")
+    return dict(totals=totals)
+
+
+def run_streaming_phase(torch, device, card, n: int = PIPELINE_FRAMES, size=(384, 1280)) -> dict:
+    """The pipeline path's frames written in the KITTI layout, read back by
+    `KittiDataset` (native decode) as they decode into the streaming runner,
+    against `run_offline` on the same decoded frames."""
+    import tempfile
+
+    from dynosam_tpu_torch import kernels, throughput
+    from dynosam_tpu_torch.data import native_loader
+    from dynosam_tpu_torch.data.kitti import KittiDataset
+    from dynosam_tpu_torch.testing.render import write_reference_layout
+    from dynosam_tpu_torch.testing.scenes import kitti_pipeline_config, kitti_scene
+
+    label = "streaming"
+    _require(native_loader.available(), f"{label}: the native loader (native/libdynoloader.so) did not load")
+    scene, frames = kitti_scene(device, n_frames=n, h=size[0], w=size[1])
+    cfg = kitti_pipeline_config(n)
+    per_frame = []
+    step = throughput.frontend_step
+
+    def counted_step(*a, **kw):
+        before = kernels.launch_counts()
+        out = step(*a, **kw)
+        now = kernels.launch_counts()
+        per_frame.append({k: now[k] - before[k] for k in now})
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_reference_layout(scene, root, frames=frames)
+        write_s = time.perf_counter() - t0
+        ds = KittiDataset(root)
+        cam = ds.camera_params()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        throughput.frontend_step = counted_step
+        try:
+            t0 = time.perf_counter()
+            streamed = throughput.run_streaming(ds.prefetched_frames(), cam, cfg, n, device=device)
+            stream_s = time.perf_counter() - t0
+        finally:
+            throughput.frontend_step = step
+        totals = kernels.launch_counts()
+        decoded = list(KittiDataset(root).frames())
+    off = throughput.run_offline(decoded, cam, cfg, device=device)
+    print(f"{label}: {n} frames {size[1]}x{size[0]} written in the KITTI layout in {write_s:.1f} s, then decoded "
+          f"(native, prefetch thread) into the streaming runner: {n / stream_s:.2f} frames/s with decode overlapped "
+          f"(host clock, to the final synchronisation) on {card}", flush=True)
+    _require(len(per_frame) == n, f"{label}: {len(per_frame)} frontend steps")
+    for k in range(1, n):
+        missing = [name for name in PATH_KERNELS["streaming"] if per_frame[k][name] < 1]
+        _require(not missing, f"{label}, frame {k}: kernels {missing} never launched")
+    stray = [name for name, c in totals.items() if name not in PATH_KERNELS["streaming"] and c > 0]
+    _require(not stray, f"{label}: kernels {stray} launched off their path")
+    a, b = streamed.est, off.est
+    equal = all(bool(torch.equal(getattr(a, f), getattr(b, f))) if not isinstance(getattr(a, f), tuple)
+                else all(bool(torch.equal(x, y)) for x, y in zip(getattr(a, f), getattr(b, f)))
+                for f in type(a)._fields)
+    masks_equal = all(bool(torch.equal(getattr(a, f), getattr(b, f)))
+                      for f in ("X_valid", "motion_valid", "static_valid", "dyn_valid"))
+    diff = float((a.X.t[:n] - b.X.t[:n]).abs().max())
+    print(f"{label}: estimate store against run_offline on the decoded frames (same seed): equal {equal}, masks "
+          f"equal {masks_equal}, max |camera translation difference| {diff:.3g} m; window errors "
+          f"{[round(float(w.result.error), 6) for w in streamed.windows]} against "
+          f"{[round(float(w.result.error), 6) for w in off.windows]}", flush=True)
+    _require(equal, f"{label}: the store differs from run_offline's (masks equal {masks_equal}, {diff} m)")
+    X = a.X.t[:n].double().cpu().numpy()
+    gt = np.stack([x.t.double().cpu().numpy() for x in scene.X_gt[:n]])
+    ate = ate_rmse(X, gt)
+    print(f"{label}: backend camera ATE {ate:.5f} m (limit {BACKEND_ATE_LIMIT_M})", flush=True)
+    _require(bool(a.X_valid[:n].all()) and np.isfinite(ate) and ate < BACKEND_ATE_LIMIT_M, f"{label}: ATE {ate} m")
+    return dict(totals=totals)
+
+
 def main() -> int:
     try:
         import torch
@@ -1038,13 +1508,19 @@ def _run(torch) -> int:
     paths["online"] = run_online_phase(torch, device, card)
     paths["world_pose"] = run_online_phase(torch, device, card, world_pose=True)
     paths["batched"] = run_batched_phase(torch, device, card)
+    paths.update(run_ego_phase(torch, scene, frames, device, card))
+    paths["masks"] = run_masks_phase(torch, device, card)
+    paths["rectify"] = run_rectify_phase(torch, scene, scene.frames(), device, card, rows[1])
+    paths["stereo"] = run_stereo_phase(torch, device, card)
+    paths["streaming"] = run_streaming_phase(torch, device, card)
 
     for r in rows:
         by_path = {p: paths[p]["totals"][COUNTER[r["name"]]] for p in paths}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "ms_flow", "ms_depth_mask")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "ms_flow", "ms_depth_mask",
+            "ms_rectify", "plain_ms_rectify", "library_ms_rectify", "bound_ms_rectify", "bound_by_rectify")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

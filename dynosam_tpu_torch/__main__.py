@@ -59,7 +59,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     ds = create_dataset(args.data_provider_type, args.dataset_path,
-                        starting_frame=args.starting_frame, ending_frame=args.ending_frame)
+                        starting_frame=args.starting_frame, ending_frame=args.ending_frame, device=device)
     if args.output_path:
         result = run_and_log(ds, cfg, args.output_path, use_klt=not args.use_flow_tracking, device=device)
         from dynosam_tpu_torch.eval.evaluator import evaluate_all

@@ -27,6 +27,13 @@ class CameraParams(NamedTuple):
         )
 
 
+class StereoParams(NamedTuple):
+    """Rectified stereo rig: left pinhole + baseline (metres)."""
+
+    left: CameraParams
+    baseline: float
+
+
 def project_local(params: CameraParams, p_cam: torch.Tensor, eps: float = 1e-9):
     """Camera-frame points (..., 3) -> (uv (..., 2), depth (...,)).  Points
     behind the camera give a negative depth; callers mask on it."""
@@ -120,3 +127,28 @@ def camera_params_from_yaml(path: str) -> CameraParams:
         get("Camera.fx", "fx"), get("Camera.fy", "fy"), get("Camera.cx", "cx"), get("Camera.cy", "cy"),
         int(get("Camera.width", "width", default=0)), int(get("Camera.height", "height", default=0)),
     )
+
+
+def distortion_from_yaml(path: str):
+    """Optional lens distortion from the same CameraParams.yaml surface
+    (`Camera.distortion_coefficients` + `Camera.distortion_model`, the
+    reference's `CameraParams::fromYamlFile` distortion block): a
+    `core.distortion.Distortion`, or None when the rig is rectified (absent
+    or all-zero coefficients).  Coefficients are rounded to float32, as the
+    JAX package stores them."""
+    import numpy as np
+    import yaml
+
+    from .distortion import Distortion
+
+    with open(path) as f:
+        y = yaml.safe_load(f) or {}
+    coeffs = y.get("Camera.distortion_coefficients", y.get("distortion_coefficients"))
+    if coeffs is None or not any(float(c) != 0.0 for c in coeffs):
+        return None
+    model = str(y.get("Camera.distortion_model", y.get("distortion_model", "radtan")))
+    if model in ("plumb_bob", "radial-tangential", "radial_tangential"):
+        model = "radtan"
+    c = np.zeros(4, np.float32)
+    c[: min(4, len(coeffs))] = [float(x) for x in coeffs[:4]]
+    return Distortion(coeffs=tuple(float(x) for x in c), model=model)

@@ -1,6 +1,6 @@
 """KITTI-tracking dataset loader, reference loader type 0 (port of
-`dynosam_tpu/data/kitti.py`; PNGs decode through `cv2`, imported where a
-PNG is read, and the native loader is ROADMAP.md item 15).
+`dynosam_tpu/data/kitti.py`; PNGs decode through the native loader,
+`data/native_loader.py`, when its library is present, else through `cv2`).
 
 Layout and semantics match `KittiDataLoader`
 (`dataprovider/KittiDataProvider.hpp:352+`):
@@ -55,8 +55,9 @@ class KittiDataset(DatasetProvider):
         baseline: float = KITTI_BASELINE,
         depth_scale: float = KITTI_DEPTH_SCALE,
         prefer_motion_mask: bool = True,
+        device=None,
     ):
-        super().__init__(path, starting_frame, ending_frame)
+        super().__init__(path, starting_frame, ending_frame, device=device)
         self.baseline = baseline
         # sequences 0018-0020 use the second rig's baseline
         # (`KittiDataProvider.hpp:538-558`)
@@ -181,8 +182,18 @@ class KittiDataset(DatasetProvider):
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _imread(path: str) -> np.ndarray:
-        """PNG decode through cv2 (BGR channel order, 16-bit kept)."""
+    def _imread(path: str, decode=None) -> np.ndarray:
+        """PNG decode through the native loader when built, or through
+        `decode` (a path -> array callable with the native loader's output,
+        such as `native_loader.PrefetchDecoder.get`) when given (RGB channel
+        order, flipped to cv2's BGR), else cv2 (16-bit kept either way)."""
+        from . import native_loader
+
+        if decode is not None or native_loader.available():
+            img = (decode or native_loader.decode_png)(path)
+            if img.ndim == 3 and img.shape[2] >= 3:
+                img = img[..., :3][..., ::-1]  # RGB -> BGR (cv2 convention)
+            return img
         import cv2
 
         img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
@@ -190,13 +201,15 @@ class KittiDataset(DatasetProvider):
             raise FileNotFoundError(path)
         return img
 
-    def frame(self, idx: int) -> FrameImages:
+    def frame(self, idx: int, decode=None) -> FrameImages:
+        """Frame `idx`; its PNGs decoded by `decode` when given (see
+        `_imread`)."""
         name = f"{idx:06d}"
-        rgb = self._imread(os.path.join(self.rgb_dir, name + ".png"))
+        rgb = self._imread(os.path.join(self.rgb_dir, name + ".png"), decode)
         gray = to_gray(rgb)
 
         disp = self._imread(
-            os.path.join(self.depth_dir, name + ".png")
+            os.path.join(self.depth_dir, name + ".png"), decode
         ).astype(np.float64)
         d = disp / self.depth_scale
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -210,7 +223,7 @@ class KittiDataset(DatasetProvider):
 
         mask_path = os.path.join(self.mask_dir, name + ".png")
         if os.path.exists(mask_path):
-            mask = self._imread(mask_path).astype(np.int32)
+            mask = self._imread(mask_path, decode).astype(np.int32)
             if mask.ndim == 3:
                 mask = mask[..., 0].astype(np.int32)
         else:

@@ -1,7 +1,8 @@
 """RGB-D instance frontend: the per-frame vision step (port of
-`dynosam_tpu/frontend/frontend.py`, 3d2d ego mode).
+`dynosam_tpu/frontend/frontend.py`).
 
-  track -> depth association -> ego-motion PnP-RANSAC -> scene-flow
+  track -> depth association -> ego motion (3d2d PnP, 3d3d Arun or 2d2d
+  epipolar RANSAC) -> scene-flow
   dynamicity -> per-object motion RANSAC -> fused joint flow+pose
   refinement (ego + objects in one batch) -> motion-only refinement ->
   object pose propagation -> output packet
@@ -28,12 +29,13 @@ from ..core.lie import (
     se3_where,
 )
 from ..core.types import INVALID_ID, DynamicObs, FrontendOutput, ObjectObs, StaticObs
+from ..ops.epipolar import normalize_points, ransac_essential, ransac_translation_given_rot, scale_from_depth
 from ..ops.klt import bilinear_sample, sample_channels
-from ..ops.ransac import STATUS_VALID, RansacResult, ransac_pose_3d2d
+from ..ops.ransac import STATUS_INVALID, STATUS_VALID, RansacResult, ransac_pose_3d2d, ransac_rigid
 from ..utils.config import FrontendConfig
 from ..utils.device import resolve_device
 from . import refine
-from .tracker import TrackerState, check_tracker_config, track_frame
+from .tracker import TrackerState, track_frame
 
 # per-object correspondence capacity for the motion solvers
 DPO = 512
@@ -94,15 +96,19 @@ def to_device(tree, device):
     return tree
 
 
+EGO_MODES = ("3d2d", "3d3d", "2d2d")
+
+
+def ego_mode(cfg: FrontendConfig) -> str:
+    """The ego-motion solver a config selects: `use_ego_motion_pnp=False`
+    is the legacy alias for "3d3d"."""
+    return cfg.ego_motion_solver if cfg.use_ego_motion_pnp else "3d3d"
+
+
 def check_frontend_config(cfg: FrontendConfig) -> None:
-    """Raise for frontend options this slice does not port."""
-    check_tracker_config(cfg.tracker)
-    ego_mode = cfg.ego_motion_solver if cfg.use_ego_motion_pnp else "3d3d"
-    if ego_mode != "3d2d":
-        raise NotImplementedError(
-            f"ego_motion_solver={ego_mode!r} is ported by ROADMAP.md item 14 "
-            "(alternate frontend modes)"
-        )
+    """Raise for an unknown ego-motion solver before any work runs."""
+    if ego_mode(cfg) not in EGO_MODES:
+        raise ValueError(f"unknown ego_motion_solver {cfg.ego_motion_solver!r}; one of {EGO_MODES}")
 
 
 def _first_k_selected(sel: torch.Tensor, k: int) -> torch.Tensor:
@@ -111,6 +117,48 @@ def _first_k_selected(sel: torch.Tensor, k: int) -> torch.Tensor:
     gives the JAX package's `gather_obj` scores (its `- arange * 1e-9`
     tie-break is a non-increasing staircase in f32)."""
     return torch.sort((~sel).to(torch.int8), dim=1, stable=True).indices[:, :k]
+
+
+def _ego_2d2d(state: FrontendState, prev_images: FrameImages, prev_uv_s: torch.Tensor, trk: TrackerState,
+              cam: CameraParams, cfg: FrontendConfig, generator: Optional[torch.Generator]) -> RansacResult:
+    """2d-2d epipolar ego motion (`geometricOutlierRejection2d2d`) on the
+    static tracks seen at k-1 and k.  With `ransac_use_2point_mono` the
+    2-point solver with the constant-velocity rotation prior
+    R(T_{k,k-1}) = rel_prev.R^T runs where the previous relative motion is
+    valid, and the 8-point solver elsewhere (both are solved and one is
+    selected on the device).  Metric scale comes from the previous frame's
+    depth; X_k = X_{k-1} T_{k,k-1}^-1."""
+    cs = cfg.camera_solver
+    corr2d = trk.s_active & (trk.s_age > 0)
+    kw = dict(iters=cs.ransac_iterations_2d2d, threshold=cs.ransac_threshold_mono, generator=generator)
+    ep5 = ransac_essential(prev_uv_s, trk.s_uv, corr2d, cam, **kw)
+    if cs.ransac_use_2point_mono:
+        R_prior = state.rel_prev.R.transpose(-1, -2)
+        ep2 = ransac_translation_given_rot(prev_uv_s, trk.s_uv, corr2d, cam, R_prior, **kw)
+        use2 = state.rel_prev_valid
+        ep_rel = se3_where(use2, ep2.rel_pose, ep5.rel_pose)
+        ep_inl = torch.where(use2, ep2.inliers, ep5.inliers)
+        ep_n = torch.where(use2, ep2.n_inliers, ep5.n_inliers)
+    else:
+        ep_rel, ep_inl, ep_n = ep5.rel_pose, ep5.inliers, ep5.n_inliers
+    prev_d2, prev_d2ok = _depth_at(prev_images.depth, prev_uv_s, cfg.max_background_depth, corr2d)
+    scale, _ = scale_from_depth(
+        ep_rel, normalize_points(cam, prev_uv_s), normalize_points(cam, trk.s_uv),
+        torch.where(prev_d2ok, prev_d2, torch.zeros_like(prev_d2)), ep_inl,
+    )
+    # x_k ~ R x_{k-1} + t  =>  T_{k,k-1}; X_k = X_{k-1} T_{k,k-1}^-1
+    T_rel = SE3(ep_rel.R, ep_rel.t * scale)
+    return RansacResult(
+        pose=se3_compose(state.X_world, se3_inverse(T_rel)),
+        inliers=ep_inl,
+        n_inliers=ep_n.to(torch.int32),
+        status=torch.where(ep_n >= cs.min_inliers, STATUS_VALID, STATUS_INVALID).to(torch.int32),
+    )
+
+
+def _depth_at(depth: torch.Tensor, uv: torch.Tensor, max_depth: float, valid=None):
+    d = bilinear_sample(depth, uv, valid)
+    return d, (d > 0.0) & (d < max_depth)
 
 
 def frontend_step(
@@ -141,7 +189,7 @@ def frontend_step(
     trk, report = track_frame(
         state.tracker, prev_images.gray, images.gray, prev_images.flow,
         images.mask, tcfg, use_klt=use_klt, first_frame=first_frame,
-        generator=generator,
+        generator=generator, mask_prev=prev_images.mask,
     )
 
     # ---------------- depth association: ONE merged K2 sample for both pools
@@ -160,7 +208,7 @@ def frontend_step(
     s_obs_ok = trk.s_active & s_dok
     d_obs_ok = trk.d_active & d_dok
 
-    # ---------------- ego motion (3d2d PnP RANSAC)
+    # ---------------- ego motion
     ego_corr = s_obs_ok & (trk.s_age > 0) & state.s_lmk_valid
     ns_pool = ego_corr.shape[0]
     no = trk.obj_labels.shape[0]
@@ -176,15 +224,27 @@ def frontend_step(
         ego_valid = torch.cat([ego_corr, demoted], dim=0)
     else:
         ego_lmk, ego_uv, ego_xyz, ego_valid = state.s_lmk, trk.s_uv, s_xyz, ego_corr
-    eb = ransac_pose_3d2d(
-        ego_lmk[None], ego_uv[None], ego_xyz[None], ego_valid[None], cam,
-        iters=cfg.camera_solver.ransac_iterations,
-        threshold_px=cfg.camera_solver.ransac_threshold_px,
-        min_inliers=cfg.camera_solver.min_inliers,
-        score_cap=cfg.camera_solver.ransac_score_cap or None,
-        generator=generator,
-    )
-    ego = RansacResult(eb.pose[0], eb.inliers[0], eb.n_inliers[0], eb.status[0])
+    cs = cfg.camera_solver
+    mode = ego_mode(cfg)
+    if mode == "3d2d":
+        # 3d-2d PnP (the RGB-D default, `geometricOutlierRejection3d2d`)
+        eb = ransac_pose_3d2d(
+            ego_lmk[None], ego_uv[None], ego_xyz[None], ego_valid[None], cam,
+            iters=cs.ransac_iterations, threshold_px=cs.ransac_threshold_px,
+            min_inliers=cs.min_inliers, score_cap=cs.ransac_score_cap or None,
+            generator=generator,
+        )
+        ego = RansacResult(eb.pose[0], eb.inliers[0], eb.n_inliers[0], eb.status[0])
+    elif mode == "3d3d":
+        # 3d-3d Arun (`geometricOutlierRejection3d3d`): p_world = X(y_cam)
+        eb = ransac_rigid(
+            ego_xyz[None], ego_lmk[None], ego_valid[None],
+            iters=cs.ransac_iterations, threshold=cs.ransac_threshold_stereo_m,
+            min_inliers=5, score_cap=cs.ransac_score_cap or None, generator=generator,
+        )
+        ego = RansacResult(eb.pose[0], eb.inliers[0], eb.n_inliers[0], eb.status[0])
+    else:
+        ego = _ego_2d2d(state, prev_images, prev_uv_s, trk, cam, cfg, generator)
     ego_ok = ego.status == STATUS_VALID
     accept_ego = ego_ok & (not first_frame)
     X_k = se3_where(accept_ego, ego.pose, state.X_world)

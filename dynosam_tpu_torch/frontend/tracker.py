@@ -12,6 +12,8 @@
 * Dynamic tracks: flow propagation with label consistency and dense grid
   sampling of uncovered object pixels.
 * Object table: instance labels -> object slots (allocate-only).
+* Optional mask propagation (`use_propogate_mask`): labels the segmenter
+  lost this frame are carried forward from the previous frame's mask.
 
 Every point lookup goes through kernel K2.  Tracklet ids are slot indices;
 a freed slot stays blocked for `slot_cooldown_frames` before reuse.
@@ -39,7 +41,7 @@ from .detect import (
     occupancy_mask,
     shi_tomasi_response,
 )
-from .mask_ops import label_counts
+from .mask_ops import label_counts, propagate_mask
 from .orb import extract_orb, match_descriptors, response_order
 
 
@@ -116,18 +118,6 @@ class TrackOutputs(NamedTuple):
     per_object: Optional[PerObjectStatus] = None
 
 
-def check_tracker_config(cfg: TrackerConfig) -> None:
-    """Raise for tracker options the port does not have yet."""
-    if cfg.use_propogate_mask:
-        raise NotImplementedError(
-            "use_propogate_mask is ported by ROADMAP.md item 14 (frontend/mask_ops.py)"
-        )
-    if cfg.use_byte_tracker:
-        raise NotImplementedError(
-            "use_byte_tracker (ByteTrack relabel) is ported by ROADMAP.md item 14"
-        )
-
-
 def _set_rows(x: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor, new: torch.Tensor):
     """x.at[idx].set(where(ok, new, x[idx])) for distinct idx."""
     out = x.clone()
@@ -156,12 +146,16 @@ def track_frame(
     first_frame: bool = False,
     generator: Optional[torch.Generator] = None,
     hom_idx: Optional[torch.Tensor] = None,
+    mask_prev: Optional[torch.Tensor] = None,
 ):
     """One tracking step: (state at k-1, images) -> (state at k, report).
 
     `generator` draws the homography-RANSAC hypotheses; `hom_idx` (128, 4)
-    injects them instead."""
-    check_tracker_config(cfg)
+    injects them instead.  With `use_propogate_mask`, labels of `mask_prev`
+    (the segmenter's mask of k-1) that the segmenter lost at k are carried
+    forward through the flow (`mask_ops.propagate_mask`)."""
+    if cfg.use_propogate_mask and not first_frame and mask_prev is not None:
+        mask_cur = propagate_mask(mask_prev, flow_prev, mask_cur)
     h, w = cur_gray.shape
     dev, dtype = cur_gray.device, cur_gray.dtype
     i32 = torch.int32

@@ -66,8 +66,24 @@ class DynoPipeline:
         self.packets: list = []
         self._prev_images: Optional[FrameImages] = None
         self._k = 0
+        self._byte_tracker = None
+        if cfg.frontend.tracker.use_byte_tracker:
+            from .frontend.byte_tracker import ByteTracker
+
+            self._byte_tracker = ByteTracker()
 
     def spin_once(self, images: FrameImages) -> FrontendOutput:
+        if self._byte_tracker is not None:
+            # temporally consistent instance ids (reference --use_byte_tracker),
+            # relabelled on the host before the frame goes to the device; a
+            # loader's mask is on the host, rectified or not
+            # (frontend/rectify.py), and a mask already on a card is read
+            # back for it
+            from .frontend.byte_tracker import relabel_mask
+
+            relabelled = relabel_mask(self._byte_tracker, images.mask.cpu().numpy(),
+                                      score_pixel_norm=self.cfg.frontend.tracker.byte_score_pixel_norm)
+            images = images._replace(mask=torch.as_tensor(relabelled))
         images = to_device(images, self.device)
         first = self._k == 0
         prev = self._prev_images if self._prev_images is not None else images

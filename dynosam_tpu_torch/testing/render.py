@@ -306,6 +306,25 @@ def _write_flo(path: str, flow: np.ndarray) -> None:
         flow.astype(np.float32).reshape(-1).tofile(f)
 
 
+def _write_png(path: str, img: np.ndarray) -> None:
+    """A greyscale PNG (8-bit for uint8, 16-bit for uint16; unfiltered rows)
+    written with the standard library's zlib."""
+    import struct
+    import zlib
+
+    h, w = img.shape
+    depth = 16 if img.dtype == np.uint16 else 8
+    rows = np.ascontiguousarray(img.astype(">u2" if depth == 16 else np.uint8)).view(np.uint8).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
 def pose_matrix(X: SE3) -> np.ndarray:
     """A pose as a float64 (4, 4) numpy matrix."""
     T = np.eye(4)
@@ -315,7 +334,7 @@ def pose_matrix(X: SE3) -> np.ndarray:
 
 
 def write_reference_layout(scene: "RenderedScene", out_dir: str, baseline: float = 387.5744,
-                           depth_scale: float = 256.0) -> str:
+                           depth_scale: float = 256.0, frames=None) -> str:
     """Write a `RenderedScene` to disk in the KITTI-tracking layout that
     `data/kitti.py` reads (`dataprovider/KittiDataProvider.hpp:352+`):
 
@@ -329,22 +348,22 @@ def write_reference_layout(scene: "RenderedScene", out_dir: str, baseline: float
 
     The object_pose yaw encoding (L_cam = (R_y(ry + pi/2), t)) is exact
     only for yaw-only object and camera rotations: build the scene with
-    `RenderConfig(yaw_only_objects=True)`.  PNGs are written by `cv2`."""
-    import cv2
-
+    `RenderConfig(yaw_only_objects=True)`.  `frames` (the scene's own by
+    default) are the images written, e.g. with noise added.  PNGs are
+    written with the standard library (`_write_png`), so no image package
+    is needed."""
     cfg = scene.cfg
     for sub in ("image_0", "depth", "flow", "motion"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
-    for k, f in enumerate(scene.frames()):
+    for k, f in enumerate(scene.frames() if frames is None else frames):
         name = f"{k:06d}"
         gray = np.clip(f.gray.cpu().numpy(), 0, 255).astype(np.uint8)
-        cv2.imwrite(os.path.join(out_dir, "image_0", name + ".png"), gray)
+        _write_png(os.path.join(out_dir, "image_0", name + ".png"), gray)
         depth = f.depth.cpu().numpy().astype(np.float64)
         disp = np.where(depth > 0, baseline * depth_scale / np.maximum(depth, 1e-6), 0.0)
-        cv2.imwrite(os.path.join(out_dir, "depth", name + ".png"),
-                    np.clip(np.round(disp), 0, 65535).astype(np.uint16))
+        _write_png(os.path.join(out_dir, "depth", name + ".png"), np.clip(np.round(disp), 0, 65535).astype(np.uint16))
         _write_flo(os.path.join(out_dir, "flow", name + ".flo"), f.flow.cpu().numpy().astype(np.float32))
-        cv2.imwrite(os.path.join(out_dir, "motion", name + ".png"), f.mask.cpu().numpy().astype(np.uint16))
+        _write_png(os.path.join(out_dir, "motion", name + ".png"), f.mask.cpu().numpy().astype(np.uint16))
 
     cam = scene.cam
     with open(os.path.join(out_dir, "calib.txt"), "w") as f:

@@ -16,6 +16,10 @@ The fixed-lag prior is not applied here, as in the JAX package's runner.
 
 The frontend's RANSAC hypotheses come from a `torch.Generator` seeded by
 `seed` (the JAX package draws them from `online_keys`).
+
+`run_streaming` runs it on frames that stream in from the host (decoded as
+they arrive); `make_streaming_runner` cuts it into the JAX package's
+warm-up and per-segment calls.
 """
 
 from __future__ import annotations
@@ -179,6 +183,8 @@ class OfflineRunner:
     def run(self, frames) -> OfflineResult:
         for frame in frames:
             self.step(frame)
+        if len(self.packets) != self.plan.n_frames:
+            raise ValueError(f"{len(self.packets)} of the {self.plan.n_frames} planned frames arrived")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.result()
@@ -199,3 +205,50 @@ def run_offline(frames, cam: CameraParams, cfg: DynoConfig, use_klt: bool = True
     solves); the JAX package's last LM result is `windows[-1].result`."""
     frames = list(frames)
     return make_offline_runner(cam, cfg, len(frames), use_klt=use_klt, device=device, seed=seed).run(frames)
+
+
+def make_streaming_runner(cam: CameraParams, cfg: DynoConfig, n_frames: int, use_klt: bool = True,
+                          device=None, seed: int = 0):
+    """Per-segment driver for host-streamed frames (native PNG decode and
+    prefetch feeding the device while it computes), with the shape of the
+    JAX package's `make_streaming_runner`, over one `OfflineRunner` that
+    holds the state.  Returns ``(warmup, segment, plan)``:
+
+      * ``warmup(frames) -> runner``: frames 0..V-1 (V = plan.overlap);
+      * ``segment(frames, s) -> chk``: `frames` are the stride + 1 frames
+        [seg_first - 1 .. seg_first + stride - 1] with seg_first = V + s *
+        stride, the first being the previous frame, which the runner already
+        holds; steps the rest.  `chk` is the final error of window s, or
+        None while its group of `opt_windows_per_dispatch` waits.
+
+    The JAX package needs this second entry because its offline runner is
+    one fused scan; here it only cuts `OfflineRunner.step` into segments,
+    so the store is `run_offline`'s on the same frames and seed."""
+    runner = make_offline_runner(cam, cfg, n_frames, use_klt=use_klt, device=device, seed=seed)
+    plan = runner.plan
+
+    def warmup(frames) -> OfflineRunner:
+        frames = list(frames)
+        if len(frames) != plan.overlap or runner.packets:
+            raise ValueError(f"warmup takes the first {plan.overlap} frames, got {len(frames)}")
+        for frame in frames:
+            runner.step(frame)
+        return runner
+
+    def segment(frames, s: int):
+        frames = list(frames)
+        if len(frames) != plan.stride + 1 or len(runner.packets) != plan.overlap + s * plan.stride:
+            raise ValueError(f"segment {s} takes frames {plan.overlap + s * plan.stride - 1}.."
+                             f"{plan.overlap + (s + 1) * plan.stride - 1}")
+        solved = [w for frame in frames[1:] for w in runner.step(frame)]
+        return solved[-1].result.error if solved else None
+
+    return warmup, segment, plan
+
+
+def run_streaming(frames, cam: CameraParams, cfg: DynoConfig, n_frames: int, use_klt: bool = True,
+                  seed: int = 0, device=None) -> OfflineResult:
+    """`run_offline` over an iterable of `n_frames` frames that arrive one
+    at a time (a loader's `prefetched_frames()`, or frames decoded by
+    `data.native_loader.PrefetchDecoder`), each stepped as it arrives."""
+    return make_offline_runner(cam, cfg, n_frames, use_klt=use_klt, device=device, seed=seed).run(frames)

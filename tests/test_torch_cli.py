@@ -134,9 +134,3 @@ def test_cli_raises_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmain(["--dataset_path", str(tmp_path / "missing"), "--output_path", str(tmp_path / "out")])
-
-
-@pytest.mark.parametrize("provider", [1, 2, 3, 4])
-def test_other_loaders_raise(provider, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item 15"):
-        create_dataset(provider, str(tmp_path))

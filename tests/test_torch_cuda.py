@@ -431,3 +431,98 @@ def test_drift_recovery_on_the_card(cuda, updater):
     rec = ate(X.R, X.t, xv.cpu().numpy())
     assert rec < corrupted_ate / 1.8, (rec, corrupted_ate)
     assert rec < 0.11, rec
+
+
+def test_rectifier_on_the_card_matches_the_cpu(cuda, frames):
+    """The rectifier on the card (one K2 launch per frame over the H * W
+    map) against the same rectifier on the CPU (K2's plain version): gray
+    and flow within 1e-3, depth and mask equal; a host mask is rectified on
+    the host, to the same labels."""
+    from dynosam_tpu_torch.core.distortion import Distortion
+    from dynosam_tpu_torch.frontend.frontend import to_device
+    from dynosam_tpu_torch.frontend.rectify import make_rectifier
+    from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
+
+    cam = RenderedScene(RenderConfig(n_frames=1, h=192, w=256, n_objects=2), device=cuda).cam
+    dist = Distortion((-0.15, 0.03, 0.0, 0.0))
+    kernels.reset_launch_counts()
+    rectify = make_rectifier(cam, dist, device=cuda)
+    got = rectify(frames[1])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["point_sample"] == 1
+    want = make_rectifier(cam, dist, device="cpu")(to_device(frames[1], "cpu"))
+    assert float((got.gray.cpu() - want.gray).abs().max()) < 1e-3
+    assert float((got.flow.cpu() - want.flow).abs().max()) < 1e-3
+    assert torch.equal(got.depth.cpu(), want.depth) and torch.equal(got.mask.cpu(), want.mask)
+    host = rectify(frames[1]._replace(mask=frames[1].mask.cpu()))
+    assert host.gray.is_cuda and not host.mask.is_cuda and torch.equal(host.mask, want.mask)
+
+
+def test_block_match_and_mask_ops_on_the_card_match_the_cpu(cuda, frames):
+    """The block matcher and mask propagation on the card against the CPU:
+    the same valid pixels and disparities within 1e-4 px; labels equal."""
+    from scipy.ndimage import gaussian_filter
+
+    from dynosam_tpu_torch.frontend.mask_ops import object_bboxes, propagate_mask
+    from dynosam_tpu_torch.frontend.stereo import block_match
+
+    tex = gaussian_filter(np.random.default_rng(0).uniform(0, 255, (96, 160)), 1.0).astype(np.float32)
+    left, right = torch.as_tensor(tex[:, 16:144].copy()), torch.as_tensor(tex[:, 24:152].copy())
+    got = block_match(left.to(cuda), right.to(cuda), max_disparity=32).cpu()
+    want = block_match(left, right, max_disparity=32)
+    assert torch.equal(got > 0, want > 0)
+    assert float((got - want).abs().max()) < 1e-4
+    prev, cur = frames[0].mask, frames[1].mask.clone()
+    cur[cur == int(cur.max())] = 0
+    p = propagate_mask(prev, frames[0].flow, cur)
+    assert torch.equal(p.cpu(), propagate_mask(prev.cpu(), frames[0].flow.cpu(), cur.cpu()))
+    for a, b in zip(object_bboxes(p, 16), object_bboxes(p.cpu(), 16)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("solver", ["essential", "two_point"])
+def test_epipolar_ransac_on_the_card_matches_the_cpu(cuda, solver, dtype):
+    """The 2d2d RANSACs on the same hypothesis indices on the card and on
+    the CPU.  In float64 the same inliers and poses within 1e-8.  In
+    float32 (the precision of the frontend) an 8-point null vector from
+    cuSOLVER and from LAPACK may differ by far more (measured on the card:
+    5.1e-3 in the unit translation with all 120 inliers on both sides), so
+    both are held to the band of `tests/test_epipolar.py` (rotation within
+    0.01 rad, unit translation within 0.97 of the truth) and to each other
+    at 0.02, inlier sets within three points."""
+    from dynosam_tpu_torch.core.camera import CameraParams, backproject, project_local
+    from dynosam_tpu_torch.core.lie import se3_apply, se3_exp, so3_log
+    from dynosam_tpu_torch.ops import epipolar
+
+    cam = CameraParams.create(320.0, 320.0, 320.0, 240.0, 640, 480)
+    rng = np.random.default_rng(0)
+    rel = se3_exp(torch.tensor([0.02, -0.03, 0.01, 0.3, 0.05, 0.1], dtype=torch.float64))
+    uv1 = torch.as_tensor(rng.uniform(60, [580, 420], (120, 2)), dtype=torch.float64)
+    p = backproject(cam, uv1, torch.as_tensor(rng.uniform(4, 30, 120), dtype=torch.float64))
+    uv2 = project_local(cam, se3_apply(rel, p))[0] + torch.as_tensor(rng.normal(0, 0.2, (120, 2)))
+    valid = torch.ones(120, dtype=torch.bool)
+    idx = torch.as_tensor(rng.integers(0, 120, (300, 8 if solver == "essential" else 2)))
+    out = []
+    for dev in (cuda, "cpu"):
+        args = (uv1.to(dev, dtype), uv2.to(dev, dtype), valid.to(dev), cam)
+        if solver == "essential":
+            r = epipolar.ransac_essential(*args, iters=300, threshold=2e-6, idx=idx.to(dev))
+        else:
+            r = epipolar.ransac_translation_given_rot(*args, rel.R.to(dev, dtype), iters=300, threshold=2e-6,
+                                                      idx=idx.to(dev))
+        out.append(r)
+    a, b = out
+    dR = float((a.rel_pose.R.cpu() - b.rel_pose.R).abs().max())
+    dt = float((a.rel_pose.t.cpu() - b.rel_pose.t).abs().max())
+    if dtype == torch.float64:
+        assert torch.equal(a.inliers.cpu(), b.inliers)
+        assert dR < 1e-8 and dt < 1e-8
+        return
+    assert dR < 0.02 and dt < 0.02
+    assert int((a.inliers.cpu() != b.inliers).sum()) <= 3
+    t_gt = rel.t / torch.linalg.vector_norm(rel.t)
+    for r in (a, b):
+        R = r.rel_pose.R.cpu().double()
+        assert float(torch.linalg.vector_norm(so3_log(rel.R.t() @ R))) < 0.01
+        assert float(t_gt @ r.rel_pose.t.cpu().double()) > 0.97

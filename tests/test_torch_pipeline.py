@@ -9,8 +9,9 @@
   (`:137-152`) and the sliding-vs-batch ordering (`:155-163`, the sliding
   run through the port's `run_from_packets`).
 * Guards: the port imports neither JAX nor the JAX package (nor `cv2`),
-  its entry points refuse to fall back to the CPU, options outside the
-  slice raise, and a CPU run launches no kernel.
+  its entry points refuse to fall back to the CPU, and a CPU run launches
+  no kernel.  (The alternate frontend options have their parity tests in
+  `tests/test_torch_{ego_modes,mask_ops,byte_tracker}.py`.)
 """
 
 import dataclasses
@@ -168,7 +169,8 @@ def test_sliding_vs_batch_ordering(golden_run):
 
 def test_port_imports_no_jax_and_cpu_run_launches_no_kernel():
     """A fresh interpreter (isolated from any site hook) imports the port
-    (the CLI, the loaders, the evaluator and serialisation included),
+    (the CLI, every loader, the evaluator, serialisation and the alternate
+    frontend modules included),
     renders two small frames and runs the pipeline on the CPU with the
     Shi-Tomasi and with the ORB detector: no `jax`, no `dynosam_tpu.*` and
     no `cv2` module gets imported, and no kernel launches."""
@@ -179,6 +181,10 @@ import torch
 from dynosam_tpu_torch import kernels
 import dynosam_tpu_torch.__main__, dynosam_tpu_torch.data.factory, dynosam_tpu_torch.eval.evaluator
 import dynosam_tpu_torch.utils.serialization
+import dynosam_tpu_torch.data.vkitti, dynosam_tpu_torch.data.cluster, dynosam_tpu_torch.data.omd
+import dynosam_tpu_torch.data.aria, dynosam_tpu_torch.data.native_loader, dynosam_tpu_torch.frontend.rectify
+import dynosam_tpu_torch.frontend.stereo, dynosam_tpu_torch.frontend.byte_tracker, dynosam_tpu_torch.frontend.imu
+import dynosam_tpu_torch.ops.epipolar, dynosam_tpu_torch.core.distortion
 from dynosam_tpu_torch.pipeline import DynoPipeline, run_and_log, run_from_packets
 from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
 from dynosam_tpu_torch.testing.scenes import RenderedDataset
@@ -241,29 +247,6 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         run_and_log(ds, backend_cfg, "unused")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_from_packets([], backend_cfg)
-
-
-@pytest.mark.parametrize("option", [
-    "3d3d", "2d2d", "legacy_3d3d", "propagate_mask", "byte_tracker",
-])
-def test_options_outside_the_slice_raise(option):
-    """Each option the slice does not port raises NotImplementedError that
-    names the ROADMAP.md item porting it, before any work runs."""
-    cfg = golden_frontend_config()
-    fe, tr = cfg.frontend, cfg.frontend.tracker
-    if option in ("3d3d", "2d2d"):
-        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(fe, ego_motion_solver=option))
-    elif option == "legacy_3d3d":
-        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(fe, use_ego_motion_pnp=False))
-    elif option == "propagate_mask":
-        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
-            fe, tracker=dataclasses.replace(tr, use_propogate_mask=True)))
-    else:
-        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
-            fe, tracker=dataclasses.replace(tr, use_byte_tracker=True)))
-    cam = convert.camera_from_numpy(dict(fx=100.0, fy=100.0, cx=32.0, cy=24.0, width=64, height=48))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item"):
-        DynoPipeline(cam, cfg, device="cpu")
 
 
 class _Replay:
