@@ -128,6 +128,32 @@ no result line:
              frames bit for bit, the backend camera ATE is under 0.06 m and
              K1-K3 launched on every frame after the first.
 
+16. multi-sequence -- `parallel.batch_eval.MultiSequencePipeline` over two
+             KITTI-width sequences (`kitti_config`; scenes rendered from
+             seeds 0 and 1, 12 frames each) in lockstep: frames/s summed
+             over sequences and host reads per lockstep frame; fails unless
+             K1-K3 launch twice as often per steady frame as on the main
+             path, each sequence's camera ATE is within ATE_LIMIT_M and its
+             packets equal its single-sequence `frontend_step` run under
+             the same generators;
+17. distributed -- a one-rank NCCL group (`multihost.initialize(...,
+             device="cuda")`, `make_mesh(1)`): `distributed_schur_optimize`
+             for both updaters on the pipeline path's first window (compacted
+             as the backend compacts it) and on the window-10 simulator
+             scenario, `distributed_optimize` on the golden full batch, each
+             against the single-device solve on the same inputs (iterations
+             within 1, error within DIST_ERR_RTOL, camera translations
+             within DIST_X_TOL_M), ms per solve (CUDA events), host reads,
+             collectives per LM iteration (2 on one frame block; 7 with a
+             split frame axis, counted on the CPU); then `mp_worker` as one
+             process with `--device cuda`, whose verdict must be ok; the
+             group is destroyed at the end of the phase;
+18. tools  -- `utils.debug.deterministic_replay` at atol 0 of one
+             KITTI-width `frontend_step`, of the pipeline's first window
+             solve and of the golden full-batch LM-PCG; `nan_debug` on the
+             window solve with a NaN in one static measurement must raise
+             and name the operator.
+
 The golden phase also runs drift recovery (`tests/test_accuracy_regression.py:166-228`)
 for both updaters: the golden packets with a growing camera drift through
 the full-batch backend, 100 LM iterations allowed; it fails unless each
@@ -225,6 +251,13 @@ STEREO_DISPARITY = 8
 STEREO_HIT = 0.8             # share of interior pixels within 1 px
 STEREO_DEPTH_REL = 0.10      # median depth against the true depth
 STEREO_CPU_TOL = 1e-4        # px, sub-pixel values against the CPU run (float32 order)
+# slice 9: sequences of the multi-sequence phase (scene seeds), and the
+# float32 tolerances of a distributed window solve against the
+# single-device one (`tests/test_torch_schur.py`): iterations within 1,
+# error rtol, camera translations (m)
+MULTI_SEEDS = (0, 1)
+DIST_ERR_RTOL = 3e-2
+DIST_X_TOL_M = 2e-3
 
 # FLOPs counted per unit of work (adds, subtracts, multiplies, divides,
 # square roots; clamps and index arithmetic not counted).
@@ -253,7 +286,10 @@ PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response"),
                 "masks": ("lk", "point_sample", "response"),
                 "rectify": ("lk", "point_sample", "response"),
                 "stereo": (),
-                "streaming": ("lk", "point_sample", "response")}
+                "streaming": ("lk", "point_sample", "response"),
+                "multi_sequence": ("lk", "point_sample", "response"),
+                "distributed": (),
+                "tools": ("lk", "point_sample", "response")}
 COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
            "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample"}
 
@@ -729,7 +765,7 @@ def run_pipeline_path(torch, device, card) -> dict:
     print(f"{label}: backend camera ATE {ate:.5f} m (limit {BACKEND_ATE_LIMIT_M}), frontend {fe_ate:.5f} m",
           flush=True)
     _require(np.isfinite(ate) and ate < BACKEND_ATE_LIMIT_M, f"{label}: backend ATE {ate} m")
-    return dict(totals=totals)
+    return dict(totals=totals, packets=out.packets)
 
 
 class PipelineProbe:
@@ -865,7 +901,7 @@ def run_golden_phase(torch, device, card) -> dict:
     print(f"{label}: sliding windows {[(s, w) for s, w, _, _ in be_sw.solves]}, each "
           f"{[r.iterations for _, _, r, _ in be_sw.solves]} LM iterations", flush=True)
     run_drift_recovery(torch, device, card, result.packets, np.stack([ds.ground_truth(k).X_world for k in range(n)]))
-    return dict(totals=probe.totals)
+    return dict(totals=probe.totals, packets=result.packets)
 
 
 def run_online_phase(torch, device, card, world_pose: bool = False) -> dict:
@@ -1443,6 +1479,370 @@ def run_streaming_phase(torch, device, card, n: int = PIPELINE_FRAMES, size=(384
     return dict(totals=totals)
 
 
+# ------------------------------------------------------- slice 9: new paths
+def _leaves(tree):
+    if hasattr(tree, "_fields"):
+        return [x for f in tree._fields for x in _leaves(getattr(tree, f))]
+    return [tree]
+
+
+def _max_leaf_diff(torch, a, b) -> float:
+    """Largest |difference| over the leaves of two equal-structure trees
+    (integer and bool leaves count 1 where they differ)."""
+    out = 0.0
+    for x, y in zip(_leaves(a), _leaves(b)):
+        if x.is_floating_point():
+            out = max(out, float((x - y).abs().max()) if x.numel() else 0.0)
+        elif not torch.equal(x, y):
+            out = max(out, 1.0)
+    return out
+
+
+def run_multi_sequence_phase(torch, device, card, main_per_frame) -> dict:
+    """`MultiSequencePipeline` over S KITTI-width sequences in lockstep
+    (12 frames 1280x384 each, `kitti_config`), then each sequence alone
+    through `frontend_step` with the same frames and generators: frames/s
+    summed over sequences and host reads per frame; fails unless K1-K3
+    launch S times as often per steady frame as on the main path, each
+    sequence's camera ATE is within ATE_LIMIT_M and its packets equal its
+    single-sequence run."""
+    from dynosam_tpu_torch import kernels
+    from dynosam_tpu_torch.frontend.frontend import FrontendState, frontend_step
+    from dynosam_tpu_torch.parallel.batch_eval import MultiSequencePipeline, frame_generator
+    from dynosam_tpu_torch.testing.scenes import RenderedDataset, kitti_config, kitti_scene
+
+    label = "multi-sequence"
+    S = len(MULTI_SEEDS)
+    cfg = kitti_config()
+    cap = cfg.capacity
+    caps = (cap.max_static_tracks, cap.max_dynamic_tracks, cap.max_objects)
+    scenes = [kitti_scene(device, seed=seed) for seed in MULTI_SEEDS]
+    datasets = [RenderedDataset(sc, fr) for sc, fr in scenes]
+    n = len(scenes[0][1])
+    pipe = MultiSequencePipeline(datasets, cfg.frontend, caps=caps, device=device)
+    times, reads, per_frame, step = [], [], [], pipe.step
+
+    def probed_step(*args):
+        """The pipeline's lockstep step, timed between synchronisations,
+        its host reads counted and its launches read after it."""
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        with SyncCounter(torch) as sc:
+            out = step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        reads.append(sc.count)
+        now = kernels.launch_counts()
+        per_frame.append({name: now[name] - before[name] for name in now})
+        return out
+
+    pipe.step = probed_step
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    packets = pipe.run(n)
+    totals = kernels.launch_counts()
+    steady = list(range(2, n))
+    dt = sum(times[k] for k in steady)
+    h, w = scenes[0][1][0].gray.shape
+    print(f"{label}: {S} sequences x {n} frames {w}x{h} in lockstep; steady frames {steady[0]}..{steady[-1]}: "
+          f"{S * len(steady) / dt:.2f} frames/s summed over sequences, {dt / len(steady) * 1e3:.1f} ms per "
+          f"lockstep frame (host clock, synchronised), host reads per lockstep frame "
+          f"{[reads[k] for k in steady]} on {card}", flush=True)
+    for k in steady:
+        lf = per_frame[k]
+        print(f"{label}: frame {k} launches {lf} (main path {main_per_frame[k]})", flush=True)
+        for name in PATH_KERNELS["multi_sequence"]:
+            _require(lf[name] == S * main_per_frame[k][name],
+                     f"{label}, frame {k}: {name} launched {lf[name]} times, not {S} x {main_per_frame[k][name]}")
+    stray = [name for name, c in totals.items() if name not in PATH_KERNELS["multi_sequence"] and c > 0]
+    _require(not stray, f"{label}: kernels {stray} launched off their path")
+
+    worst = 0.0
+    for s, ((scene, frames), ds) in enumerate(zip(scenes, datasets)):
+        est = np.stack([p.X_world.t[s].double().cpu().numpy() for p in packets])
+        gt = np.stack([x.t.double().cpu().numpy() for x in scene.X_gt[:n]])
+        ate = ate_rmse(est, gt)
+        state, prev_f, diff = FrontendState.create(*caps, device=device), None, 0.0
+        for k, f in enumerate(frames):
+            state, pkt, _, _ = frontend_step(state, prev_f if prev_f is not None else f, f, scene.cam, cfg.frontend,
+                                             generator=frame_generator(k, s, device), first_frame=k == 0,
+                                             device=device)
+            prev_f = f
+            one = type(pkt)(*(_index_tree(x, s) for x in packets[k]))
+            diff = max(diff, _max_leaf_diff(torch, one, pkt))
+        worst = max(worst, diff)
+        print(f"{label}: sequence {s} (scene seed {MULTI_SEEDS[s]}): camera ATE {ate:.5f} m (limit {ATE_LIMIT_M}), "
+              f"largest difference from its single-sequence run {diff:.3g}", flush=True)
+        _require(np.isfinite(ate) and ate <= ATE_LIMIT_M, f"{label}: sequence {s} ATE {ate} m")
+    _require(worst == 0.0, f"{label}: packets differ from the single-sequence runs by {worst}")
+    return dict(totals=totals)
+
+
+def _index_tree(tree, s):
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_index_tree(getattr(tree, f), s) for f in tree._fields))
+    return tree[s]
+
+
+def _window_map(torch, w):
+    """A MeasurementMap holding exactly the window `w` (fields a window
+    does not carry are zero or invalid)."""
+    from dynosam_tpu_torch.backend.map import MeasurementMap
+
+    W = w.frame_valid.shape[0]
+    z = w.static_xyz.new_zeros
+    return MeasurementMap(
+        static_xyz=w.static_xyz, static_uv=z(*w.static_xyz.shape[:2], 2), static_valid=w.static_valid,
+        dyn_xyz=w.dyn_xyz, dyn_uv=z(*w.dyn_xyz.shape[:2], 2), dyn_obj=w.dyn_obj, dyn_valid=w.dyn_valid,
+        X_init=w.X_init, timestamps=z(W), frame_ids=torch.arange(W, dtype=torch.int32, device=w.dyn_obj.device),
+        frame_valid=w.frame_valid, motion_init=w.motion_init, motion_valid=w.motion_valid,
+        obj_pose_init=w.obj_pose_init, obj_label=torch.full_like(w.motion_valid, -1, dtype=torch.int32))
+
+
+class CollectiveCounter:
+    """Counts the `torch.distributed` collective calls made inside the
+    block (all_reduce, batch_isend_irecv, all_gather)."""
+
+    NAMES = ("all_reduce", "batch_isend_irecv", "all_gather_single", "all_gather_into_tensor")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._dist, self.count = dist, 0
+        self._saved = {n: getattr(dist, n) for n in self.NAMES if hasattr(dist, n)}
+        for n, fn in self._saved.items():
+            setattr(dist, n, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def wrap(*a, **k):
+            self.count += 1
+            return fn(*a, **k)
+        return wrap
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self._dist, n, fn)
+        return False
+
+
+def _timed(torch, fn):
+    """(result, ms between CUDA events, host reads, collectives) of fn()."""
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with CollectiveCounter() as cc, SyncCounter(torch) as sc:
+        start.record()
+        out = fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop), sc.count, cc.count
+
+
+def run_distributed_phase(torch, device, card, pipeline_packets, golden_packets) -> dict:
+    """The parallel layer on the card as a one-rank NCCL group
+    (`multihost.initialize` with `device="cuda"`, `make_mesh(1)`):
+    `distributed_schur_optimize` for both updaters on the pipeline path's
+    first window (compacted as the backend compacts it) and on the
+    window-10 simulator scenario, each against `lm_optimize_schur` on the
+    same inputs; `distributed_optimize` on the golden full batch against
+    `solver.lm_optimize`; `mp_worker` as one process on the card.  Prints
+    ms per solve (CUDA events), host reads and collectives per LM
+    iteration; fails unless every distributed solve matches within the
+    float32 tolerances, the collectives per LM iteration are the one-block
+    count (the error and the packed all_reduce; the frame-split count 7 is
+    checked on the CPU), and the worker's verdict is ok."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dynosam_tpu_torch.backend import formulation as fm
+    from dynosam_tpu_torch.backend.backend import prepare_window, solve_problem
+    from dynosam_tpu_torch.backend.map import MeasurementMap, slice_window, update_map
+    from dynosam_tpu_torch.backend.schur import lm_optimize_schur
+    from dynosam_tpu_torch.backend.solver import LMConfig
+    from dynosam_tpu_torch.frontend.frontend import to_device
+    from dynosam_tpu_torch.parallel import multihost
+    from dynosam_tpu_torch.parallel.distributed_ba import distributed_optimize
+    from dynosam_tpu_torch.parallel.mesh import make_mesh
+    from dynosam_tpu_torch.parallel.schur_dist import distributed_schur_optimize
+    from dynosam_tpu_torch.testing.gloo import free_port
+    from dynosam_tpu_torch.testing.scenes import golden_config, kitti_pipeline_config
+    from dynosam_tpu_torch.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu_torch.utils.config import BackendConfig
+
+    label = "distributed"
+    from dynosam_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    rank_dev = multihost.initialize(f"localhost:{free_port()}", 1, 0, device="cuda")
+    _require(dist.get_backend() == "nccl" and rank_dev.type == "cuda",
+             f"{label}: the group is {dist.get_backend()} on {rank_dev}, not NCCL on the card")
+    mesh = make_mesh(1)
+    print(f"{label}: one-rank {dist.get_backend()} group on {rank_dev}, mesh {tuple(mesh.mesh.shape)} "
+          f"{mesh.mesh_dim_names}", flush=True)
+    try:
+        # the pipeline path's first window, compacted as the backend does
+        pcfg = kitti_pipeline_config(PIPELINE_FRAMES)
+        cap = pcfg.capacity
+        m = MeasurementMap.create(10, cap.max_static_tracks, cap.max_dynamic_tracks, cap.max_objects, device=device)
+        for k, p in enumerate(pipeline_packets[:10]):
+            update_map(m, p, k)
+        inputs = []
+        for updater in (0, 1):
+            bcfg = dataclasses.replace(pcfg.backend, backend_updater_enum=updater)
+            prob = prepare_window(m, 0, 10, bcfg, m.X_init[0], torch.zeros((), dtype=torch.bool, device=device),
+                                  updater=updater)
+            inputs.append((f"pipeline window [0, 10) compacted to {tuple(prob.w.static_xyz.shape[1:2]) + tuple(prob.w.dyn_xyz.shape[1:2]) + tuple(prob.w.motion_valid.shape[1:2])}",
+                           _window_map(torch, prob.w), bcfg, updater, LMConfig(max_iterations=bcfg.lm_max_iterations)))
+        scfg = ScenarioConfig(n_frames=10)
+        ms = MeasurementMap.create(10, scfg.ns, scfg.nd, scfg.no, device=device)
+        for k, p in enumerate(Scenario(scfg).frontend_outputs()):
+            update_map(ms, to_device(p, device), k)
+        for updater in (0, 1):
+            inputs.append(("simulator window-10 scenario", ms, BackendConfig(backend_updater_enum=updater), updater,
+                           LMConfig(max_iterations=7)))
+        for name, mm, bcfg, updater, lm in inputs:
+            w = slice_window(mm, 0, 10)
+            masks = fm.build_masks(w, bcfg)
+            vals = fm.init_values(w, masks, bcfg) if updater == 0 else fm.init_values_world_pose(w, masks, bcfg)
+            ref, ref_ms, ref_reads, _ = _timed(torch, lambda: lm_optimize_schur(vals, w, masks, bcfg, lm, w.X_init[0],
+                                                                              formulation=updater))
+            res, d_ms, d_reads, calls = _timed(torch, lambda: distributed_schur_optimize(
+                mm, 10, bcfg, mesh=mesh, updater=updater, lm_cfg=lm))
+            per_it = (calls - 1) / max(res.iterations, 1)    # the initial error's all_reduce first
+            dx = float((res.values["X"].t - ref.values["X"].t).abs().max())
+            n_motion = int(masks.motion_active.any(0).sum())
+            print(f"{label}: {name}, updater {updater}: distributed {d_ms:.2f} ms, {res.iterations} LM iterations, "
+                  f"host reads {d_reads}, collectives {calls} ({per_it:g} per LM iteration), error "
+                  f"{float(res.initial_error):.6g} -> {float(res.error):.6g}; single-device {ref_ms:.2f} ms, "
+                  f"{ref.iterations} LM iterations, host reads {ref_reads}, error -> {float(ref.error):.6g}; "
+                  f"max |dX_t| {dx:.3g} m; objects with an active motion {n_motion} (CUDA events) on {card}",
+                  flush=True)
+            _require(abs(res.iterations - ref.iterations) <= 1, f"{label}: {name} {updater}: iterations "
+                     f"{res.iterations} against {ref.iterations}")
+            _require(abs(float(res.error) - float(ref.error)) <= DIST_ERR_RTOL * abs(float(ref.error)),
+                     f"{label}: {name} {updater}: error {float(res.error)} against {float(ref.error)}")
+            _require(dx <= DIST_X_TOL_M, f"{label}: {name} {updater}: camera translations differ by {dx} m")
+            _require(per_it == 2, f"{label}: {name} {updater}: {per_it} collectives per LM iteration on one "
+                                  f"frame block, not 2")
+
+        # the golden full batch through the distributed LM-PCG
+        gcfg = golden_config(True).backend
+        gcap = golden_config(True).capacity
+        n = len(golden_packets)
+        mg = MeasurementMap.create(n, gcap.max_static_tracks, gcap.max_dynamic_tracks, gcap.max_objects, device=device)
+        for k, p in enumerate(golden_packets):
+            update_map(mg, p, k)
+        lm = LMConfig(max_iterations=gcfg.lm_max_iterations, cg_max_iterations=gcfg.cg_max_iterations)
+        prob = prepare_window(mg, 0, n, gcfg, mg.X_init[0], torch.zeros((), dtype=torch.bool, device=device))
+        ref, ref_ms, ref_reads, _ = _timed(torch, lambda: solve_problem(prob, gcfg, lm))
+        res, d_ms, d_reads, calls = _timed(torch, lambda: distributed_optimize(mg, n, gcfg, mesh=mesh, lm_cfg=lm))
+        dx = float((res.values["X"].t - ref.values["X"].t).abs().max())
+        print(f"{label}: golden full batch ({n} frames), LM-PCG: distributed {d_ms:.2f} ms, {res.iterations} LM "
+              f"iterations, {sum(res.cg_iterations)} CG iterations, host reads {d_reads}, collectives {calls}, error "
+              f"{float(res.initial_error):.6g} -> {float(res.error):.6g}; single-device {ref_ms:.2f} ms, "
+              f"{ref.iterations} LM iterations, {sum(ref.cg_iterations)} CG iterations, host reads {ref_reads}, error "
+              f"-> {float(ref.error):.6g}; max |dX_t| {dx:.3g} m (CUDA events) on {card}", flush=True)
+        _require(abs(res.iterations - ref.iterations) <= 1 and dx <= DIST_X_TOL_M
+                 and abs(float(res.error) - float(ref.error)) <= DIST_ERR_RTOL * abs(float(ref.error)),
+                 f"{label}: golden LM-PCG differs: iterations {res.iterations}/{ref.iterations}, dX {dx} m, "
+                 f"error {float(res.error)}/{float(ref.error)}")
+    finally:
+        dist.destroy_process_group()
+    _require(not dist.is_initialized(), f"{label}: the group outlived the phase")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "verdict.json")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "dynosam_tpu_torch.parallel.mp_worker", "--process-id", "0",
+                              "--num-processes", "1", "--port", str(free_port()), "--out", out, "--device", "cuda"],
+                             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300)
+        _require(run.returncode == 0, f"{label}: mp_worker failed:\n{run.stdout[-3000:]}")
+        verdict = json.load(open(out))
+    print(f"{label}: mp_worker, one process on the card ({time.perf_counter() - t0:.1f} s with start-up): "
+          f"{json.dumps(verdict)}", flush=True)
+    _require(verdict["ok"] and verdict["backend"] == "nccl" and verdict["device"].startswith("cuda"),
+             f"{label}: mp_worker verdict {verdict}")
+    return dict(totals=kernels.launch_counts())
+
+
+def run_tools_phase(torch, scene, frames, device, card, pipeline_packets, golden_packets) -> dict:
+    """`deterministic_replay` at atol 0 of one KITTI-width `frontend_step`
+    (frame 1 from frame 0's state), of one window solve and of the golden
+    full-batch LM-PCG on the card; `nan_debug` on the window solve with a
+    NaN injected into one static measurement must raise and name the
+    operator."""
+    from dynosam_tpu_torch import kernels
+    from dynosam_tpu_torch.backend import formulation as fm
+    from dynosam_tpu_torch.backend.backend import prepare_window
+    from dynosam_tpu_torch.backend.map import MeasurementMap, update_map
+    from dynosam_tpu_torch.backend.schur import lm_optimize_schur
+    from dynosam_tpu_torch.backend.solver import LMConfig
+    from dynosam_tpu_torch.frontend.frontend import FrontendState, frontend_step
+    from dynosam_tpu_torch.testing.scenes import kitti_config, kitti_pipeline_config
+    from dynosam_tpu_torch.utils.debug import deterministic_replay, nan_debug
+
+    label = "tools"
+    cfg = kitti_config()
+    cap = cfg.capacity
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    state0 = FrontendState.create(cap.max_static_tracks, cap.max_dynamic_tracks, cap.max_objects, device=device)
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(0)
+
+    state1 = frontend_step(state0, frames[0], frames[0], scene.cam, cfg.frontend, generator=gen(), first_frame=True,
+                           device=device)[0]
+    t0 = time.perf_counter()
+    out = deterministic_replay(lambda: frontend_step(state1, frames[0], frames[1], scene.cam, cfg.frontend,
+                                                     generator=gen(), device=device)[:2])
+    print(f"{label}: deterministic_replay (atol 0) of frontend_step on frame 1 at {frames[1].gray.shape[1]}x"
+          f"{frames[1].gray.shape[0]}: {len(out)} leaves "
+          f"bit-identical ({time.perf_counter() - t0:.2f} s) on {card}", flush=True)
+
+    pcfg = kitti_pipeline_config(PIPELINE_FRAMES)
+    m = MeasurementMap.create(10, pcfg.capacity.max_static_tracks, pcfg.capacity.max_dynamic_tracks,
+                              pcfg.capacity.max_objects, device=device)
+    for k, p in enumerate(pipeline_packets[:10]):
+        update_map(m, p, k)
+    prob = prepare_window(m, 0, 10, pcfg.backend, m.X_init[0], torch.zeros((), dtype=torch.bool, device=device))
+    lm = LMConfig(max_iterations=pcfg.backend.lm_max_iterations)
+
+    def solve(w):
+        masks = fm.build_masks(w, pcfg.backend)
+        return lm_optimize_schur(fm.init_values(w, masks, pcfg.backend), w, masks, pcfg.backend, lm, w.X_init[0])
+
+    t0 = time.perf_counter()
+    out = deterministic_replay(lambda: solve(prob.w)[:2])
+    print(f"{label}: deterministic_replay (atol 0) of the pipeline's first window solve: {len(out)} leaves "
+          f"bit-identical ({time.perf_counter() - t0:.2f} s) on {card}", flush=True)
+
+    from dynosam_tpu_torch.pipeline import run_from_packets
+    from dynosam_tpu_torch.testing.scenes import golden_config
+
+    t0 = time.perf_counter()
+    out = deterministic_replay(lambda: run_from_packets(golden_packets, golden_config(True),
+                                                        device=device).last_result[:2])
+    print(f"{label}: deterministic_replay (atol 0) of the golden full-batch LM-PCG: {len(out)} leaves "
+          f"bit-identical ({time.perf_counter() - t0:.2f} s) on {card}", flush=True)
+
+    bad = prob.w.static_xyz.clone()
+    bad[3, 0, 0] = float("nan")
+    caught = None
+    try:
+        with nan_debug():
+            solve(prob.w._replace(static_xyz=bad))
+    except FloatingPointError as e:
+        caught = str(e)
+    print(f"{label}: nan_debug on the window solve with a NaN in one static measurement: {caught}", flush=True)
+    _require(caught is not None and "aten." in caught, f"{label}: nan_debug did not name the operator ({caught})")
+    torch.cuda.synchronize()
+    return dict(totals=kernels.launch_counts())
+
+
 def main() -> int:
     try:
         import torch
@@ -1513,6 +1913,13 @@ def _run(torch) -> int:
     paths["rectify"] = run_rectify_phase(torch, scene, scene.frames(), device, card, rows[1])
     paths["stereo"] = run_stereo_phase(torch, device, card)
     paths["streaming"] = run_streaming_phase(torch, device, card)
+    t0 = time.perf_counter()
+    paths["multi_sequence"] = run_multi_sequence_phase(torch, device, card, paths["shi_tomasi"]["per_frame"])
+    paths["distributed"] = run_distributed_phase(torch, device, card, paths["pipeline"]["packets"],
+                                                 paths["golden"]["packets"])
+    paths["tools"] = run_tools_phase(torch, scene, frames, device, card, paths["pipeline"]["packets"],
+                                     paths["golden"]["packets"])
+    print(f"slice 9 phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     for r in rows:
         by_path = {p: paths[p]["totals"][COUNTER[r["name"]]] for p in paths}

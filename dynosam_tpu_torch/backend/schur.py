@@ -38,9 +38,14 @@ window at once, and the host reads all windows' flags once per iteration.
 same closed-form blocks as the matrix-free J^T W J product of the LM-PCG
 (`solver.lm_optimize`).
 
-Not ported (ROADMAP.md): the subtractive elimination and the generic
-chain solvers behind the JAX package's environment switches, and the
-distributed overrides (item 16).
+`lm_optimize_schur(overrides=...)` runs the same LM schedule over the
+per-rank residual, error, build and step of the distributed solve
+(`parallel/schur_dist.py`); `chain_solve` is the generic block-Thomas
+that solve's SPIKE elimination holds itself against.
+
+Not ported (ROADMAP.md, "not ported, by the port rules"): the subtractive
+elimination and the chain-solver overrides behind the JAX package's
+environment switches.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from ..utils.config import BackendConfig
 from .formulation import (
     WindowMasks,
     kinematic_mask,
+    object_onehot,
     odometry_measurements,
     pose_key,
     pose_sigmas,
@@ -113,8 +119,33 @@ def _band(W: int, k: int, like: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# Scalar-diagonal chain solve (the capacitance chain M)
+# Chain solves: generic block-Thomas and the scalar-diagonal capacitance chain M
 # --------------------------------------------------------------------------
+
+
+def chain_solve(A: torch.Tensor, B: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve every symmetric block-tridiagonal chain with diagonal blocks
+    A (W, N, 3, 3), (k-1, k) couplings B (W, N, 3, 3) (B[0] zero) and a
+    matrix RHS (W, N, 3, M): block-Thomas forward elimination with
+    adjugate 3x3 inverses, then back substitution."""
+    W = A.shape[0]
+    Dinv = torch.eye(3, dtype=A.dtype, device=A.device).expand(A.shape[1], 3, 3)
+    y = torch.zeros_like(rhs[0])
+    Dinvs, ys = [], []
+    for k in range(W):
+        Bt = B[k].transpose(-1, -2)
+        Dinv_new = _inv3(A[k] - Bt @ (Dinv @ B[k]))
+        y = rhs[k] - Bt @ (Dinv @ y)
+        Dinv = Dinv_new
+        Dinvs.append(Dinv)
+        ys.append(y)
+    x = [None] * W
+    x_next = torch.zeros_like(rhs[0])
+    for k in reversed(range(W)):
+        r = ys[k] - B[k + 1] @ x_next if k + 1 < W else ys[k]
+        x_next = Dinvs[k] @ r
+        x[k] = x_next
+    return torch.stack(x)
 
 
 def chain_solve_scalar(alpha: torch.Tensor, B: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -515,7 +546,8 @@ def world_motion_normal_product(values: dict, sqrt_w: list, res0: list, w: Windo
     residuals `res0` of `world_motion_residuals` (what the JAX LM-PCG gets
     from `jax.linearize` + `jax.linear_transpose`).  The whitened Jacobian
     blocks of every family are built here once; each product is then
-    batched contractions, gathers and `index_add_`, with no host read."""
+    batched contractions and gathers, with no host read and no float
+    atomic (a CUDA run repeats bit for bit)."""
     H: SE3 = values["H"]
     dp = values["dp"]
     dtype, dev = dp.dtype, dp.device
@@ -533,6 +565,7 @@ def world_motion_normal_product(values: dict, sqrt_w: list, res0: list, w: Windo
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     G = torch.cat([-so3_hat(y_t), eye3.expand(*y_t.shape, 3)], dim=-1)
     obj_idx = (torch.arange(1, W, device=dev)[:, None] * O + w.dyn_obj[1:].clamp(min=0)).reshape(-1)
+    onehot = object_onehot(w.dyn_obj[1:].clamp(min=0), O).to(dtype)    # (W-1, ND, O): obj_idx's slot
 
     def J(d: dict) -> list:
         dH, ddp = d["H"], d["dp"]
@@ -549,9 +582,10 @@ def world_motion_normal_product(values: dict, sqrt_w: list, res0: list, w: Windo
         u_t, u_m = u[4] / sig_t, u[5]
         g["dp"][:-1] += u_t
         g["dp"][1:] -= torch.einsum("knab,knb->kna", Rm, u_t)
-        gH = torch.zeros((W * O, 6), dtype=dtype, device=dev)
-        gH.index_add_(0, obj_idx, torch.einsum("knab,kna->knb", G, u_t).reshape(-1, 6))
-        gH = gH.reshape(W, O, 6)
+        # the per-object sums as a contraction over tracks, not an
+        # `index_add_`, whose float atomics sum in a different order on
+        # every CUDA run
+        gH = _place(torch.einsum("kno,knb->kob", onehot, torch.einsum("knab,kna->knb", G, u_t)), 1, 0)
         gH[:-1] += torch.einsum("koab,koa->kob", Ja_m, u_m)
         gH[1:] += torch.einsum("koab,koa->kob", Jb_m, u_m)
         return {"X": g["X"], "H": gH, "sp": g["sp"], "dp": g["dp"]}
@@ -581,6 +615,7 @@ def world_pose_normal_product(values: dict, sqrt_w: list, res0: list, w: WindowD
     rows = torch.arange(1, W, device=dev)[:, None] * O
     idx_c = (rows + obj).reshape(-1)                            # L_k^{obj} of row k
     idx_p = idx_c - O                                           # L_{k-1}^{obj}
+    onehot = object_onehot(obj, O).to(dtype)                    # (W-1, ND, O)
     Ja_t, Jb_t, Jc_t = _triplet_jacobians(L[:-2], L[1:-1], L[2:], smooth_sigma)
     kin = cfg.use_object_kinematic_factor
     if kin:
@@ -606,11 +641,10 @@ def world_pose_normal_product(values: dict, sqrt_w: list, res0: list, w: WindowD
         u_mp, u_ps = u[4] / sig_t, u[5]
         g["dp"][:-1] -= torch.einsum("knba,knb->kna", rel_R, u_mp)
         g["dp"][1:] += u_mp
-        GtU = torch.einsum("knab,kna->knb", G, u_mp).reshape(-1, 6)
-        gL = torch.zeros((W * O, 6), dtype=dtype, device=dev)
-        gL.index_add_(0, idx_p, GtU)
-        gL.index_add_(0, idx_c, -GtU)
-        gL = gL.reshape(W, O, 6)
+        # per-object sums as contractions (deterministic on CUDA, unlike
+        # `index_add_`'s float atomics): +G^T u at L_{k-1}, -G^T u at L_k
+        GtU = torch.einsum("kno,knb->kob", onehot, torch.einsum("knab,kna->knb", G, u_mp))
+        gL = _place(GtU, 0, 1) - _place(GtU, 1, 0)
         gL[:-2] += torch.einsum("toab,toa->tob", Ja_t, u_ps)
         gL[1:-1] += torch.einsum("toab,toa->tob", Jb_t, u_ps)
         gL[2:] += torch.einsum("toab,toa->tob", Jc_t, u_ps)
@@ -831,15 +865,19 @@ def _formulation(formulation: int):
 
 
 def _lm_loop(values: dict, residuals: Callable, build: Callable, step: Callable, specs, lm_cfg: LMConfig,
-             pose_key: str, batch_shape: tuple):
+             pose_key: str, batch_shape: tuple, error: Callable | None = None):
     """The JAX package's `lax.while_loop`, over one problem (`batch_shape`
     ()) or a batch of independent ones (leading dim B, each frozen at its
     own convergence as a vmapped while loop freezes it).  The loop runs on
     the host and reads the device once per iteration: every problem's
-    accept and done flags in one transfer.  Returns (values, error,
+    accept and done flags in one transfer.  `error(res)` replaces the
+    robust total of the residual families.  Returns (values, error,
     initial error, iterations per problem, lambda, done per problem)."""
+    if error is None:
+        def error(r):
+            return total_error(r, specs, batch_dims=len(batch_shape))
     res = residuals(values)
-    err = total_error(res, specs, batch_dims=len(batch_shape))
+    err = error(res)
     err_init = err
     dev = err.device
     lam = torch.full(batch_shape, lm_cfg.initial_lambda, dtype=torch.float32, device=dev)
@@ -858,7 +896,7 @@ def _lm_loop(values: dict, residuals: Callable, build: Callable, step: Callable,
         delta = {"X": delta["X"], pose_key: delta["P"], "sp": delta["sp"], "dp": delta["dp"]}
         new_vals = retract_tree(vals, delta)
         new_res = residuals(new_vals)
-        new_err = total_error(new_res, specs, batch_dims=len(batch_shape))
+        new_err = error(new_res)
         # a failed Cholesky (NaN step) must reject, not poison the state
         new_err = torch.where(torch.isfinite(new_err), new_err, torch.full_like(new_err, float("inf")))
         active = ~done
@@ -896,10 +934,21 @@ def lm_optimize_schur(values: dict, w: WindowData, masks: WindowMasks, cfg: Back
     gtsam-style convergence tests.  Here the loop runs on the host and
     reads the device once per iteration (the accept and done flags in one
     transfer), so `iterations` is also the solve's count of host reads.
-    `lam` stays a float32 tensor on the device, as in the JAX package."""
-    if chain_solver is not None or overrides is not None:
+    `lam` stays a float32 tensor on the device, as in the JAX package.
+
+    `overrides` replaces the per-iteration pieces and keeps this schedule
+    (the distributed solve, `parallel/schur_dist.py`, whose pieces work on
+    one rank's blocks with explicit collectives): ``residual_fn(vals) ->
+    res list``, ``error_fn(res) -> scalar``, ``build_fn(vals, sqrt_w, res0)
+    -> system`` and ``step_fn(sys, lam) -> {X, P, sp, dp}``; `w` and
+    `masks` are then unused by the replaced pieces.  `chain_solver` is
+    refused: the JAX package accepts it only with the subtractive
+    elimination (`DYNO_SCHUR_STABLE=0`), which the port rules leave out."""
+    if chain_solver is not None:
         raise NotImplementedError(
-            "chain_solver and overrides serve the distributed solve, ported by ROADMAP.md item 16")
+            "chain_solver needs the subtractive elimination (DYNO_SCHUR_STABLE=0), which the port "
+            "leaves out (ROADMAP.md, not ported by the port rules); the stable step solves its own chains")
+    ov = overrides or {}
     families, residual_fn, build_fn, pose_key = _formulation(formulation)
     specs = families(cfg).robust
 
@@ -907,11 +956,14 @@ def lm_optimize_schur(values: dict, w: WindowData, masks: WindowMasks, cfg: Back
         return residual_fn(v, w, masks, cfg, anchor, anchor_prior_L)
 
     def build(v, res):
+        if "build_fn" in ov:
+            return ov["build_fn"](v, sqrt_weights(res, specs), res)
         return build_fn(v, sqrt_weights(res, specs), w, masks, cfg, anchor, res, anchor_prior_L)
 
     vals, err, err_init, its, lam, done = _lm_loop(
-        values, residuals, build, lambda sys, lam: schur_step(sys, lam, lm_cfg.diag_floor, formulation),
-        specs, lm_cfg, pose_key, ())
+        values, ov.get("residual_fn", residuals), build,
+        ov.get("step_fn", lambda sys, lam: schur_step(sys, lam, lm_cfg.diag_floor, formulation)),
+        specs, lm_cfg, pose_key, (), error=ov.get("error_fn"))
     return LMResult(values=vals, error=err, initial_error=err_init, iterations=its[0], lam=lam, converged=done[0])
 
 

@@ -231,7 +231,8 @@ def hutchinson_diag(A_mv: Callable, probes: Sequence[dict]) -> dict:
 
 def lm_optimize(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict, cfg: LMConfig, *,
                 normal_fn: Callable, gn_diag_fn: Optional[Callable] = None,
-                probes: Optional[Callable] = None, generator: Optional[torch.Generator] = None) -> LMResult:
+                probes: Optional[Callable] = None, generator: Optional[torch.Generator] = None,
+                error_fn: Optional[Callable] = None) -> LMResult:
     """Minimise sum_f rho_f(|r_f(x)|) over the manifold dict `values`.
 
     residual_fn(values) -> list of whitened, mask-zeroed residuals, one per
@@ -249,10 +250,15 @@ def lm_optimize(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict
     down by `lambda_factor` on accept and up on reject, gtsam-style
     convergence.  A rejected step keeps its linearisation (the JAX loop
     recomputes the same one).  The host reads the accept and done flags
-    and the CG count once per LM iteration, besides PCG's reads."""
+    and the CG count once per LM iteration, besides PCG's reads.
+    `error_fn(res)` replaces the robust total of the families (the
+    distributed solve sums its ranks' shares)."""
     specs = tuple(specs)
+    if error_fn is None:
+        def error_fn(r):
+            return total_error(r, specs)
     res = residual_fn(values)
-    err = total_error(res, specs)
+    err = error_fn(res)
     err_init = err
     dev = err.device
     if gn_diag_fn is None and probes is None and generator is None:
@@ -279,7 +285,7 @@ def lm_optimize(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict
                              cfg.cg_max_iterations, cfg.cg_tol)
         new_vals = retract_tree(vals, rav.unravel(delta))
         new_res = residual_fn(new_vals)
-        new_err = total_error(new_res, specs)
+        new_err = error_fn(new_res)
         accept = new_err < err
         err_out = torch.where(accept, new_err, err)
         lam_out = torch.where(accept, torch.clamp(lam / cfg.lambda_factor, min=cfg.min_lambda),

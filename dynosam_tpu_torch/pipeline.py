@@ -45,15 +45,19 @@ class PipelineResult:
 
 class DynoPipeline:
     """Sequential pipeline on one device (CUDA unless `device="cpu"`).
-    `seed` seeds the generator that draws every RANSAC hypothesis."""
+    `seed` seeds the generator that draws every RANSAC hypothesis;
+    `display` (a `viz.visualizer.FrontendDisplay` or anything with
+    `spin_once(images, packet)` and `close()`) sees every frame and is
+    closed at the end of `run`."""
 
     def __init__(self, cam: CameraParams, cfg: DynoConfig, use_klt: bool = True,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, display=None):
         check_frontend_config(cfg.frontend)
         self.device = resolve_device(device)
         self.cam = cam
         self.cfg = cfg
         self.use_klt = use_klt
+        self.display = display
         cap = cfg.capacity
         self.backend = (RGBDBackend(cfg.backend, cap, device=self.device)
                         if cfg.pipeline.use_backend else None)
@@ -94,6 +98,8 @@ class DynoPipeline:
                 first_frame=first, device=self.device,
             )
         self.packets.append(packet)
+        if self.display is not None:
+            self.display.spin_once(images, packet)
         if self.backend is not None:
             with stats_mod.timer("backend.spin"):
                 self.backend.spin(packet)
@@ -114,6 +120,8 @@ class DynoPipeline:
             self.spin_once(images)
             n += 1
         self.finish()
+        if self.display is not None:
+            self.display.close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0

@@ -38,15 +38,16 @@ from ..utils.config import (
 from .render import RenderConfig, RenderedScene, pose_matrix
 
 
-def kitti_scene(device, n_frames: int = 12, h: int = 384, w: int = 1280):
+def kitti_scene(device, n_frames: int = 12, h: int = 384, w: int = 1280, seed: int = 0):
     """(scene, frames): the rendered scene and its frames with the flow
-    noise added."""
+    noise added; `seed` seeds the render and the noise (0: the bench's
+    scene)."""
     scene = RenderedScene(
         RenderConfig(n_frames=n_frames, h=h, w=w, fx=718.0, n_objects=3,
-                     bg_depth=14.0, obj_depth=9.0, cam_step=0.10, obj_step=0.18),
+                     bg_depth=14.0, obj_depth=9.0, cam_step=0.10, obj_step=0.18, seed=seed),
         device=device,
     )
-    fr = np.random.default_rng(0)
+    fr = np.random.default_rng(seed)
     frames = [
         f._replace(flow=f.flow + torch.as_tensor(
             fr.normal(0.0, 0.5, tuple(f.flow.shape)).astype(np.float32), device=f.flow.device))

@@ -526,3 +526,113 @@ def test_epipolar_ransac_on_the_card_matches_the_cpu(cuda, solver, dtype):
         R = r.rel_pose.R.cpu().double()
         assert float(torch.linalg.vector_norm(so3_log(rel.R.t() @ R))) < 0.01
         assert float(t_gt @ r.rel_pose.t.cpu().double()) > 0.97
+
+
+def test_multi_sequence_on_the_card_matches_single_sequence_runs(cuda):
+    """`MultiSequencePipeline` over two rendered sequences (192x256, 4
+    frames, seeds 0 and 1) on the card: each sequence's packets equal its
+    single-sequence `frontend_step` run with the same generators, and K1-K3
+    launch as often as in the two runs together (the card counterpart of
+    `chip_smoke.py`'s multi-sequence phase)."""
+    from dynosam_tpu_torch.frontend.frontend import FrontendState, frontend_step
+    from dynosam_tpu_torch.parallel.batch_eval import MultiSequencePipeline, frame_generator
+    from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
+    from dynosam_tpu_torch.testing.scenes import RenderedDataset
+    from dynosam_tpu_torch.utils.config import FrontendConfig, TrackerConfig
+
+    scenes = [RenderedScene(RenderConfig(n_frames=4, h=192, w=256, n_objects=2, seed=s), device=cuda)
+              for s in (0, 1)]
+    cfg = FrontendConfig(tracker=TrackerConfig(max_features_per_frame=300))
+    kernels.reset_launch_counts()
+    packets = MultiSequencePipeline([RenderedDataset(s) for s in scenes], cfg, caps=(512, 1024, 8),
+                                    device=cuda).run(4)
+    torch.cuda.synchronize()
+    batched = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    for s, scene in enumerate(scenes):
+        state, prev = FrontendState.create(512, 1024, 8, device=cuda), None
+        for k, f in enumerate(scene.frames()):
+            state, pkt, _, _ = frontend_step(state, prev if prev is not None else f, f, scene.cam, cfg,
+                                             generator=frame_generator(k, s, cuda), first_frame=k == 0, device=cuda)
+            prev = f
+            got = torch.utils._pytree.tree_leaves(packets[k])
+            want = torch.utils._pytree.tree_leaves(pkt)
+            assert all(torch.equal(a[s], b) for a, b in zip(got, want)), (s, k)
+    torch.cuda.synchronize()
+    single = kernels.launch_counts()
+    assert batched == single and all(batched[n] > 0 for n in ("lk", "point_sample", "response")), (batched, single)
+
+
+def test_distributed_solves_on_a_one_rank_nccl_group(cuda):
+    """A one-rank NCCL group on the card: `distributed_schur_optimize`
+    for both updaters on the window-10 simulator scenario against
+    `lm_optimize_schur` (iterations within 1, error within rtol 3e-2,
+    camera translations within 2e-3 m: the float32 tolerances of
+    `tests/test_torch_schur.py`), with 2 collectives per LM iteration on
+    one frame block (the error and the packed all_reduce); and
+    `distributed_optimize` on 8 simulator frames against `lm_optimize`.
+    The group is destroyed afterwards."""
+    import torch.distributed as dist
+
+    from dynosam_tpu_torch.backend import formulation as fm
+    from dynosam_tpu_torch.backend import map as bmap
+    from dynosam_tpu_torch.backend.schur import lm_optimize_schur, world_motion_normal_product
+    from dynosam_tpu_torch.backend.solver import LMConfig, lm_optimize
+    from dynosam_tpu_torch.frontend.frontend import to_device
+    from dynosam_tpu_torch.parallel import multihost
+    from dynosam_tpu_torch.parallel.distributed_ba import distributed_optimize
+    from dynosam_tpu_torch.parallel.mesh import make_mesh
+    from dynosam_tpu_torch.parallel.schur_dist import distributed_schur_optimize
+    from dynosam_tpu_torch.testing.gloo import free_port
+    from dynosam_tpu_torch.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu_torch.utils.config import BackendConfig
+
+    scfg = ScenarioConfig(n_frames=10)
+    m = bmap.MeasurementMap.create(10, scfg.ns, scfg.nd, scfg.no, device=cuda)
+    for k, p in enumerate(Scenario(scfg).frontend_outputs()):
+        bmap.update_map(m, to_device(p, cuda), k)
+    assert multihost.initialize(f"localhost:{free_port()}", 1, 0, device="cuda").type == "cuda"
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(1)
+        calls = {"n": 0}
+        real = dist.all_reduce
+
+        def counted(*a, **k):
+            calls["n"] += 1
+            return real(*a, **k)
+
+        for updater in (0, 1):
+            cfg = BackendConfig(backend_updater_enum=updater)
+            w = bmap.slice_window(m, 0, 10)
+            masks = fm.build_masks(w, cfg)
+            v0 = fm.init_values(w, masks, cfg) if updater == 0 else fm.init_values_world_pose(w, masks, cfg)
+            lm = LMConfig(max_iterations=7)
+            ref = lm_optimize_schur(v0, w, masks, cfg, lm, w.X_init[0], formulation=updater)
+            calls["n"] = 0
+            dist.all_reduce = counted
+            try:
+                res = distributed_schur_optimize(m, 10, cfg, mesh=mesh, updater=updater, lm_cfg=lm)
+            finally:
+                dist.all_reduce = real
+            assert res.values["X"].t.device.type == "cuda"
+            assert abs(res.iterations - ref.iterations) <= 1
+            assert float(res.error) == pytest.approx(float(ref.error), rel=3e-2)
+            assert float((res.values["X"].t - ref.values["X"].t).abs().max()) <= 2e-3
+            assert calls["n"] == 1 + 2 * res.iterations
+
+        cfg = BackendConfig()
+        lm = LMConfig(max_iterations=6, cg_max_iterations=60)
+        w = bmap.slice_window(m, 0, 8)
+        masks = fm.build_masks(w, cfg)
+        a = w.X_init[0]
+        ref = lm_optimize(lambda v: fm.world_motion_residuals(v, w, masks, cfg, a), fm.world_motion_families(cfg).robust,
+                          fm.init_values(w, masks, cfg), lm,
+                          gn_diag_fn=lambda v, sw: fm.world_motion_gn_diag(v, sw, w, masks, cfg),
+                          normal_fn=lambda v, sw, r: world_motion_normal_product(v, sw, r, w, masks, cfg, a))
+        res = distributed_optimize(m, 8, cfg, mesh=mesh, lm_cfg=lm)
+        assert res.iterations == ref.iterations
+        assert float((res.values["X"].t - ref.values["X"].t).abs().max()) <= 2e-3
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()

@@ -172,8 +172,10 @@ def test_port_imports_no_jax_and_cpu_run_launches_no_kernel():
     (the CLI, every loader, the evaluator, serialisation and the alternate
     frontend modules included),
     renders two small frames and runs the pipeline on the CPU with the
-    Shi-Tomasi and with the ORB detector: no `jax`, no `dynosam_tpu.*` and
-    no `cv2` module gets imported, and no kernel launches."""
+    Shi-Tomasi and with the ORB detector: no `jax`, no `dynosam_tpu.*`, no
+    `cv2` and no `matplotlib` module gets imported (the parallel layer and
+    the debug, histogram, viz and plotting tools imported too), and no
+    kernel launches."""
     code = f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -185,6 +187,10 @@ import dynosam_tpu_torch.data.vkitti, dynosam_tpu_torch.data.cluster, dynosam_tp
 import dynosam_tpu_torch.data.aria, dynosam_tpu_torch.data.native_loader, dynosam_tpu_torch.frontend.rectify
 import dynosam_tpu_torch.frontend.stereo, dynosam_tpu_torch.frontend.byte_tracker, dynosam_tpu_torch.frontend.imu
 import dynosam_tpu_torch.ops.epipolar, dynosam_tpu_torch.core.distortion
+import dynosam_tpu_torch.parallel.mesh, dynosam_tpu_torch.parallel.multihost, dynosam_tpu_torch.parallel.schur_dist
+import dynosam_tpu_torch.parallel.distributed_ba, dynosam_tpu_torch.parallel.batch_eval
+import dynosam_tpu_torch.parallel.mp_worker, dynosam_tpu_torch.utils.debug, dynosam_tpu_torch.utils.histogram
+import dynosam_tpu_torch.viz.visualizer, dynosam_tpu_torch.eval.plotting
 from dynosam_tpu_torch.pipeline import DynoPipeline, run_and_log, run_from_packets
 from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
 from dynosam_tpu_torch.testing.scenes import RenderedDataset
@@ -199,8 +205,8 @@ for detector in ("shi_tomasi", "orb"):
     for f in scene.frames():
         pkt = pipe.spin_once(f)
     assert torch.isfinite(pkt.X_world.t).all()
-bad = sorted(m for m in sys.modules if m in ("jax", "dynosam_tpu", "cv2")
-             or m.startswith(("jax.", "jaxlib", "dynosam_tpu.")))
+bad = sorted(m for m in sys.modules if m in ("jax", "dynosam_tpu", "cv2", "matplotlib")
+             or m.startswith(("jax.", "jaxlib", "dynosam_tpu.", "matplotlib.")))
 print("BAD", bad)
 print("COUNTS", kernels.launch_counts())
 """
@@ -211,15 +217,23 @@ print("COUNTS", kernels.launch_counts())
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|dynosam_tpu)(?:\.|\s|$)", re.M)
+# cv2 and matplotlib only inside the functions that draw or decode with them
+_TOP_LEVEL_HOST_LIB = re.compile(r"^(?:import|from)\s+(cv2|matplotlib)(?:\.|\s|$)", re.M)
 
 
 def test_source_scan_finds_no_jax_imports():
     """No module of the port and not `chip_smoke.py` imports JAX or the JAX
-    package (`dynosam_tpu_torch` itself does not match the pattern)."""
+    package (`dynosam_tpu_torch` itself does not match the pattern), nor
+    `cv2` or `matplotlib` at module level; the parallel layer and the
+    tools are among the files scanned."""
     files = sorted((ROOT / "dynosam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT / "dynosam_tpu_torch")) for f in files[:-1]}
+    assert {"parallel/mesh.py", "parallel/multihost.py", "parallel/schur_dist.py", "parallel/distributed_ba.py",
+            "parallel/batch_eval.py", "parallel/mp_worker.py", "utils/debug.py", "utils/histogram.py",
+            "viz/visualizer.py", "eval/plotting.py"} <= names
     hits = [(str(f.relative_to(ROOT)), m.group(0).strip()) for f in files
-            for m in _IMPORT.finditer(f.read_text())]
+            for pattern in (_IMPORT, _TOP_LEVEL_HOST_LIB) for m in pattern.finditer(f.read_text())]
     assert hits == []
     for f in files:
         text = f.read_text()
