@@ -140,12 +140,17 @@ no result line:
              device="cuda")`, `make_mesh(1)`): `distributed_schur_optimize`
              for both updaters on the pipeline path's first window (compacted
              as the backend compacts it) and on the window-10 simulator
-             scenario, `distributed_optimize` on the golden full batch, each
-             against the single-device solve on the same inputs (iterations
-             within 1, error within DIST_ERR_RTOL, camera translations
-             within DIST_X_TOL_M), ms per solve (CUDA events), host reads,
-             collectives per LM iteration (2 on one frame block; 7 with a
-             split frame axis, counted on the CPU); then `mp_worker` as one
+             scenario, each against `lm_optimize_schur` on the same inputs
+             (iterations within 1, error within DIST_ERR_RTOL, camera
+             translations within DIST_X_TOL_M), and `distributed_optimize`
+             on the golden full batch against the single-device LM-PCG with
+             Hutchinson's diagonal, as JAX's solves (the same LM
+             iterations, error within DIST_ERR_RTOL, camera translations
+             within DIST_X_TOL_M; the
+             analytic-diagonal solve printed beside both); ms per solve
+             (CUDA events), host reads, collectives per LM iteration (2 on
+             one frame block for the Schur solve; 7 with a split frame axis,
+             counted on the CPU); then `mp_worker` as one
              process with `--device cuda`, whose verdict must be ok; the
              group is destroyed at the end of the phase;
 18. tools  -- `utils.debug.deterministic_replay` at atol 0 of one
@@ -1645,12 +1650,16 @@ def run_distributed_phase(torch, device, card, pipeline_packets, golden_packets)
     first window (compacted as the backend compacts it) and on the
     window-10 simulator scenario, each against `lm_optimize_schur` on the
     same inputs; `distributed_optimize` on the golden full batch against
-    `solver.lm_optimize`; `mp_worker` as one process on the card.  Prints
-    ms per solve (CUDA events), host reads and collectives per LM
-    iteration; fails unless every distributed solve matches within the
-    float32 tolerances, the collectives per LM iteration are the one-block
-    count (the error and the packed all_reduce; the frame-split count 7 is
-    checked on the CPU), and the worker's verdict is ok."""
+    `solver.lm_optimize` with Hutchinson's diagonal (probes seeded 0 on the
+    card; the same LM iterations, error within DIST_ERR_RTOL, camera
+    translations within DIST_X_TOL_M), the analytic-diagonal
+    `solve_problem` printed beside both; `mp_worker` as one process on
+    the card.  Prints ms per solve (CUDA events), host reads and
+    collectives per LM iteration; fails unless every distributed solve
+    matches within the float32 tolerances, the Schur solves' collectives
+    per LM iteration are the one-block count (the error and the packed
+    all_reduce; the frame-split count 7 is checked on the CPU), and the
+    worker's verdict is ok."""
     import dataclasses
     import os
     import tempfile
@@ -1660,8 +1669,8 @@ def run_distributed_phase(torch, device, card, pipeline_packets, golden_packets)
     from dynosam_tpu_torch.backend import formulation as fm
     from dynosam_tpu_torch.backend.backend import prepare_window, solve_problem
     from dynosam_tpu_torch.backend.map import MeasurementMap, slice_window, update_map
-    from dynosam_tpu_torch.backend.schur import lm_optimize_schur
-    from dynosam_tpu_torch.backend.solver import LMConfig
+    from dynosam_tpu_torch.backend.schur import lm_optimize_schur, world_motion_normal_product
+    from dynosam_tpu_torch.backend.solver import LMConfig, lm_optimize
     from dynosam_tpu_torch.frontend.frontend import to_device
     from dynosam_tpu_torch.parallel import multihost
     from dynosam_tpu_torch.parallel.distributed_ba import distributed_optimize
@@ -1728,7 +1737,10 @@ def run_distributed_phase(torch, device, card, pipeline_packets, golden_packets)
             _require(per_it == 2, f"{label}: {name} {updater}: {per_it} collectives per LM iteration on one "
                                   f"frame block, not 2")
 
-        # the golden full batch through the distributed LM-PCG
+        # the golden full batch through the distributed LM-PCG, against the
+        # single-device LM-PCG with the same pieces and Hutchinson's diagonal
+        # (probes from a generator seeded 0 on the card, as every rank
+        # draws them), with the analytic-diagonal solve beside both
         gcfg = golden_config(True).backend
         gcap = golden_config(True).capacity
         n = len(golden_packets)
@@ -1736,19 +1748,37 @@ def run_distributed_phase(torch, device, card, pipeline_packets, golden_packets)
         for k, p in enumerate(golden_packets):
             update_map(mg, p, k)
         lm = LMConfig(max_iterations=gcfg.lm_max_iterations, cg_max_iterations=gcfg.cg_max_iterations)
-        prob = prepare_window(mg, 0, n, gcfg, mg.X_init[0], torch.zeros((), dtype=torch.bool, device=device))
-        ref, ref_ms, ref_reads, _ = _timed(torch, lambda: solve_problem(prob, gcfg, lm))
-        res, d_ms, d_reads, calls = _timed(torch, lambda: distributed_optimize(mg, n, gcfg, mesh=mesh, lm_cfg=lm))
+        w = slice_window(mg, 0, n)
+        masks = fm.build_masks(w, gcfg)
+        anchor = w.X_init[0]
+        solves = {
+            "single-device Hutchinson": lambda: lm_optimize(
+                lambda v: fm.world_motion_residuals(v, w, masks, gcfg, anchor),
+                fm.world_motion_families(gcfg).robust, fm.init_values(w, masks, gcfg), lm,
+                normal_fn=lambda v, sw, r: world_motion_normal_product(v, sw, r, w, masks, gcfg, anchor),
+                generator=torch.Generator(device=device).manual_seed(0)),
+            "distributed": lambda: distributed_optimize(mg, n, gcfg, mesh=mesh, lm_cfg=lm),
+            "single-device analytic diagonal": lambda: solve_problem(
+                prepare_window(mg, 0, n, gcfg, anchor, torch.zeros((), dtype=torch.bool, device=device)), gcfg, lm),
+        }
+        got = {}
+        for name, solve in solves.items():
+            res, ms_, reads, calls = _timed(torch, solve)
+            got[name] = res
+            per_it = f"{(calls - 1) / max(res.iterations, 1):g}" if calls else "0"
+            print(f"{label}: golden full batch ({n} frames), LM-PCG, {name}: {ms_:.2f} ms, {res.iterations} LM "
+                  f"iterations, {sum(res.cg_iterations)} CG iterations {res.cg_iterations}, host reads {reads}, "
+                  f"collectives {calls} ({per_it} per LM iteration), error {float(res.initial_error):.6g} -> "
+                  f"{float(res.error):.6g} (CUDA events) on {card}", flush=True)
+        res, ref = got["distributed"], got["single-device Hutchinson"]
         dx = float((res.values["X"].t - ref.values["X"].t).abs().max())
-        print(f"{label}: golden full batch ({n} frames), LM-PCG: distributed {d_ms:.2f} ms, {res.iterations} LM "
-              f"iterations, {sum(res.cg_iterations)} CG iterations, host reads {d_reads}, collectives {calls}, error "
-              f"{float(res.initial_error):.6g} -> {float(res.error):.6g}; single-device {ref_ms:.2f} ms, "
-              f"{ref.iterations} LM iterations, {sum(ref.cg_iterations)} CG iterations, host reads {ref_reads}, error "
-              f"-> {float(ref.error):.6g}; max |dX_t| {dx:.3g} m (CUDA events) on {card}", flush=True)
-        _require(abs(res.iterations - ref.iterations) <= 1 and dx <= DIST_X_TOL_M
+        dx_an = float((res.values["X"].t - got["single-device analytic diagonal"].values["X"].t).abs().max())
+        print(f"{label}: golden LM-PCG, distributed against single-device Hutchinson: max |dX_t| {dx:.3g} m; "
+              f"against the analytic diagonal: {dx_an:.3g} m", flush=True)
+        _require(res.iterations == ref.iterations and dx <= DIST_X_TOL_M
                  and abs(float(res.error) - float(ref.error)) <= DIST_ERR_RTOL * abs(float(ref.error)),
-                 f"{label}: golden LM-PCG differs: iterations {res.iterations}/{ref.iterations}, dX {dx} m, "
-                 f"error {float(res.error)}/{float(ref.error)}")
+                 f"{label}: golden LM-PCG differs from the single-device Hutchinson solve: iterations "
+                 f"{res.iterations}/{ref.iterations}, dX {dx} m, error {float(res.error)}/{float(ref.error)}")
     finally:
         dist.destroy_process_group()
     _require(not dist.is_initialized(), f"{label}: the group outlived the phase")

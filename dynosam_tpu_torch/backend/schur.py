@@ -54,7 +54,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..core.lie import SE3, se3_between, se3_compose, se3_identity, se3_inverse, so3_hat
+from ..core.lie import SE3, se3_adjoint, se3_between, se3_compose, se3_identity, se3_inverse, so3_hat
 from ..ops import factors
 from ..utils.config import BackendConfig
 from .formulation import (
@@ -242,12 +242,6 @@ def _se3_ad(xi: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cat([W, torch.zeros_like(W)], -1), torch.cat([V, W], -1)], -2)
 
 
-def _se3_Ad(T: SE3) -> torch.Tensor:
-    """(...,) poses -> (..., 6, 6) Adjoint [[R, 0], [t^ R, R]] ([omega, v] order)."""
-    return torch.cat([torch.cat([T.R, torch.zeros_like(T.R)], -1),
-                      torch.cat([so3_hat(T.t) @ T.R, T.R], -1)], -2)
-
-
 def _right_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
     """(..., 6) -> (..., 6, 6): d Log(T Exp(d)) / dd at 0 for Log(T) = xi
     (Horner's scheme in ad^2 over `_JR_INV_EVEN`)."""
@@ -266,7 +260,7 @@ def _between_jacobians(a: SE3, b: SE3, Z: SE3, sigma: torch.Tensor):
     factor): J_b = Jr^-1(e), J_a = -Jr^-1(e) Ad((a^-1 b)^-1); two (..., 6, 6)."""
     M = se3_between(a, b)
     Jinv = _right_jacobian_inv(factors.between_residual(a, b, Z)) / sigma[:, None]
-    return -Jinv @ _se3_Ad(se3_inverse(M)), Jinv
+    return -Jinv @ se3_adjoint(se3_inverse(M)), Jinv
 
 
 def _triplet_jacobians(La: SE3, Lb: SE3, Lc: SE3, sigma: torch.Tensor):
@@ -275,8 +269,8 @@ def _triplet_jacobians(La: SE3, Lb: SE3, Lc: SE3, sigma: torch.Tensor):
     L_k): J_a = Jr^-1 Ad(E^-1 La), J_c = Jr^-1 Ad(Lb), J_b = -(J_a + J_c)."""
     E = se3_compose(se3_compose(La, se3_inverse(Lb)), se3_compose(Lc, se3_inverse(Lb)))
     Jinv = _right_jacobian_inv(factors.landmark_pose_smoothing_residual(La, Lb, Lc)) / sigma[:, None]
-    Ja = Jinv @ _se3_Ad(se3_compose(se3_inverse(E), La))
-    Jc = Jinv @ _se3_Ad(Lb)
+    Ja = Jinv @ se3_adjoint(se3_compose(se3_inverse(E), La))
+    Jc = Jinv @ se3_adjoint(Lb)
     return Ja, -(Ja + Jc), Jc
 
 
@@ -285,7 +279,7 @@ def _kinematic_jacobians(Hm: SE3, La: SE3, Lb: SE3, sigma: float):
     tangents of (L_{k-1}, L_k): J_a = Jr^-1(e), J_b = -Jr^-1(e) Ad(E^-1)."""
     E = se3_compose(se3_inverse(Lb), se3_compose(Hm, La))
     Jinv = _right_jacobian_inv(factors.object_kinematic_residual(Hm, La, Lb)) / sigma
-    return Jinv, -Jinv @ _se3_Ad(se3_inverse(E))
+    return Jinv, -Jinv @ se3_adjoint(se3_inverse(E))
 
 
 def _anchor_jacobian(X0: SE3, anchor: SE3, cfg: BackendConfig, anchor_prior_L=None) -> torch.Tensor:

@@ -303,3 +303,32 @@ def lm_optimize(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict
         err, lam, it = err_out, lam_out, it + 1
     return LMResult(values=vals, error=err, initial_error=err_init, iterations=it, lam=lam,
                     converged=done, cg_iterations=cg_iters)
+
+
+# --------------------------------------------------------------------------
+# Dense reference solver (tests / tiny problems)
+# --------------------------------------------------------------------------
+
+
+def dense_normal_solve(residual_fn: Callable, specs: Sequence[RobustSpec], values: dict, lam: float = 0.0):
+    """One damped Gauss-Newton step solved densely, J built by
+    `torch.func.jacfwd` (O(n^2) memory): the oracle the matrix-free and
+    Schur steps are checked against.  Returns (retracted values, J); J's
+    columns run over the tangent leaves in sorted key order, the layout of
+    `jax.flatten_util.ravel_pytree`."""
+    res0 = residual_fn(values)
+    sqrt_w = sqrt_weights(res0, specs)
+    d0 = zero_delta(values)
+    rav = Raveler({k: d0[k] for k in sorted(d0)})
+
+    def rows(dflat):
+        rs = residual_fn(retract_tree(values, rav.unravel(dflat)))
+        return torch.cat([(w[..., None] * r).reshape(-1) for w, r in zip(sqrt_w, rs)])
+
+    x0 = rav.ravel(d0)
+    J = torch.func.jacfwd(rows)(x0)
+    A = J.T @ J
+    A = A + lam * torch.diag(torch.clamp(torch.diagonal(A), min=1e-6))
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    dx = torch.linalg.solve(A + 1e-10 * eye, -(J.T @ rows(x0)))
+    return retract_tree(values, rav.unravel(dx)), J

@@ -63,6 +63,13 @@ def backproject(
     return torch.stack([x, y, depth], dim=-1)
 
 
+def backproject_to_world(
+    params: CameraParams, uv: torch.Tensor, depth: torch.Tensor, pose_w_c: SE3
+) -> torch.Tensor:
+    """Pixels + depth through the camera at pose ``X_wc`` -> world points."""
+    return se3_apply(pose_w_c, backproject(params, uv, depth))
+
+
 def project_jacobian_point(params: CameraParams, p_cam: torch.Tensor) -> torch.Tensor:
     """d(uv)/d(p_cam): (..., 2, 3)."""
     x, y, z = p_cam[..., 0], p_cam[..., 1], p_cam[..., 2]
@@ -106,6 +113,23 @@ def project_jacobian_pose(params: CameraParams, p_cam: torch.Tensor) -> torch.Te
         dim=-1,
     )
     return torch.stack([ru, rv], dim=-2)
+
+
+def in_image(params: CameraParams, uv: torch.Tensor, border: float = 0.0) -> torch.Tensor:
+    """Boolean containment mask (the reference's `Camera::isKeypointContained`):
+    ``border <= u < width - border`` and the same for v."""
+    u, v = uv[..., 0], uv[..., 1]
+    return (u >= border) & (u < params.width - border) & (v >= border) & (v < params.height - border)
+
+
+def disparity_to_depth(disparity: torch.Tensor, fx_baseline: float, scale: float = 1.0) -> torch.Tensor:
+    """Stereo disparity -> metric depth ``(fx * b) / (disparity / scale)``, 0
+    where the disparity is not positive.  The reference's KITTI
+    preprocessor stores disparity PNGs at scale 256 with fx * b = 387.5744
+    (`dataprovider/KittiDataProvider.hpp:482-512`)."""
+    disp = disparity / scale
+    pos = disp > 0
+    return torch.where(pos, fx_baseline / torch.where(pos, disp, torch.ones_like(disp)), torch.zeros_like(disp))
 
 
 def camera_params_from_yaml(path: str) -> CameraParams:

@@ -159,20 +159,50 @@ class SE3(NamedTuple):
     R: torch.Tensor
     t: torch.Tensor
 
+    @staticmethod
+    def identity(batch_shape=(), dtype=torch.float32, device=None) -> "SE3":
+        return se3_identity(batch_shape, dtype, device)
+
+    @staticmethod
+    def exp(xi: torch.Tensor) -> "SE3":
+        return se3_exp(xi)
+
+    @staticmethod
+    def from_matrix(T: torch.Tensor) -> "SE3":
+        return se3_from_matrix(T)
+
     def inverse(self) -> "SE3":
         return se3_inverse(self)
 
     def compose(self, other: "SE3") -> "SE3":
         return se3_compose(self, other)
 
+    def __matmul__(self, other):
+        """Compose with an SE3; apply to a tensor of points."""
+        if isinstance(other, SE3):
+            return se3_compose(self, other)
+        return se3_apply(self, other)
+
     def apply(self, pts: torch.Tensor) -> torch.Tensor:
         return se3_apply(self, pts)
+
+    def between(self, other: "SE3") -> "SE3":
+        return se3_between(self, other)
+
+    def local(self, other: "SE3") -> torch.Tensor:
+        return se3_local(self, other)
 
     def retract(self, xi: torch.Tensor) -> "SE3":
         return se3_retract(self, xi)
 
     def log(self) -> torch.Tensor:
         return se3_log(self)
+
+    def adjoint(self) -> torch.Tensor:
+        return se3_adjoint(self)
+
+    def matrix(self) -> torch.Tensor:
+        return se3_matrix(self)
 
     @property
     def batch_shape(self):
@@ -235,6 +265,23 @@ def se3_retract(a: SE3, xi: torch.Tensor) -> SE3:
 def se3_apply(g: SE3, pts: torch.Tensor) -> torch.Tensor:
     """Transform points (..., 3); pose batch dims broadcast against points."""
     return _mv(g.R, pts) + g.t
+
+
+def se3_adjoint(g: SE3) -> torch.Tensor:
+    """(..., 6, 6) adjoint with [omega, v] ordering: Ad = [[R, 0], [t^ R, R]]."""
+    return torch.cat([torch.cat([g.R, torch.zeros_like(g.R)], -1),
+                      torch.cat([so3_hat(g.t) @ g.R, g.R], -1)], -2)
+
+
+def se3_from_matrix(T: torch.Tensor) -> SE3:
+    """(..., 4, 4) homogeneous matrix -> SE3."""
+    return SE3(T[..., :3, :3], T[..., :3, 3])
+
+
+def se3_matrix(g: SE3) -> torch.Tensor:
+    """(..., 4, 4) homogeneous matrix."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=g.dtype, device=g.t.device).expand(*g.batch_shape, 1, 4)
+    return torch.cat([torch.cat([g.R, g.t[..., None]], dim=-1), bottom], dim=-2)
 
 
 def se3_where(mask: torch.Tensor, a: SE3, b: SE3) -> SE3:

@@ -85,3 +85,14 @@ class FrontendOutput(NamedTuple):
             dynamic_obs=DynamicObs.empty(nd, dtype, device),
             objects=ObjectObs.empty(no, dtype, device),
         )
+
+
+def stack_outputs(outputs: list) -> FrontendOutput:
+    """Stack per-frame FrontendOutputs along a new axis 0 into (F, ...)
+    tensors (the NamedTuple structure, `SE3` leaves included, is kept)."""
+    def stack(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        return type(xs[0])(*(stack(*f) for f in zip(*xs)))
+
+    return stack(*outputs)

@@ -417,3 +417,29 @@ def track_frame(
         per_object=per_object,
     )
     return new_state, report
+
+
+def format_tracker_report(report: TrackOutputs, obj_labels=None) -> str:
+    """Human-readable per-frame report (the reference's `FeatureTrackerInfo`
+    print, `RGBDInstanceFrontendModule.cc:119`), with a line per object slot
+    that had or sampled tracks; `obj_labels` (`TrackerState.obj_labels`)
+    names the slots, else their indices do, and a negative label is skipped."""
+    lines = [
+        f"static: tracked {int(report.n_static_tracked)} (+{int(report.n_static_new)} new, "
+        f"homography inliers {int(report.homography_inliers)}) | "
+        f"dynamic: tracked {int(report.n_dynamic_tracked)} (+{int(report.n_dynamic_new)} sampled)"
+    ]
+    po = report.per_object
+    if po is not None:
+        cols = {k: torch.as_tensor(v).tolist() for k, v in po._asdict().items()}
+        prev = cols["num_previous_track"]
+        labels = torch.as_tensor(obj_labels).tolist() if obj_labels is not None else range(len(prev))
+        for j in range(len(prev)):
+            if labels[j] < 0 or not (prev[j] or cols["num_sampled"][j]):
+                continue
+            lines.append(
+                f"  obj {int(labels[j])}: prev {prev[j]} -> tracked {cols['num_track'][j]} "
+                f"(+{cols['num_sampled'][j]} sampled; outside {cols['num_outside_shrunken_image'][j]}, "
+                f"zero-flow {cols['num_zero_flow'][j]}, diff-label {cols['num_tracked_with_different_label'][j]}, "
+                f"bg-label {cols['num_tracked_with_background_label'][j]})")
+    return "\n".join(lines)

@@ -24,6 +24,11 @@ def cauchy_weight(r_norm: torch.Tensor, k: float) -> torch.Tensor:
     return 1.0 / (1.0 + torch.square(r_norm / k))
 
 
+def whiten(residual: torch.Tensor, sigma) -> torch.Tensor:
+    """Isotropic whitening: r / sigma (the last axis is the residual's)."""
+    return residual / sigma
+
+
 _WEIGHTS = {"huber": huber_weight, "tukey": tukey_weight, "cauchy": cauchy_weight}
 
 

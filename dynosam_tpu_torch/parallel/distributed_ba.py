@@ -12,21 +12,24 @@ it.  Torch has no such partitioner, so the decomposition is written out:
   * each rank evaluates its factors on the sub-window of its frames and
     the two before them (the pose triplets reach two back), with every
     factor it does not own weighted 0, and contributes its share of the
-    cost, the gradient, the GN diagonal and each J^T W J v product;
-  * one all_reduce combines each product, the gradient, the diagonal and
-    the cost, so every CG vector and dot product is replicated and needs no
-    collective;
+    cost, the gradient and each J^T W J v product;
+  * one all_reduce combines each product, the gradient and the cost, so
+    every CG vector and dot product is replicated and needs no collective;
   * the anchor prior is owned by rank 0 alone, so nothing counts twice.
 
 The solve is `solver.lm_optimize` over the closed-form products of
 `schur.world_{motion,pose}_normal_product`, both updaters, with
-`LMConfig` defaulting from the backend config as in JAX.
+`LMConfig` defaulting from the backend config as in JAX.  As in JAX it is
+given no analytic diagonal: damping and preconditioner are Hutchinson's
+estimate of the rank-summed J^T W J (`solver.HUTCHINSON_PROBES` products
+an LM iteration, one all_reduce each).  Every rank draws the same probes
+from a generator seeded 0 on its own device.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -68,16 +71,18 @@ def _ownership(fi: int, ti: int, T: int, lo: int, hi: int, start: int, ns: int, 
 
 
 def distributed_optimize(m: MeasurementMap, window: int, cfg: BackendConfig, mesh: DeviceMesh | None = None,
-                         updater: int = 0, lm_cfg: Optional[LMConfig] = None) -> LMResult:
+                         updater: int = 0, lm_cfg: Optional[LMConfig] = None,
+                         probes: Optional[Callable] = None) -> LMResult:
     """The LM-PCG solve of frames [0, window) of `m` (the whole map, held
     by every rank) over the mesh.  Returns the LMResult with the values
     whole (replicated) on every rank.  A one-rank mesh runs the same
-    program."""
+    program.  `probes(it)` gives the Hutchinson probes of LM iteration
+    `it` (the same on every rank) in place of the seeded generator's."""
     mesh = mesh or make_mesh()
     lm_cfg = lm_cfg or LMConfig(max_iterations=cfg.lm_max_iterations, cg_max_iterations=cfg.cg_max_iterations)
     p = rank_problem(m, window, cfg, mesh, updater)
-    return lm_optimize(p.residual_fn, p.specs, p.values, lm_cfg, normal_fn=p.normal_fn,
-                       gn_diag_fn=p.gn_diag_fn, error_fn=p.error_fn)
+    return lm_optimize(p.residual_fn, p.specs, p.values, lm_cfg, normal_fn=p.normal_fn, probes=probes,
+                       error_fn=p.error_fn)
 
 
 def rank_problem(m: MeasurementMap, window: int, cfg: BackendConfig, mesh: DeviceMesh, updater: int = 0):
@@ -96,12 +101,10 @@ def rank_problem(m: MeasurementMap, window: int, cfg: BackendConfig, mesh: Devic
     O = w.motion_valid.shape[1]
     if updater == 0:
         values = fm.init_values(w, masks, cfg)
-        spec, residuals, gn_diag, product = (fm.world_motion_families(cfg), fm.world_motion_residuals,
-                                             fm.world_motion_gn_diag, world_motion_normal_product)
+        spec, residuals, product = fm.world_motion_families(cfg), fm.world_motion_residuals, world_motion_normal_product
     else:
         values = fm.init_values_world_pose(w, masks, cfg)
-        spec, residuals, gn_diag, product = (fm.world_pose_families(cfg), fm.world_pose_residuals,
-                                             fm.world_pose_gn_diag, world_pose_normal_product)
+        spec, residuals, product = fm.world_pose_families(cfg), fm.world_pose_residuals, world_pose_normal_product
     anchor = w.X_init[0]
 
     S = window // F
@@ -144,8 +147,5 @@ def rank_problem(m: MeasurementMap, window: int, cfg: BackendConfig, mesh: Devic
 
         return mv, all_reduce_packed(embed(g))
 
-    def gn_diag_fn(v, sqrt_w):
-        return all_reduce_packed(embed(gn_diag(local(v), owned(sqrt_w), w_sub, masks_sub, cfg)))
-
     return SimpleNamespace(values=values, specs=spec.robust, residual_fn=residual_fn, error_fn=error_fn,
-                           normal_fn=normal_fn, gn_diag_fn=gn_diag_fn)
+                           normal_fn=normal_fn)

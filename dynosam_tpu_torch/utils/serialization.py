@@ -17,7 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..core.types import FrontendOutput
+from ..core.types import FrontendOutput, stack_outputs
 from .device import resolve_device
 
 
@@ -40,8 +40,7 @@ def _unflatten(template, leaves):
 
 
 def save_packets(path: str, packets: List[FrontendOutput]) -> None:
-    per_packet = [_leaves(p) for p in packets]
-    stacked = [torch.stack(xs).detach().cpu().numpy() for xs in zip(*per_packet)]
+    stacked = [x.detach().cpu().numpy() for x in _leaves(stack_outputs(packets))]
     np.savez_compressed(path, n=len(packets), **{f"leaf_{i}": a for i, a in enumerate(stacked)})
 
 

@@ -570,8 +570,9 @@ def test_distributed_solves_on_a_one_rank_nccl_group(cuda):
     camera translations within 2e-3 m: the float32 tolerances of
     `tests/test_torch_schur.py`), with 2 collectives per LM iteration on
     one frame block (the error and the packed all_reduce); and
-    `distributed_optimize` on 8 simulator frames against `lm_optimize`.
-    The group is destroyed afterwards."""
+    `distributed_optimize` on 8 simulator frames against `lm_optimize`
+    with Hutchinson's diagonal, both drawing their probes from a generator
+    seeded 0 on the card.  The group is destroyed afterwards."""
     import torch.distributed as dist
 
     from dynosam_tpu_torch.backend import formulation as fm
@@ -628,7 +629,6 @@ def test_distributed_solves_on_a_one_rank_nccl_group(cuda):
         a = w.X_init[0]
         ref = lm_optimize(lambda v: fm.world_motion_residuals(v, w, masks, cfg, a), fm.world_motion_families(cfg).robust,
                           fm.init_values(w, masks, cfg), lm,
-                          gn_diag_fn=lambda v, sw: fm.world_motion_gn_diag(v, sw, w, masks, cfg),
                           normal_fn=lambda v, sw, r: world_motion_normal_product(v, sw, r, w, masks, cfg, a))
         res = distributed_optimize(m, 8, cfg, mesh=mesh, lm_cfg=lm)
         assert res.iterations == ref.iterations

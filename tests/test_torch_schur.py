@@ -27,7 +27,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.func import jacfwd as t_jacfwd
 
 from dynosam_tpu.backend import formulation as jfm
 from dynosam_tpu.backend import map as jmap
@@ -42,7 +41,7 @@ from dynosam_tpu_torch import convert
 from dynosam_tpu_torch.backend import formulation as tfm
 from dynosam_tpu_torch.backend import map as tmap
 from dynosam_tpu_torch.backend import schur as tschur
-from dynosam_tpu_torch.backend.solver import LMConfig, retract_tree, zero_delta
+from dynosam_tpu_torch.backend.solver import LMConfig, dense_normal_solve, retract_tree
 from dynosam_tpu_torch.core.lie import SE3
 from dynosam_tpu_torch.ops import factors as tfactors
 from dynosam_tpu_torch.utils.config import BackendConfig
@@ -219,35 +218,11 @@ def _f64(tree):
     return tree
 
 
-def _dense_step(residual_fn, specs, values, lam):
-    """One damped Gauss-Newton step from the dense Jacobian (jacfwd over
-    the flattened tangent), as `dynosam_tpu.backend.solver.dense_normal_solve`."""
-    res0 = residual_fn(values)
-    sw = tschur.sqrt_weights(res0, specs)
-    template = zero_delta(values)
-    keys = list(template)
-    sizes = [template[k].numel() for k in keys]
-
-    def unflatten(d):
-        return {k: c.reshape(template[k].shape) for k, c in zip(keys, torch.split(d, sizes))}
-
-    def rows(d):
-        rs = residual_fn(retract_tree(values, unflatten(d)))
-        return torch.cat([(w[..., None] * r).reshape(-1) for w, r in zip(sw, rs)])
-
-    d0 = torch.zeros(sum(sizes), dtype=torch.float64)
-    J = t_jacfwd(rows)(d0)
-    r = rows(d0)
-    A = J.T @ J
-    A = A + lam * torch.diag(torch.clamp(torch.diagonal(A), min=1e-6))
-    dx = torch.linalg.solve(A + 1e-10 * torch.eye(A.shape[0], dtype=A.dtype), -(J.T @ r))
-    return retract_tree(values, unflatten(dx))
-
-
 def test_schur_step_equals_dense_solve_float64():
-    """Port-only: in float64 the Woodbury Schur step equals the dense solve
-    of the same damped normal equations to 3e-6 (the problem of
-    `tests/f64_check.py`: softened ternary sigma, 8 frames)."""
+    """Port-only: in float64 the Woodbury Schur step equals
+    `solver.dense_normal_solve` of the same damped normal equations to
+    3e-6 (the problem of `tests/f64_check.py`: softened ternary sigma, 8
+    frames), the cross-check `tests/test_schur.py:63` makes in JAX."""
     scfg = ScenarioConfig(n_frames=8, n_static=30, n_objects=2, pts_per_object=10, ns=40, nd=32, no=4,
                           point_noise=0.02)
     _, tw, _, tc, _, _ = _window(scfg, dict(motion_ternary_factor_noise_sigma=0.05))
@@ -262,7 +237,7 @@ def test_schur_step_equals_dense_solve_float64():
     sys = tschur.build_normal_system(vals, tschur.sqrt_weights(res0, specs), tw, tmk, tc, anchor, res0)
     step = tschur.schur_step(sys, torch.tensor(lam, dtype=torch.float64), 1e-6)
     got = retract_tree(vals, {"X": step["X"], "H": step["P"], "sp": step["sp"], "dp": step["dp"]})
-    want = _dense_step(resid, specs, vals, lam)
+    want, _ = dense_normal_solve(resid, specs, vals, lam)
     assert got["X"].t.dtype == torch.float64
     for a, b in ((got["X"].t, want["X"].t), (got["X"].R, want["X"].R), (got["H"].t, want["H"].t),
                  (got["sp"], want["sp"])):
