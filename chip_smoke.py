@@ -159,6 +159,25 @@ no result line:
              window solve with a NaN in one static measurement must raise
              and name the operator.
 
+19. evaluation -- the evaluation tools of `dynosam_tpu_torch/scripts/`:
+             the experiment sweep's 6 rows (`experiment_sweep.sweep_row`)
+             on its own layout (16 frames 192x256, 2 yaw-only objects,
+             written from a render on the card): each row's camera ATEs
+             and wall seconds; fails unless K1-K3 launched on every frame
+             after the first of every row and K4 on none, every backend
+             ATE is finite, and each row's frontend and backend camera ATE
+             lie within SWEEP_TOL_M of the JAX package's committed sweep
+             (`artifacts/experiments/results.json`, the same layout on the
+             CPU), the band `tests/test_torch_scripts.py` holds the port's
+             sweep row to against JAX; then the sliding-vs-batch study
+             (`sliding_vs_batch.compare`, the simulator's 24 frames):
+             both runs' final errors and the mean and maximum of each
+             error curve, which must be finite; then `run_experiments` and
+             `kitti_semantic_to_motion` on an 8-frame layout in a
+             temporary directory: fails if `results.json` or a motion mask
+             is missing, or a mask read back differs from the one
+             written.
+
 The golden phase also runs drift recovery (`tests/test_accuracy_regression.py:166-228`)
 for both updaters: the golden packets with a growing camera drift through
 the full-batch backend, 100 LM iterations allowed; it fails unless each
@@ -263,6 +282,18 @@ STEREO_CPU_TOL = 1e-4        # px, sub-pixel values against the CPU run (float32
 MULTI_SEEDS = (0, 1)
 DIST_ERR_RTOL = 3e-2
 DIST_X_TOL_M = 2e-3
+# slice 11: the evaluation phase.  The sweep's frames and objects (the JAX
+# package's committed sweep, `artifacts/experiments/results.json`); each
+# row's camera ATEs against that table within the band
+# `tests/test_torch_scripts.py` holds the port's sweep row to against JAX
+# on one layout (1e-3 m, inside `tests/test_torch_pipeline.py:354-355`'s
+# 3e-3 m); the sliding-vs-batch frames (the JAX script's default) and the
+# frames of the run_experiments / motion-mask layout
+SWEEP_FRAMES = 16
+SWEEP_OBJECTS = 2
+SWEEP_TOL_M = 1e-3
+SVB_FRAMES = 24
+EVAL_LAYOUT_FRAMES = 8
 
 # FLOPs counted per unit of work (adds, subtracts, multiplies, divides,
 # square roots; clamps and index arithmetic not counted).
@@ -294,7 +325,8 @@ PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response"),
                 "streaming": ("lk", "point_sample", "response"),
                 "multi_sequence": ("lk", "point_sample", "response"),
                 "distributed": (),
-                "tools": ("lk", "point_sample", "response")}
+                "tools": ("lk", "point_sample", "response"),
+                "evaluation": ("lk", "point_sample", "response")}
 COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
            "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample"}
 
@@ -1873,6 +1905,127 @@ def run_tools_phase(torch, scene, frames, device, card, pipeline_packets, golden
     return dict(totals=kernels.launch_counts())
 
 
+# ------------------------------------------------------ slice 11: evaluation
+class SpinLaunches:
+    """Records the kernel launches of every `DynoPipeline.spin_once` inside
+    the block (read from the wrappers' counters, no synchronisation)."""
+
+    def __enter__(self):
+        from dynosam_tpu_torch import kernels
+        from dynosam_tpu_torch.pipeline import DynoPipeline
+
+        self.per_spin, self._cls, self._spin = [], DynoPipeline, DynoPipeline.spin_once
+        spin, per_spin = self._spin, self.per_spin
+
+        def spin_once(pipe, images):
+            before = kernels.launch_counts()
+            out = spin(pipe, images)
+            now = kernels.launch_counts()
+            per_spin.append({k: now[k] - before[k] for k in now})
+            return out
+
+        DynoPipeline.spin_once = spin_once
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.spin_once = self._spin
+        return False
+
+
+def run_evaluation_phase(torch, device, card) -> dict:
+    """The evaluation tools on the card: the experiment sweep's rows against
+    the JAX package's committed sweep, the sliding-vs-batch study, then
+    `run_experiments` and `kitti_semantic_to_motion` on a small layout."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from dynosam_tpu_torch import kernels
+    from dynosam_tpu_torch.data.kitti import KittiDataset
+    from dynosam_tpu_torch.scripts import experiment_sweep, kitti_semantic_to_motion, run_experiments, sliding_vs_batch
+
+    label = "evaluation"
+    jax_rows = json.loads((ROOT / "artifacts" / "experiments" / "results.json").read_text())["rows"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        root = experiment_sweep.write_layout(os.path.join(work, "sweep", "0000"), SWEEP_FRAMES, SWEEP_OBJECTS, device)
+        print(f"{label}: sweep layout, {SWEEP_FRAMES} frames 256x192 rendered on the card and written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rows = {}
+        with SpinLaunches() as launches:
+            for name, overrides in experiment_sweep.SWEEP:
+                first = len(launches.per_spin)
+                rows[name] = row = experiment_sweep.sweep_row(root, overrides, SWEEP_FRAMES,
+                                                              os.path.join(work, name), device)
+                spins = launches.per_spin[first:]
+                _require(len(spins) == SWEEP_FRAMES, f"{label}, {name}: {len(spins)} frontend spins")
+                for k in range(1, SWEEP_FRAMES):
+                    missing = [n for n in PATH_KERNELS["evaluation"] if spins[k][n] < 1]
+                    _require(not missing, f"{label}, {name}, frame {k}: kernels {missing} never launched")
+                ref = jax_rows[name]
+                print(f"{label}: sweep row {name}: {json.dumps(experiment_sweep.rounded(row))} (JAX on the CPU: "
+                      f"fe_ate_trans {ref['fe_ate_trans']}, be_ate_trans {ref['be_ate_trans']}); wall "
+                      f"{row['wall_s']:.2f} s on {card}", flush=True)
+                for key in ("fe_ate_trans", "be_ate_trans"):
+                    _require(np.isfinite(row[key]) and abs(row[key] - ref[key]) <= SWEEP_TOL_M,
+                             f"{label}, {name}: {key} {row[key]} against JAX's {ref[key]} (band {SWEEP_TOL_M} m)")
+        print(f"{label}: sweep wall seconds {[round(r['wall_s'], 2) for r in rows.values()]} "
+              f"(sum {sum(r['wall_s'] for r in rows.values()):.1f} s) on {card}", flush=True)
+
+        t0 = time.perf_counter()
+        packets, X_gt, cap = sliding_vs_batch.simulator_stream(SVB_FRAMES)
+        runs = sliding_vs_batch.compare(packets, cap, X_gt, device=device)
+        print(f"{label}: sliding vs batch on the simulator's {SVB_FRAMES} frames "
+              f"({time.perf_counter() - t0:.1f} s) on {card}:", flush=True)
+        for line in sliding_vs_batch.summary_lines(runs):
+            print(f"{label}:   {line}", flush=True)
+        for name, r in runs.items():
+            c = r["curve"]
+            print(f"{label}:   {name} per-frame camera translation error (m): "
+                  f"{[round(float(x), 5) for x in c]}", flush=True)
+            _require(np.isfinite(c).all() and np.isfinite(r["error"]) and r["error"] < r["initial_error"],
+                     f"{label}: {name}: curve {c}, error {r['initial_error']} -> {r['error']}")
+
+        small = experiment_sweep.write_layout(os.path.join(work, "small", "0000"), EVAL_LAYOUT_FRAMES,
+                                              SWEEP_OBJECTS, device)
+        sets = {**experiment_sweep.BASE, "capacity.max_frames": EVAL_LAYOUT_FRAMES}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):     # it prints the whole evaluation
+            rc = run_experiments.main(["--dataset_path", small, "--output_path", os.path.join(work, "runs"),
+                                       "--name", "small", "--device", str(device)]
+                                      + [a for k, v in sets.items() for a in ("--set", f"{k}={v}")])
+        results = os.path.join(work, "runs", "small", "results.json")
+        _require(rc == 0 and os.path.exists(results), f"{label}: run_experiments gave {rc}, no {results}")
+        cam = json.loads(Path(results).read_text())["rgbd_motion_world_backend"]["camera"]
+        print(f"{label}: run_experiments on {EVAL_LAYOUT_FRAMES} frames: results.json written, backend camera "
+              f"ATE {cam['ate_trans_rmse']:.5f} m ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        os.rename(os.path.join(small, "motion"), os.path.join(small, "semantic"))
+        out_dir = kitti_semantic_to_motion.write_motion_masks(small, 0.05, device)
+        semantic = KittiDataset(small, prefer_motion_mask=False)
+        back = KittiDataset(small)
+        _require(back.mask_dir == out_dir, f"{label}: the loader reads masks from {back.mask_dir}")
+        kept = set()
+        for k in range(EVAL_LAYOUT_FRAMES):
+            path = os.path.join(out_dir, f"{k:06d}.png")
+            _require(os.path.exists(path), f"{label}: motion mask {path} missing")
+            moving = kitti_semantic_to_motion.moving_labels(semantic.ground_truth(k), 0.05)
+            mask = semantic.frame(k).mask.numpy()
+            want = np.where(np.isin(mask, moving), mask, 0)
+            got = back.frame(k).mask.numpy()
+            _require(np.array_equal(got, want), f"{label}: motion mask {k} read back differs from the one written")
+            kept |= set(np.unique(got[got > 0]).tolist())
+        print(f"{label}: kitti_semantic_to_motion: {EVAL_LAYOUT_FRAMES} motion masks written and read back equal, "
+              f"labels kept {sorted(kept)}", flush=True)
+    totals = kernels.launch_counts()
+    stray = [n for n, c in totals.items() if n not in PATH_KERNELS["evaluation"] and c > 0]
+    _require(not stray, f"{label}: kernels {stray} launched off their path")
+    return dict(totals=totals, rows=rows)
+
+
 def main() -> int:
     try:
         import torch
@@ -1950,6 +2103,9 @@ def _run(torch) -> int:
     paths["tools"] = run_tools_phase(torch, scene, frames, device, card, paths["pipeline"]["packets"],
                                      paths["golden"]["packets"])
     print(f"slice 9 phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    paths["evaluation"] = run_evaluation_phase(torch, device, card)
+    print(f"slice 11 phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     for r in rows:
         by_path = {p: paths[p]["totals"][COUNTER[r["name"]]] for p in paths}

@@ -4,6 +4,7 @@
                                                [--out chiprun_out] [--chrome]
     python3 -m dynosam_tpu_torch.testing.trace --pipeline [--frames 22] [--warmup 10]
     python3 -m dynosam_tpu_torch.testing.trace --full-batch
+    python3 -m dynosam_tpu_torch.testing.trace --sequences N [--frames 12] [--warmup 4]
 
 Needs one NVIDIA card.  Renders the KITTI-width scene (`testing/scenes.py`).
 
@@ -29,6 +30,15 @@ full-batch backend; the frontend spins run unprofiled, then the one
 LM-PCG solve (`DynoPipeline.finish`) is profiled: the same figures for
 the solve, its LM and CG iterations, launches per CG iteration, and its
 operators.
+
+`--sequences N`: the frontend-only trace above (Shi-Tomasi), then N
+KITTI-width sequences (scenes rendered from seeds 0..N-1) stepped in
+lockstep by `parallel/batch_eval.MultiSequencePipeline`: after the
+warm-up frames, the remaining lockstep frames are traced as one run, and
+the same figures are printed per lockstep frame beside the
+single-sequence ones (host wall, device busy, idle share, launches, and
+K1-K3's launches and device time), with the ratio of each to N times the
+single sequence's.
 
 Every number comes from a profiled run; the profiler's own host cost is in
 its wall time.  With `--chrome` the Chrome trace of the last profiled
@@ -164,6 +174,62 @@ def _trace_pipeline(torch, profile, acts, args, device, card) -> dict:
             "frames_with_a_solve": sorted(solve_frames)}
 
 
+def _trace_sequences(torch, profile, acts, args, device, card) -> dict:
+    from ..parallel.batch_eval import MultiSequencePipeline
+    from .scenes import RenderedDataset, kitti_config, kitti_scene
+
+    n = args.sequences
+    cfg = kitti_config()
+    cap = cfg.capacity
+    datasets = [RenderedDataset(*kitti_scene(device, n_frames=args.frames, seed=s)) for s in range(n)]
+    pipe = MultiSequencePipeline(datasets, cfg.frontend, caps=(cap.max_static_tracks, cap.max_dynamic_tracks,
+                                                               cap.max_objects), device=device)
+    prof, step, frame, t0 = profile(activities=acts), pipe.step, [0], [0.0]
+
+    def traced_step(*a):
+        """The lockstep step; the profiler runs from the first traced frame
+        through the last."""
+        if frame[0] == args.warmup:
+            torch.cuda.synchronize()
+            prof.start()
+            t0[0] = time.perf_counter()
+        out = step(*a)
+        frame[0] += 1
+        if frame[0] == args.frames:
+            torch.cuda.synchronize()
+            t0[0] = (time.perf_counter() - t0[0]) * 1e3
+            prof.stop()
+        return out
+
+    pipe.step = traced_step
+    pipe.run(args.frames)
+    traced = args.frames - args.warmup
+    s = _stats(torch, prof, t0[0], traced)
+    print(f"{n} sequences in lockstep (MultiSequencePipeline): traced {traced} lockstep frames after "
+          f"{args.warmup} warm-up frames, 1280x384 each")
+    print(_line("under the profiler, per lockstep frame", s))
+    for tag, k in s["port_kernels"].items():
+        print(f"{tag}: {k['launches']:.1f} launches/lockstep frame, {k['device_us_per_launch']:.2f} us device time "
+              f"per launch, {k['device_us']:.2f} us/lockstep frame")
+    _tables(torch, prof, rows=15)
+    if args.chrome:
+        _chrome(prof, args.out, f"trace_sequences_{n}_torch.json")
+    return {"card": card, "mode": "sequences", "sequences": n, "frames": traced, "wall_ms_per_frame": s["wall_ms"],
+            "device_busy_ms_per_frame": s["device_busy_ms"], "idle_share": s["idle_share"],
+            "kernel_launches_per_frame": s["kernel_launches"],
+            "memcpy_or_sync_calls_per_frame": s["memcpy_or_sync_calls"], "port_kernels": s["port_kernels"]}
+
+
+def _against_single(single: dict, multi: dict) -> None:
+    """Each lockstep figure over N times the single sequence's."""
+    n = multi["sequences"]
+    for key in ("wall_ms_per_frame", "device_busy_ms_per_frame", "kernel_launches_per_frame",
+                "memcpy_or_sync_calls_per_frame"):
+        a, b = multi[key], single[key]
+        ratio = "not measured" if a is None or b is None or b == 0 else f"{a / (n * b):.3f}"
+        print(f"lockstep / ({n} x single) {key}: {ratio}")
+
+
 def _trace_full_batch(torch, profile, acts, args, device, card) -> dict:
     from ..pipeline import DynoPipeline
     from .scenes import golden_config, golden_dataset
@@ -212,6 +278,8 @@ def main() -> int:
                     help="trace the offline pipeline with the sliding-window backend")
     ap.add_argument("--full-batch", action="store_true",
                     help="trace the golden run's full-batch LM-PCG solve")
+    ap.add_argument("--sequences", type=int, default=None,
+                    help="also trace N sequences in lockstep (MultiSequencePipeline)")
     ap.add_argument("--frames", type=int, default=None, help="default 12, or 22 with --pipeline")
     ap.add_argument("--warmup", type=int, default=None, help="default 4, or 10 with --pipeline")
     ap.add_argument("--out", default="chiprun_out")
@@ -232,6 +300,13 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     device = torch.device("cuda", 0)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if args.sequences:
+        args.detector = "shi_tomasi"
+        single = _trace_frontend(torch, profile, acts, args, device, card)
+        multi = _trace_sequences(torch, profile, acts, args, device, card)
+        _against_single(single, multi)
+        print(json.dumps({"single": single, "sequences": multi}))
+        return 0
     trace = _trace_full_batch if args.full_batch else _trace_pipeline if args.pipeline else _trace_frontend
     print(json.dumps(trace(torch, profile, acts, args, device, card)))
     return 0

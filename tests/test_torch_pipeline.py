@@ -173,9 +173,9 @@ def test_port_imports_no_jax_and_cpu_run_launches_no_kernel():
     frontend modules included),
     renders two small frames and runs the pipeline on the CPU with the
     Shi-Tomasi and with the ORB detector: no `jax`, no `dynosam_tpu.*`, no
-    `cv2` and no `matplotlib` module gets imported (the parallel layer and
-    the debug, histogram, viz and plotting tools imported too), and no
-    kernel launches."""
+    `cv2` and no `matplotlib` module gets imported (the parallel layer, the
+    debug, histogram, viz and plotting tools, the evaluation tools of
+    `scripts/` and the tracer imported too), and no kernel launches."""
     code = f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -191,6 +191,10 @@ import dynosam_tpu_torch.parallel.mesh, dynosam_tpu_torch.parallel.multihost, dy
 import dynosam_tpu_torch.parallel.distributed_ba, dynosam_tpu_torch.parallel.batch_eval
 import dynosam_tpu_torch.parallel.mp_worker, dynosam_tpu_torch.utils.debug, dynosam_tpu_torch.utils.histogram
 import dynosam_tpu_torch.viz.visualizer, dynosam_tpu_torch.eval.plotting
+import dynosam_tpu_torch.scripts.run_experiments, dynosam_tpu_torch.scripts.experiment_sweep
+import dynosam_tpu_torch.scripts.sliding_vs_batch, dynosam_tpu_torch.scripts.ab_accuracy
+import dynosam_tpu_torch.scripts.run_cli_demo, dynosam_tpu_torch.scripts.kitti_semantic_to_motion
+import dynosam_tpu_torch.testing.trace
 from dynosam_tpu_torch.pipeline import DynoPipeline, run_and_log, run_from_packets
 from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
 from dynosam_tpu_torch.testing.scenes import RenderedDataset
@@ -224,14 +228,16 @@ _TOP_LEVEL_HOST_LIB = re.compile(r"^(?:import|from)\s+(cv2|matplotlib)(?:\.|\s|$
 def test_source_scan_finds_no_jax_imports():
     """No module of the port and not `chip_smoke.py` imports JAX or the JAX
     package (`dynosam_tpu_torch` itself does not match the pattern), nor
-    `cv2` or `matplotlib` at module level; the parallel layer and the
-    tools are among the files scanned."""
+    `cv2` or `matplotlib` at module level; the parallel layer, the tools
+    and the evaluation tools of `scripts/` are among the files scanned."""
     files = sorted((ROOT / "dynosam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     names = {str(f.relative_to(ROOT / "dynosam_tpu_torch")) for f in files[:-1]}
     assert {"parallel/mesh.py", "parallel/multihost.py", "parallel/schur_dist.py", "parallel/distributed_ba.py",
             "parallel/batch_eval.py", "parallel/mp_worker.py", "utils/debug.py", "utils/histogram.py",
-            "viz/visualizer.py", "eval/plotting.py"} <= names
+            "viz/visualizer.py", "eval/plotting.py", "scripts/run_experiments.py", "scripts/experiment_sweep.py",
+            "scripts/sliding_vs_batch.py", "scripts/ab_accuracy.py", "scripts/run_cli_demo.py",
+            "scripts/kitti_semantic_to_motion.py", "testing/trace.py"} <= names
     hits = [(str(f.relative_to(ROOT)), m.group(0).strip()) for f in files
             for pattern in (_IMPORT, _TOP_LEVEL_HOST_LIB) for m in pattern.finditer(f.read_text())]
     assert hits == []
