@@ -47,7 +47,14 @@ no result line:
              motion; fails unless K1, K2 and K3 launched on every frame
              after the first and K4 on none, every window's final error is
              finite and below its initial error, the estimate store covers
-             frames 0..21 and the backend camera ATE is under 0.06 m;
+             frames 0..21 and the backend camera ATE is under 0.06 m; then
+             the window solves' CUDA graphs (`schur.lm_optimize_schur`
+             replays each LM iteration; `GraphedSolves`): captures in the
+             run, replays per window, and each window solved again on its
+             own inputs graphed and eager (`_graphs=False`), both timed with
+             CUDA events; fails unless each window replayed the head plus
+             one graph per LM iteration and its run's result equals the
+             eager solve and the graphed repeat bit for bit;
 7. golden  -- the round's accuracy bar on the card: the golden scene of
              `tests/test_accuracy_regression.py` (32 frames 120x160, 2
              moving objects, 0.5 px flow and 1 % depth noise) through
@@ -72,12 +79,16 @@ no result line:
              window's final error is below its initial error, the frontend
              and backend camera ATE are under 0.05 and 0.06 m, and K1, K2
              and K3 launched on every frame after the first and K4 on none;
+             then the window solves' graphs as in the pipeline path, and the
+             kernels of one eager reduced-system factorisation at the
+             window's size (cuSOLVER, which a capture can hold, or MAGMA);
 9. world pose -- the online phase's run with WorldPose (`backend_updater_enum`
              1) and the fixed-lag boundary prior: the same report plus
              each boundary-prior build's time and host reads; fails unless
              the windows are those of the online phase, every error drops,
              the backend log is `rgbd_LL_world_backend` with camera ATE
-             under 0.06 m, and K1-K3 launched on every frame after the first;
+             under 0.06 m, K1-K3 launched on every frame after the first,
+             and the graphed solves pass the online phase's checks;
 10. batched -- the offline pipeline with `opt_windows_per_dispatch` 2 over
              the first 16 frames of the pipeline path's scene (windows 0
              and 6 in one dispatch): ms per dispatch, LM iterations and host
@@ -754,19 +765,20 @@ def run_pipeline_path(torch, device, card) -> dict:
     kernels.reset_launch_counts()
     prev = kernels.launch_counts()
     per_frame, times, reads = [], [], []
-    for f in frames:
-        t0 = time.perf_counter()
-        runner.frontend(f)
-        start = runner.window_due()
-        if start is not None:
-            with SyncCounter(torch) as sc:
-                runner.solve(start)
-            reads.append(sc.count)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        now = kernels.launch_counts()
-        per_frame.append({k: now[k] - prev[k] for k in now})
-        prev = now
+    with GraphedSolves() as graphs:
+        for f in frames:
+            t0 = time.perf_counter()
+            runner.frontend(f)
+            start = runner.window_due()
+            if start is not None:
+                with SyncCounter(torch) as sc:
+                    runner.solve(start)
+                reads.append(sc.count)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            now = kernels.launch_counts()
+            per_frame.append({k: now[k] - prev[k] for k in now})
+            prev = now
     totals = kernels.launch_counts()
     out = runner.result()
     label = "pipeline path"
@@ -793,6 +805,7 @@ def run_pipeline_path(torch, device, card) -> dict:
     stray = [name for name, c in totals.items() if name not in PATH_KERNELS["pipeline"] and c > 0]
     _require(not stray, f"{label}: kernels {stray} launched off their path")
     est = out.est
+    check_graphed_solves(torch, label, graphs, [win.solve_ms() for win in out.windows], card)
     _require(bool(est.X_valid[:n].all()), f"{label}: the estimate store misses frames {est.X_valid[:n]}")
     X = est.X.t[:n].double().cpu().numpy()
     _require(bool(np.isfinite(X).all()), f"{label}: backend poses are not finite")
@@ -865,6 +878,98 @@ class PipelineProbe:
         self._classes[0].spin_once, self._classes[1]._optimize = self._spin, self._optimize
         self._classes[1]._slide_prior = self._prior
         return False
+
+
+class GraphedSolves:
+    """Records every `lm_optimize_schur` call the backend makes inside the
+    block (through `backend.backend.solve_problem`): its arguments, its
+    result and the window-LM graph counts (`schur.graph_counts`) before
+    and after it.  Only Python runs around each call; the solve's inputs
+    are fresh tensors that nothing writes afterwards, so they are kept as
+    they are for `check_graphed_solves`."""
+
+    def __enter__(self):
+        from dynosam_tpu_torch.backend import backend as tbe
+        from dynosam_tpu_torch.backend import schur
+
+        self._mod, self.real, self.calls = tbe, tbe.lm_optimize_schur, []
+        self.counts = [schur.graph_counts()]
+        real, calls = self.real, self.calls
+
+        def recorded(*args, **kw):
+            before = schur.graph_counts()
+            out = real(*args, **kw)
+            calls.append((args, kw, out, before, schur.graph_counts()))
+            return out
+
+        tbe.lm_optimize_schur = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from dynosam_tpu_torch.backend import schur
+
+        self._mod.lm_optimize_schur = self.real
+        self.counts.append(schur.graph_counts())
+        return False
+
+
+def _bit_equal(torch, a, b) -> bool:
+    leaves = torch.utils._pytree.tree_leaves
+    return (all(torch.equal(x, y) for x, y in zip(leaves(a.values), leaves(b.values)))
+            and torch.equal(a.error, b.error) and (a.iterations, a.converged) == (b.iterations, b.converged))
+
+
+def check_graphed_solves(torch, label, rec, solve_ms, card) -> None:
+    """Print the run's window-LM captures and, per window, its time in the
+    run (`solve_ms`, CUDA events), its graph replays and LM iterations;
+    then solve the window again on its own inputs graphed and eager
+    (`_graphs=False`), each between CUDA events.  Fails unless the run
+    replayed the head plus one graph per LM iteration and its result
+    equals both bit for bit: a replay runs the eager loop's kernels in the
+    same order on inputs of the same layout.  (Should cuBLAS ever choose
+    another algorithm under capture, the card's window tolerances of
+    `tests/test_torch_cuda.py:test_window_solve_on_the_card_matches_the_cpu`,
+    3e-2 in error and 2e-3 m in camera translations, are the fallback.)"""
+    c0, c1 = rec.counts
+    print(f"{label}: window-LM graph captures {c1['captures'] - c0['captures']} in this run "
+          f"({c1['captures']} in the process), replays {c1['replays'] - c0['replays']} over "
+          f"{len(rec.calls)} window solves", flush=True)
+    _require(len(rec.calls) == len(solve_ms), f"{label}: {len(rec.calls)} recorded solves, {len(solve_ms)} timed")
+    for i, ((args, kw, got, before, after), ms) in enumerate(zip(rec.calls, solve_ms)):
+        replays, captured = after["replays"] - before["replays"], after["captures"] - before["captures"]
+        graphed, g_ms, _, _ = _timed(torch, lambda: rec.real(*args, **kw))
+        eager, e_ms, _, _ = _timed(torch, lambda: rec.real(*args, **kw, _graphs=False))
+        dx = float((got.values["X"].t - eager.values["X"].t).abs().max())
+        rel = abs(float(got.error) - float(eager.error)) / abs(float(eager.error))
+        print(f"{label}: window solve {i}: {ms:.2f} ms in the run (CUDA events{', capture included' if captured else ''}"
+              f"), {replays} graph replays for {got.iterations} LM iterations; again on its inputs: graphed "
+              f"{g_ms:.2f} ms, eager {e_ms:.2f} ms ({eager.iterations} LM iterations); the run's result "
+              f"{'equals' if _bit_equal(torch, got, eager) else 'differs from'} the eager one bit for bit "
+              f"(error rel {rel:.3g}, camera {dx:.3g} m), the repeat "
+              f"{'equals' if _bit_equal(torch, got, graphed) else 'differs from'} the run's on {card}", flush=True)
+        _require(replays == 1 + got.iterations, f"{label}: window {i}: {replays} replays, {got.iterations} iterations")
+        _require(_bit_equal(torch, got, eager) and _bit_equal(torch, got, graphed),
+                 f"{label}: window {i}: graphed against eager: error rel {rel}, camera {dx} m, iterations "
+                 f"{got.iterations} / {eager.iterations}, converged {got.converged} / {eager.converged}")
+
+
+def factorisation_kernels(torch, n: int, device) -> list:
+    """The device kernels of one eager `cholesky_ex` + `cholesky_solve` of
+    an (n, n) SPD system, as the profiler names them (copies and fills
+    left out)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn((n, n), generator=g, device=device)
+    spd = a @ a.T + n * torch.eye(n, device=device)
+    b = torch.randn((n, 1), generator=g, device=device)
+    torch.linalg.cholesky_ex(spd)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        L, _ = torch.linalg.cholesky_ex(spd)
+        torch.cholesky_solve(b, L)
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Activity Buffer", "Memcpy", "Memset"))})
 
 
 def check_launches(probe, label, required, n_frames) -> None:
@@ -961,7 +1066,7 @@ def run_online_phase(torch, device, card, world_pose: bool = False) -> dict:
     n = PIPELINE_FRAMES
     scene, frames = kitti_scene(device, n_frames=n)
     with tempfile.TemporaryDirectory() as out:
-        with PipelineProbe(torch) as probe:
+        with PipelineProbe(torch) as probe, GraphedSolves() as graphs:
             result = run_and_log(RenderedDataset(scene, frames), cfg, out, device=device)
         evals = evaluate_all(out)
     h, w = frames[0].gray.shape
@@ -989,6 +1094,15 @@ def run_online_phase(torch, device, card, world_pose: bool = False) -> dict:
     _require(starts == [(0, 10), (6, 10), (12, 10), (18, 10)], f"{label}: windows {starts}")
     # a window's reads as counted around `_optimize` exclude its prior build's
     report_solves(label, backend, probe.reads, card)
+    check_graphed_solves(torch, label, graphs, [ev[0].elapsed_time(ev[1]) for _, _, _, ev in backend.solves], card)
+    if not world_pose:
+        vals = graphs.calls[0][2].values
+        W, O = vals["H"].t.shape[:2]
+        n_red = 6 * W * (1 + O)
+        names = factorisation_kernels(torch, n_red, device)
+        print(f"{label}: linalg backend {torch.backends.cuda.preferred_linalg_library()}; one eager cholesky_ex + "
+              f"cholesky_solve at the reduced system's {n_red}x{n_red} ran "
+              f"{'MAGMA' if any('magma' in k.lower() for k in names) else 'cuSOLVER'} kernels {names}", flush=True)
     for start, ms, reads in probe.priors:
         print(f"{label}: boundary prior for the window at {start}: {ms:.2f} ms (host clock, synchronised), "
               f"host reads {reads} on {card}", flush=True)

@@ -38,6 +38,12 @@ window at once, and the host reads all windows' flags once per iteration.
 same closed-form blocks as the matrix-free J^T W J product of the LM-PCG
 (`solver.lm_optimize`).
 
+On the card `lm_optimize_schur` replays each LM iteration as a CUDA
+graph: `_WindowLM` keeps one window shape's LM state in fixed tensors, so
+its head and both iteration variants (with and without the normal-system
+rebuild) are captured once per process and shape and replayed from the
+same host loop, one host read per iteration.
+
 `lm_optimize_schur(overrides=...)` runs the same LM schedule over the
 per-rank residual, error, build and step of the distributed solve
 (`parallel/schur_dist.py`); `chain_solve` is the generic block-Thomas
@@ -50,9 +56,11 @@ environment switches.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..core.lie import SE3, se3_adjoint, se3_between, se3_compose, se3_identity, se3_inverse, so3_hat
 from ..ops import factors
@@ -858,66 +866,287 @@ def _formulation(formulation: int):
     return world_pose_families, world_pose_residuals, build_normal_system_pose, pose_key(1)
 
 
+class _LMProblem(NamedTuple):
+    """One LM problem's pieces: ``residuals(vals) -> res``,
+    ``build(vals, res) -> system``, ``step(sys, lam) -> {X, P, sp, dp}``,
+    ``error(res) -> error``, the retraction, the values' pose key, the LM
+    settings and the batch shape (() for one problem, (B,) for B
+    independent ones)."""
+
+    residuals: Callable
+    build: Callable
+    step: Callable
+    error: Callable
+    retract: Callable
+    pose_key: str
+    lm_cfg: LMConfig
+    batch_shape: tuple
+
+
+def _lm_head(values: dict, p: _LMProblem) -> dict:
+    """The LM state at `values` before the first iteration: residuals,
+    error (also the initial error), lambda, lowest lambda, done."""
+    res = p.residuals(values)
+    err = p.error(res)
+    dev = err.device
+    return dict(vals=values, res=res, err=err, err_init=err,
+                lam=torch.full(p.batch_shape, p.lm_cfg.initial_lambda, dtype=torch.float32, device=dev),
+                lam_min=torch.full(p.batch_shape, p.lm_cfg.min_lambda, dtype=torch.float32, device=dev),
+                done=torch.zeros(p.batch_shape, dtype=torch.bool, device=dev))
+
+
+def _lm_iteration(s: dict, rebuild: bool, p: _LMProblem) -> dict:
+    """The device half of one LM iteration on the state `s` (`_lm_head`'s,
+    and from the second iteration on the normal system `sys` and
+    `accept`): the normal system rebuilt if asked (in a batch, for the
+    problems that accepted), the Schur step, retraction, trial residuals
+    and error; then the JAX package's schedule: accept on a lower robust
+    error, raise the lowest lambda on a non-finite step (the NaN ratchet),
+    scale lambda, the gtsam-style convergence tests, problems already done
+    keeping their state.  Returns the next state, with `flags` the
+    (2, problems) accept and done flags the host reads."""
+    vals, res, err, lam, lam_min, done = (s[k] for k in ("vals", "res", "err", "lam", "lam_min", "done"))
+    cfg, sys = p.lm_cfg, s.get("sys")
+    if rebuild:
+        new = p.build(vals, res)
+        sys = new if sys is None or not p.batch_shape else _tree_where(s["accept"], new, sys)
+    d = p.step(sys, lam)
+    delta = {"X": d["X"], p.pose_key: d["P"], "sp": d["sp"], "dp": d["dp"]}
+    new_vals = p.retract(vals, delta)
+    new_res = p.residuals(new_vals)
+    new_err = p.error(new_res)
+    # a failed Cholesky (NaN step) must reject, not poison the state
+    new_err = torch.where(torch.isfinite(new_err), new_err, torch.full_like(new_err, float("inf")))
+    active = ~done
+    accept = (new_err < err) & active
+    # ratchet only on a non-finite step, not on a divergent trial
+    finite = [torch.isfinite(delta[k].reshape(*p.batch_shape, -1).sum(-1)) for k in ("X", p.pose_key)]
+    step_nan = ~(finite[0] & finite[1]) & active
+    lam_min = torch.where(step_nan, torch.maximum(lam_min, lam * cfg.lambda_factor), lam_min)
+    err_out = torch.where(accept, new_err, err)
+    lam_out = torch.where(accept, torch.maximum(lam / cfg.lambda_factor, lam_min),
+                          torch.clamp(lam * cfg.lambda_factor, max=cfg.max_lambda))
+    change = torch.abs(err - err_out)
+    converged = accept & ((change < cfg.rel_error_tol * torch.clamp(err, min=1e-30)) | (change < cfg.abs_error_tol))
+    done = done | converged | (active & (lam_out >= cfg.max_lambda))
+    return dict(vals=_tree_where(accept, new_vals, vals), res=_tree_where(accept, new_res, res), err=err_out,
+                lam=torch.where(active, lam_out, lam), lam_min=lam_min, done=done, sys=sys, accept=accept,
+                flags=torch.stack([accept, done]).reshape(2, -1))
+
+
+def _lm_schedule(head: Callable, iteration: Callable, lm_cfg: LMConfig, n_problems: int = 1):
+    """The host half of the LM loop, the JAX package's `lax.while_loop`:
+    `head()`, then `iteration(rebuild)`, which returns the (2, problems)
+    accept and done flags on the device, with the normal system rebuilt on
+    the first iteration and after any accepted step, until every problem
+    is done or the iteration cap.  Reading the flags is the loop's one
+    host read an iteration.  Returns (iterations per problem, each frozen
+    at its convergence as a vmapped while loop freezes it; done per
+    problem)."""
+    head()
+    its, done, accepted = [0] * n_problems, [False] * n_problems, [True]
+    n = 0
+    while n < lm_cfg.max_iterations and not all(done):
+        accepted, done_new = iteration(any(accepted)).tolist()   # the one host read
+        its = [i + (not d) for i, d in zip(its, done)]
+        done = done_new
+        n += 1
+    return its, done
+
+
 def _lm_loop(values: dict, residuals: Callable, build: Callable, step: Callable, specs, lm_cfg: LMConfig,
              pose_key: str, batch_shape: tuple, error: Callable | None = None):
-    """The JAX package's `lax.while_loop`, over one problem (`batch_shape`
-    ()) or a batch of independent ones (leading dim B, each frozen at its
-    own convergence as a vmapped while loop freezes it).  The loop runs on
-    the host and reads the device once per iteration: every problem's
-    accept and done flags in one transfer.  `error(res)` replaces the
-    robust total of the residual families.  Returns (values, error,
-    initial error, iterations per problem, lambda, done per problem)."""
+    """The LM loop over one problem (`batch_shape` ()) or a batch of
+    independent ones (leading dim B), eagerly: `_lm_schedule` over
+    `_lm_head` and `_lm_iteration`.  `error(res)` replaces the robust total
+    of the residual families.  Returns (values, error, initial error,
+    iterations per problem, lambda, done per problem)."""
     if error is None:
         def error(r):
             return total_error(r, specs, batch_dims=len(batch_shape))
-    res = residuals(values)
-    err = error(res)
-    err_init = err
-    dev = err.device
-    lam = torch.full(batch_shape, lm_cfg.initial_lambda, dtype=torch.float32, device=dev)
-    lam_min = torch.full(batch_shape, lm_cfg.min_lambda, dtype=torch.float32, device=dev)
-    done = torch.zeros(batch_shape, dtype=torch.bool, device=dev)
-    n_problems = max(1, int(torch.Size(batch_shape).numel()))
-    its, done_host = [0] * n_problems, [False] * n_problems
-    vals, sys, accept = values, None, None
-    n = 0
-    while n < lm_cfg.max_iterations and not all(done_host):
-        if sys is None:
-            sys = build(vals, res)
-        elif any(accepted):
-            sys = build(vals, res) if not batch_shape else _tree_where(accept, build(vals, res), sys)
-        delta = step(sys, lam)
-        delta = {"X": delta["X"], pose_key: delta["P"], "sp": delta["sp"], "dp": delta["dp"]}
-        new_vals = retract_tree(vals, delta)
-        new_res = residuals(new_vals)
-        new_err = error(new_res)
-        # a failed Cholesky (NaN step) must reject, not poison the state
-        new_err = torch.where(torch.isfinite(new_err), new_err, torch.full_like(new_err, float("inf")))
-        active = ~done
-        accept = (new_err < err) & active
-        # ratchet only on a non-finite step, not on a divergent trial
-        finite = [torch.isfinite(delta[k].reshape(*batch_shape, -1).sum(-1)) for k in ("X", pose_key)]
-        step_nan = ~(finite[0] & finite[1]) & active
-        lam_min = torch.where(step_nan, torch.maximum(lam_min, lam * lm_cfg.lambda_factor), lam_min)
-        err_out = torch.where(accept, new_err, err)
-        lam_out = torch.where(accept, torch.maximum(lam / lm_cfg.lambda_factor, lam_min),
-                              torch.clamp(lam * lm_cfg.lambda_factor, max=lm_cfg.max_lambda))
-        change = torch.abs(err - err_out)
-        converged = accept & ((change < lm_cfg.rel_error_tol * torch.clamp(err, min=1e-30))
-                              | (change < lm_cfg.abs_error_tol))
-        done = done | converged | (active & (lam_out >= lm_cfg.max_lambda))
-        accepted, done_host_new = torch.stack([accept, done]).reshape(2, -1).tolist()   # the one host read
-        its = [i + (not d) for i, d in zip(its, done_host)]
-        done_host = done_host_new
-        vals, res = _tree_where(accept, new_vals, vals), _tree_where(accept, new_res, res)
-        err, lam = err_out, torch.where(active, lam_out, lam)
-        n += 1
-    return vals, err, err_init, its, lam, done_host
+    p = _LMProblem(residuals, build, step, error, retract_tree, pose_key, lm_cfg, batch_shape)
+    s = {}
+
+    def iteration(rebuild):
+        s.update(_lm_iteration(s, rebuild, p))
+        return s["flags"]
+
+    its, done = _lm_schedule(lambda: s.update(_lm_head(values, p)), iteration, lm_cfg,
+                             max(1, int(torch.Size(batch_shape).numel())))
+    return s["vals"], s["err"], s["err_init"], its, s["lam"], done
+
+
+def _tree_copy_(dst, src) -> None:
+    """Copy every tensor of `src` into the tensor at the same place of
+    `dst` (a dict's keys taken from `src`); other leaves, and tensors that
+    are their own destination, are skipped."""
+    if isinstance(dst, torch.Tensor):
+        if dst is not src:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in src:
+            _tree_copy_(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for a, b in zip(dst, src):
+            _tree_copy_(a, b)
+
+
+def _tree_clone(tree):
+    """A copy of `tree` with every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_tree_clone(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _signature(tree):
+    """The shape, strides and dtype of every tensor of `tree`, in its
+    structure (other leaves, as a window's `start`, read as None).  The
+    strides belong to it because a kernel may sum in another order over
+    another layout: a graph replays bit for bit what the eager loop
+    computes only on inputs laid out as at its capture."""
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape), tree.stride(), tree.dtype
+    if isinstance(tree, dict):
+        return tuple((k, _signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_signature(v) for v in tree)
+    return None
+
+
+class _WindowLM:
+    """The direct-Schur LM of one window shape, its state in tensors it
+    allocates once: the inputs (values, window, masks, anchor, prior; the
+    values double as the current values) and the LM state of `_lm_head`
+    and `_lm_iteration` (residuals, error, initial error, lambda, lowest
+    lambda, done, the normal system, accept and the flags).
+
+    `head` and `iteration(rebuild)` run `_lm_head` and `_lm_iteration`
+    and copy their results into that state, so each reads and writes only
+    those tensors and can be captured once as a CUDA graph (`capture`) and
+    replayed for every window of the shape.  `solve` copies a window into
+    the inputs and runs `_lm_schedule`, the host loop `_lm_loop` runs,
+    over them (or their graphs); the result is cloned out of the state.
+    Without `capture` the same functions run eagerly, on any device."""
+
+    def __init__(self, values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig, lm_cfg: LMConfig,
+                 anchor: SE3, formulation: int = 0, anchor_prior_L=None):
+        families, residual_fn, build_fn, pose_key, sqrt_w, step_fn, error_fn, retract = _pieces(formulation)
+        specs = families(cfg).robust
+        self.inputs = _tree_clone((values, w, masks, anchor, anchor_prior_L))
+        vals, w, masks, anchor, prior = self.inputs
+        self.p = _LMProblem(lambda v: residual_fn(v, w, masks, cfg, anchor, prior),
+                            lambda v, res: build_fn(v, sqrt_w(res, specs), w, masks, cfg, anchor, res, prior),
+                            lambda sys, lam: step_fn(sys, lam, lm_cfg.diag_floor, formulation),
+                            lambda res: error_fn(res, specs), retract, pose_key, lm_cfg, ())
+        self.s = dict(_tree_clone(_lm_head(vals, self.p)), vals=vals)
+        dev = self.s["err"].device
+        self.s.update(sys=self.p.build(vals, self.s["res"]), accept=torch.zeros((), dtype=torch.bool, device=dev),
+                      flags=torch.zeros((2, 1), dtype=torch.bool, device=dev))
+        self.graphs = None
+
+    def head(self) -> None:
+        _tree_copy_(self.s, _lm_head(self.s["vals"], self.p))
+
+    def iteration(self, rebuild: bool) -> None:
+        _tree_copy_(self.s, _lm_iteration(self.s, rebuild, self.p))
+
+    def _variants(self) -> dict:
+        return {"head": self.head, "build": lambda: self.iteration(True), "step": lambda: self.iteration(False)}
+
+    def capture(self) -> None:
+        """Capture the head and both iteration variants as CUDA graphs
+        sharing one memory pool, after two eager rounds on the capture
+        stream (the cuBLAS and cuSOLVER handles and workspaces are made
+        there, outside a capture).  The capture is thread-local: another
+        thread of the process (a loader's prefetch, which may rectify
+        frames or match stereo on the card) may allocate and synchronise
+        meanwhile.  The state is left as the warm-up leaves it: `solve`
+        loads it anew."""
+        stream = torch.cuda.Stream(device=self.s["err"].device)
+        stream.wait_stream(torch.cuda.current_stream())
+        variants = self._variants()
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                for fn in variants.values():
+                    fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        for name, fn in variants.items():
+            graphs[name] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[name], pool=pool, stream=stream, capture_error_mode="thread_local"):
+                fn()
+        self.graphs = graphs
+
+    def _run(self, name: str) -> None:
+        if self.graphs is None:
+            self._variants()[name]()
+        else:
+            self.graphs[name].replay()
+            _GRAPH_COUNTS["replays"] += 1
+
+    def _iterate(self, rebuild: bool) -> torch.Tensor:
+        self._run("build" if rebuild else "step")
+        return self.s["flags"]
+
+    def solve(self, values: dict, w: WindowData, masks: WindowMasks, anchor: SE3, anchor_prior_L=None) -> LMResult:
+        _tree_copy_(self.inputs, (values, w, masks, anchor, anchor_prior_L))
+        its, done = _lm_schedule(lambda: self._run("head"), self._iterate, self.p.lm_cfg)
+        s = self.s
+        return LMResult(values=_tree_clone(s["vals"]), error=s["err"].clone(), initial_error=s["err_init"].clone(),
+                        iterations=its[0], lam=s["lam"].clone(), converged=done[0])
+
+
+# Captured window LMs by everything a capture bakes in, least recently
+# used first: a fresh backend (a benchmark's next rep, a CLI user's next
+# run) reuses the captures of the process's earlier windows.
+_WINDOW_LMS: OrderedDict = OrderedDict()
+_WINDOW_LMS_MAX = 4
+_GRAPH_COUNTS = {"captures": 0, "replays": 0}
+
+
+def graph_counts() -> dict:
+    """{"captures", "replays"}: window-LM graph sets captured and graphs
+    replayed in this process (head, rebuild and step variants each count
+    as one replay)."""
+    return dict(_GRAPH_COUNTS)
+
+
+def _pieces(formulation: int) -> tuple:
+    """(families, residuals, build, pose key, sqrt_weights, schur_step,
+    total_error, retract_tree): every function a window LM's iteration
+    reaches through this module's names, resolved now.  A capture bakes in
+    the ones resolved when it was made, so they belong to its cache key: a
+    function replaced for a run (as the benchmark's controls round
+    `retract_tree`'s output) captures anew."""
+    return (*_formulation(formulation), sqrt_weights, schur_step, total_error, retract_tree)
+
+
+def _captured_window_lm(values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig, lm_cfg: LMConfig,
+                        anchor: SE3, formulation: int, anchor_prior_L) -> _WindowLM:
+    """The cached `_WindowLM` of this window's shape and settings, captured
+    on first use (warm-up and capture run on the window itself)."""
+    key = (values["X"].t.device, formulation, _pieces(formulation), cfg, lm_cfg,
+           _signature((values, w, masks, anchor, anchor_prior_L)))
+    lm = _WINDOW_LMS.pop(key, None)
+    if lm is None:
+        lm = _WindowLM(values, w, masks, cfg, lm_cfg, anchor, formulation, anchor_prior_L)
+        lm.capture()
+        _GRAPH_COUNTS["captures"] += 1
+        while len(_WINDOW_LMS) >= _WINDOW_LMS_MAX:
+            _WINDOW_LMS.popitem(last=False)
+    _WINDOW_LMS[key] = lm
+    return lm
 
 
 def lm_optimize_schur(values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig,
                       lm_cfg: LMConfig, anchor: SE3, formulation: int = 0,
-                      chain_solver=None, overrides=None, anchor_prior_L=None) -> LMResult:
+                      chain_solver=None, overrides=None, anchor_prior_L=None, _graphs: bool = True) -> LMResult:
     """Levenberg-Marquardt with direct Schur steps, WorldMotion
     (`formulation` 0) or WorldPose (1), the anchor isotropic or the
     (6, 6) Cholesky factor `anchor_prior_L` of a full-information prior.
@@ -929,6 +1158,15 @@ def lm_optimize_schur(values: dict, w: WindowData, masks: WindowMasks, cfg: Back
     reads the device once per iteration (the accept and done flags in one
     transfer), so `iterations` is also the solve's count of host reads.
     `lam` stays a float32 tensor on the device, as in the JAX package.
+
+    On a CUDA device (without `overrides`) each iteration's device work is
+    a CUDA graph replay (`_WindowLM`): the head, the iteration with the
+    normal-system rebuild and the one without it are captured once per
+    process for each window shape and setting, and every later window of
+    that shape copies its inputs into the graphs' buffers and replays
+    them, with the same kernels in the same order as the eager loop.
+    Under a `TorchDispatchMode` (`utils/debug.py:nan_debug`), and with
+    `_graphs=False`, the eager loop runs there too.
 
     `overrides` replaces the per-iteration pieces and keeps this schedule
     (the distributed solve, `parallel/schur_dist.py`, whose pieces work on
@@ -942,6 +1180,11 @@ def lm_optimize_schur(values: dict, w: WindowData, masks: WindowMasks, cfg: Back
         raise NotImplementedError(
             "chain_solver needs the subtractive elimination (DYNO_SCHUR_STABLE=0), which the port "
             "leaves out (ROADMAP.md, not ported by the port rules); the stable step solves its own chains")
+    # a dispatch mode (`utils/debug.py:nan_debug`) must see every operator,
+    # which a graph replay would not dispatch
+    if overrides is None and _graphs and values["X"].t.is_cuda and _get_current_dispatch_mode() is None:
+        return _captured_window_lm(values, w, masks, cfg, lm_cfg, anchor, formulation, anchor_prior_L).solve(
+            values, w, masks, anchor, anchor_prior_L)
     ov = overrides or {}
     families, residual_fn, build_fn, pose_key = _formulation(formulation)
     specs = families(cfg).robust

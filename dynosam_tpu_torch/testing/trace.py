@@ -22,7 +22,9 @@ kernels, then the operators that take the most device and host time.
 count must be 4 + a multiple of 6).  After the warm-up frames, each traced
 frame's frontend step and, on the frames that complete a window, its
 window solve are profiled apart: the same figures for the frontend frames
-and for each window solve, then the operators of the window solves.
+and for each window solve (with its CUDA graph launches, and each
+synchronising call counted by the operators it was issued under), then
+the operators of the window solves.
 
 `--full-batch`: the golden run (`testing/scenes.py:golden_dataset`,
 `golden_config`: 32 frames 160x120) through `DynoPipeline` with the
@@ -55,6 +57,7 @@ import time
 from pathlib import Path
 
 PORT_KERNELS = ("lk_level_kernel", "point_sample_kernel", "shi_tomasi_kernel", "orb_sample_kernel")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
 def _stats(torch, prof, wall_ms: float, n: int) -> dict:
@@ -74,16 +77,35 @@ def _stats(torch, prof, wall_ms: float, n: int) -> dict:
         us = sum(e.time_range.elapsed_us() for e in mine)
         port[tag] = dict(launches=len(mine) / n, device_us_per_launch=us / max(len(mine), 1),
                          device_us=us / n)
+    n_graphs = sum(e.count for e in events if e.key == "cudaGraphLaunch")
     return dict(wall_ms=wall_ms / n, device_busy_ms=busy,
                 idle_share=None if busy is None else 1 - busy / (wall_ms / n),
-                kernel_launches=n_kernels / n, memcpy_or_sync_calls=n_sync / n, port_kernels=port)
+                kernel_launches=n_kernels / n, memcpy_or_sync_calls=n_sync / n, graph_launches=n_graphs / n,
+                port_kernels=port)
+
+
+def _host_reads(prof) -> dict:
+    """The synchronising runtime calls of a profiled run (`SYNC_CALLS`),
+    counted by the chain of operators open when each was issued
+    (outermost first)."""
+    reads = {}
+    for e in prof.events():
+        if e.name in SYNC_CALLS:
+            chain, p = [], e.cpu_parent
+            while p is not None:
+                chain.append(p.name)
+                p = p.cpu_parent
+            key = f"{e.name} under {' > '.join(reversed(chain)) or 'no operator'}"
+            reads[key] = reads.get(key, 0) + 1
+    return reads
 
 
 def _line(label: str, s: dict) -> str:
     busy = ("not measured (the profiler reported no device time)" if s["device_busy_ms"] is None
             else f"{s['device_busy_ms']:.3f} ms, idle share {s['idle_share']:.3f}")
     return (f"{label}: host wall {s['wall_ms']:.2f} ms; device busy {busy}; "
-            f"CUDA kernel launches {s['kernel_launches']:.0f}; memcpy/sync calls {s['memcpy_or_sync_calls']:.0f}")
+            f"CUDA kernel launches {s['kernel_launches']:.0f}; memcpy/sync calls {s['memcpy_or_sync_calls']:.0f}; "
+            f"CUDA graph launches {s['graph_launches']:.0f}")
 
 
 def _profiled(torch, profile, activities, fn):
@@ -146,14 +168,15 @@ def _trace_pipeline(torch, profile, acts, args, device, card) -> dict:
             s = _stats(torch, prof, wall, 1)
             r = holder[0].result
             s.update(start=start, iterations=r.iterations, initial_error=float(r.initial_error),
-                     error=float(r.error), frame=len(runner.packets) - 1)
+                     error=float(r.error), frame=len(runner.packets) - 1, host_reads=_host_reads(prof))
             windows.append(s)
             print("window solve operators (top by device time, then host time):")
             _tables(torch, prof, rows=15)
     n = len(fe)
     mean = lambda key, rows: sum(r[key] for r in rows) / len(rows) if rows and all(  # noqa: E731
         r[key] is not None for r in rows) else None
-    fe_mean = {k: mean(k, fe) for k in ("wall_ms", "device_busy_ms", "kernel_launches", "memcpy_or_sync_calls")}
+    fe_mean = {k: mean(k, fe) for k in ("wall_ms", "device_busy_ms", "kernel_launches", "memcpy_or_sync_calls",
+                                        "graph_launches")}
     fe_mean["idle_share"] = (None if fe_mean["device_busy_ms"] is None
                              else 1 - fe_mean["device_busy_ms"] / fe_mean["wall_ms"])
     print(f"card: {card}")
@@ -164,6 +187,8 @@ def _trace_pipeline(torch, profile, acts, args, device, card) -> dict:
     for w in windows:
         print(_line(f"window solve [{w['start']}, {w['start'] + 10}) at frame {w['frame']}, "
                     f"{w['iterations']} LM iterations, error {w['initial_error']:.4g} -> {w['error']:.4g}", w))
+        for call, count in sorted(w["host_reads"].items()):
+            print(f"  host reads: {count} x {call}")
         f_row = fe[w["frame"] - args.warmup]
         print(f"  frame {w['frame']} with its window solve: host wall {f_row['wall_ms'] + w['wall_ms']:.2f} ms, "
               f"against {fe_mean['wall_ms']:.2f} ms for a frontend-only frame")

@@ -3,7 +3,8 @@ PyTorch version on the same CUDA tensors, short frontend-only runs
 (Shi-Tomasi and ORB detectors) that must launch their kernels on every
 steady frame, backend solves (a direct-Schur window of each formulation,
 a batched dispatch of two windows, a full-batch LM-PCG) on the card
-against the CPU, and drift recovery in full for both updaters.
+against the CPU, the window solve's CUDA graphs against its eager loop,
+and drift recovery in full for both updaters.
 
 Marked `cuda`; a fixture skips them where no card is present.  On a machine
 with a card and the CUDA toolkit (this file imports neither JAX nor the
@@ -335,6 +336,243 @@ def test_lm_pcg_full_batch_on_the_card_matches_the_cpu(cuda):
     assert float(gpu.error) < 1e-3 * float(gpu.initial_error)
     assert float(gpu.error) == pytest.approx(float(cpu.error), rel=1e-2)
     assert float((gpu.values["X"].t.cpu() - cpu.values["X"].t).abs().max()) <= 1e-4
+
+
+def _bit_equal(a, b) -> bool:
+    leaves = torch.utils._pytree.tree_leaves
+    return (all(torch.equal(x, y) for x, y in zip(leaves(a.values), leaves(b.values)))
+            and torch.equal(a.error, b.error) and torch.equal(a.lam, b.lam)
+            and (a.iterations, a.converged) == (b.iterations, b.converged))
+
+
+@pytest.mark.parametrize("updater", [0, 1], ids=["world_motion", "world_pose_fixed_lag"])
+def test_graphed_window_solves_match_the_eager_loop(cuda, monkeypatch, updater):
+    """Four consecutive windows (three in stream and `finish`'s) of a
+    22-frame simulator sequence through `RGBDBackend` on the card, with
+    each LM iteration replayed as a CUDA graph (the default) and with the
+    eager loop (`lm_optimize_schur(_graphs=False)`): every solve equal bit
+    for bit (WorldPose with the fixed-lag prior too), since a replay runs
+    the eager loop's kernels in the same order.  A second, fresh backend
+    captures nothing, replays the head plus one graph per LM iteration,
+    and equals the first bit for bit."""
+    import functools
+
+    from dynosam_tpu_torch.backend import backend as tbe
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu_torch.utils.config import BackendConfig, CapacityConfig
+
+    scfg = ScenarioConfig(n_frames=22)
+    packets = Scenario(scfg).frontend_outputs()
+    cfg = BackendConfig(backend_updater_enum=updater, use_fixed_lag_prior=updater == 1)
+    cap = CapacityConfig(max_static_tracks=scfg.ns, max_dynamic_tracks=scfg.nd, max_objects=scfg.no, max_frames=64)
+
+    def run():
+        be = tbe.RGBDBackend(cfg, cap, device=cuda)
+        for p in packets:
+            be.spin(p)
+        be.finish()
+        torch.cuda.synchronize()
+        return [r for _, _, r, _ in be.solves]
+
+    graphed = run()
+    before = schur.graph_counts()
+    again = run()
+    after = schur.graph_counts()
+    monkeypatch.setattr(tbe, "lm_optimize_schur", functools.partial(tbe.lm_optimize_schur, _graphs=False))
+    eager = run()
+    assert len(graphed) == len(eager) == 4
+    assert after["captures"] == before["captures"]
+    assert after["replays"] - before["replays"] == sum(1 + r.iterations for r in again)
+    for g, a, e in zip(graphed, again, eager):
+        assert g.values["X"].t.device.type == "cuda" and float(g.error) < float(g.initial_error)
+        assert _bit_equal(g, a) and _bit_equal(g, e)
+
+
+def test_graphed_window_solve_rejects_failed_choleskys_as_the_eager_loop(cuda, monkeypatch):
+    """A normal system whose reduced Cholesky fails (Hcc negated, as in
+    `test_window_solve_on_the_card_matches_the_cpu`) gives a NaN step on
+    every iteration: the graphed solve rejects each one, raises lambda to
+    its cap and ends on its initial values and error, as the eager loop
+    does, with the same iterations and lambda."""
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.backend.solver import LMConfig
+
+    real_build = schur.build_normal_system
+    monkeypatch.setattr(schur, "build_normal_system",
+                        lambda *a, **k: (lambda s: s._replace(Hcc=-s.Hcc))(real_build(*a, **k)))
+    cfg, w, masks, v0, _ = _window_problem(cuda)
+    lm = LMConfig(max_iterations=30)
+    captures = schur.graph_counts()["captures"]
+    got = schur.lm_optimize_schur(v0, w, masks, cfg, lm, w.X_init[0])
+    want = schur.lm_optimize_schur(v0, w, masks, cfg, lm, w.X_init[0], _graphs=False)
+    torch.cuda.synchronize()
+    assert schur.graph_counts()["captures"] == captures + 1
+    assert got.converged and got.iterations == want.iterations
+    assert torch.equal(got.lam, want.lam) and torch.equal(got.error, got.initial_error)
+    assert torch.equal(got.values["X"].t, v0["X"].t) and torch.equal(got.error, want.error)
+
+
+def _round16(tree):
+    """Floating tensors of a tree (dicts, SE3) rounded to bfloat16 and back."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(torch.bfloat16).to(tree.dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: _round16(v) for k, v in tree.items()}
+    return type(tree)(*(_round16(v) for v in tree))
+
+
+def test_a_replaced_retraction_captures_anew_on_the_card(cuda, monkeypatch):
+    """After a window shape is captured, `schur.retract_tree` replaced by
+    one that rounds the state to bfloat16 (the benchmark's `bf16_state`
+    control) keys a new capture: the graphed solve equals the eager loop
+    under the replacement bit for bit and differs from the sound solve."""
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.backend.solver import LMConfig
+
+    cfg, w, masks, _, moved = _window_problem(cuda)
+    lm = LMConfig(max_iterations=10)
+    sound = schur.lm_optimize_schur(moved, w, masks, cfg, lm, w.X_init[0])
+    captures = schur.graph_counts()["captures"]
+    real = schur.retract_tree
+    monkeypatch.setattr(schur, "retract_tree", lambda v, d: _round16(real(v, d)))
+    got = schur.lm_optimize_schur(moved, w, masks, cfg, lm, w.X_init[0])
+    want = schur.lm_optimize_schur(moved, w, masks, cfg, lm, w.X_init[0], _graphs=False)
+    torch.cuda.synchronize()
+    assert schur.graph_counts()["captures"] == captures + 1
+    assert _bit_equal(got, want) and not _bit_equal(got, sound)
+
+
+def test_window_capture_beside_a_thread_that_uses_the_card(cuda, monkeypatch, frames):
+    """A window shape captured while another thread rectifies host frames
+    on the card and reads them back, allocating fresh device memory each
+    round (a loader's prefetch thread with `distortion` set does the
+    copies, allocations and launches): the capture succeeds, the thread
+    runs on through it without an error, and the graphed solve equals the
+    eager loop bit for bit."""
+    import threading
+
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.backend.solver import LMConfig
+    from dynosam_tpu_torch.core.distortion import Distortion
+    from dynosam_tpu_torch.frontend.frontend import to_device
+    from dynosam_tpu_torch.frontend.rectify import make_rectifier
+    from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
+
+    cam = RenderedScene(RenderConfig(n_frames=1, h=192, w=256, n_objects=2), device=cuda).cam
+    rectify = make_rectifier(cam, Distortion((-0.15, 0.03, 0.0, 0.0)), device=cuda)
+    host_frame = to_device(frames[1], "cpu")
+    stop, errors, rounds, held = threading.Event(), [], [0], []
+
+    def worker():
+        try:
+            while not stop.is_set():
+                if len(held) < 1000:      # 4 MiB a round, kept: the allocator must reserve new memory
+                    held.append(torch.empty(2 ** 20, device=cuda))
+                rectify(host_frame).gray.cpu()
+                rounds[0] += 1
+        except BaseException as e:        # noqa: BLE001 - reported by the test
+            errors.append(e)
+
+    monkeypatch.setattr(schur, "_WINDOW_LMS", type(schur._WINDOW_LMS)())
+    cfg, w, masks, v0, _ = _window_problem(cuda)
+    lm = LMConfig(max_iterations=10)
+    captures = schur.graph_counts()["captures"]
+    t = threading.Thread(target=worker)
+    t.start()
+    try:
+        while rounds[0] < 3 and t.is_alive():
+            stop.wait(0.01)
+        before = rounds[0]
+        got = schur.lm_optimize_schur(v0, w, masks, cfg, lm, w.X_init[0])
+        during = rounds[0] - before
+    finally:
+        stop.set()
+        t.join()
+    held.clear()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert schur.graph_counts()["captures"] == captures + 1 and during > 0
+    assert _bit_equal(got, schur.lm_optimize_schur(v0, w, masks, cfg, lm, w.X_init[0], _graphs=False))
+
+
+def test_online_run_captures_its_window_while_the_prefetch_thread_rectifies(cuda, monkeypatch, tmp_path):
+    """`run_and_log` over 14 rendered frames (192x256) served on the host
+    with `distortion` set, so the loader's prefetch thread rectifies each
+    frame on the card, with the window cache empty: the first window is
+    captured mid-run, and the thread's rectification of frame 10 is held
+    until a capture has begun and runs while it is open.  Every window
+    then solves graphed (one capture, the head plus one replay per LM
+    iteration) with its error down."""
+    import threading
+    import time
+
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.core.distortion import Distortion
+    from dynosam_tpu_torch.frontend.frontend import to_device
+    from dynosam_tpu_torch.pipeline import run_and_log
+    from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
+    from dynosam_tpu_torch.testing.scenes import RenderedDataset
+    from dynosam_tpu_torch.utils.config import CapacityConfig, DynoConfig
+
+    scene = RenderedScene(RenderConfig(n_frames=14, h=192, w=256, n_objects=2), device=cuda)
+    ds = RenderedDataset(scene, [to_device(f, "cpu") for f in scene.frames()])
+    ds.distortion, ds.device = Distortion((-0.15, 0.03, 0.0, 0.0)), cuda
+    real_rectify = ds._get_rectifier()
+    capturing, spans, rects = threading.Event(), [], []
+    real_begin, real_end = torch.cuda.CUDAGraph.capture_begin, torch.cuda.CUDAGraph.capture_end
+
+    def begin(graph, *a, **k):
+        real_begin(graph, *a, **k)
+        spans.append([time.perf_counter(), None])
+        capturing.set()
+        time.sleep(0.2)                   # the capture stays open while the thread rectifies
+
+    def end(graph, *a, **k):
+        spans[-1][1] = time.perf_counter()
+        real_end(graph, *a, **k)
+
+    def rectify(f):
+        if len(rects) == 10:
+            capturing.wait(timeout=120)
+        t0 = time.perf_counter()
+        out = real_rectify(f)
+        rects.append((t0, time.perf_counter()))
+        return out
+
+    monkeypatch.setattr(ds, "_get_rectifier", lambda: rectify)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", begin)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_end", end)
+    monkeypatch.setattr(schur, "_WINDOW_LMS", type(schur._WINDOW_LMS)())
+    before = schur.graph_counts()
+    cfg = DynoConfig(capacity=CapacityConfig(max_static_tracks=512, max_dynamic_tracks=1024, max_objects=8))
+    result = run_and_log(ds, cfg, str(tmp_path), device=cuda)
+    torch.cuda.synchronize()
+    after = schur.graph_counts()
+    solved = [r for _, _, r, _ in result.backend.solves]
+    assert len(rects) == 14 and len(solved) >= 2
+    assert any(s0 <= t0 and t1 <= s1 for t0, t1 in rects for s0, s1 in spans), (rects, spans)
+    assert after["captures"] == before["captures"] + 1
+    assert after["replays"] - before["replays"] == sum(1 + r.iterations for r in solved)
+    assert all(float(r.error) < float(r.initial_error) for r in solved)
+
+
+def test_nan_debug_sees_a_graphed_window_solve(cuda):
+    """After a window shape is captured, `nan_debug` still checks every
+    operator of a solve of that shape (the eager loop runs under a dispatch
+    mode) and names the first that gives a NaN."""
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.backend.solver import LMConfig
+    from dynosam_tpu_torch.utils.debug import nan_debug
+
+    cfg, w, masks, v0, _ = _window_problem(cuda)
+    lm = LMConfig(max_iterations=3)
+    schur.lm_optimize_schur(v0, w, masks, cfg, lm, w.X_init[0])
+    bad = w.static_xyz.clone()
+    bad[3, 0, 0] = float("nan")
+    with pytest.raises(FloatingPointError, match="aten."):
+        with nan_debug():
+            schur.lm_optimize_schur(v0, w._replace(static_xyz=bad), masks, cfg, lm, w.X_init[0])
 
 
 def test_world_pose_window_and_batched_windows_on_the_card_match_the_cpu(cuda):
