@@ -729,23 +729,37 @@ def report_path(res, label, required, frames, card) -> None:
 
 class SyncCounter:
     """Counts the host synchronisations PyTorch reports in its sync debug
-    mode ("warn": one warning per synchronising call) inside the block."""
+    mode ("warn": one warning per synchronising call) inside the block,
+    and (`sites`) counts them by the port's source lines they were issued
+    from, innermost first."""
 
     def __init__(self, torch):
         self.torch = torch
         self.count = 0
+        self.sites = {}
 
     def __enter__(self):
-        self._catch = warnings.catch_warnings(record=True)
-        self._log = self._catch.__enter__()
+        import traceback
+
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
         warnings.simplefilter("always")
+
+        def show(message, *_a, **_k):
+            if "synchroniz" in str(message):
+                frames = [f for f in traceback.extract_stack() if "dynosam_tpu_torch" in f.filename]
+                key = " < ".join(f"{f.filename.split('dynosam_tpu_torch/')[-1]}:{f.lineno}"
+                                 for f in reversed(frames[-3:]))
+                self.sites[key] = self.sites.get(key, 0) + 1
+
+        warnings.showwarning = show
         self._mode = self.torch.cuda.get_sync_debug_mode()
         self.torch.cuda.set_sync_debug_mode("warn")
         return self
 
     def __exit__(self, *exc):
         self.torch.cuda.set_sync_debug_mode(self._mode)
-        self.count = sum("synchroniz" in str(w.message) for w in self._log)
+        self.count = sum(self.sites.values())
         self._catch.__exit__(*exc)
         return False
 
@@ -765,7 +779,7 @@ def run_pipeline_path(torch, device, card) -> dict:
     kernels.reset_launch_counts()
     prev = kernels.launch_counts()
     per_frame, times, reads = [], [], []
-    with GraphedSolves() as graphs:
+    with GraphedSolves() as graphs, GraphedSteps(torch) as steps:
         for f in frames:
             t0 = time.perf_counter()
             runner.frontend(f)
@@ -806,6 +820,7 @@ def run_pipeline_path(torch, device, card) -> dict:
     _require(not stray, f"{label}: kernels {stray} launched off their path")
     est = out.est
     check_graphed_solves(torch, label, graphs, [win.solve_ms() for win in out.windows], card)
+    check_graphed_steps(torch, label, steps, card)
     _require(bool(est.X_valid[:n].all()), f"{label}: the estimate store misses frames {est.X_valid[:n]}")
     X = est.X.t[:n].double().cpu().numpy()
     _require(bool(np.isfinite(X).all()), f"{label}: backend poses are not finite")
@@ -911,6 +926,111 @@ class GraphedSolves:
         self._mod.lm_optimize_schur = self.real
         self.counts.append(schur.graph_counts())
         return False
+
+
+class GraphedSteps:
+    """Records every `frontend_step` the pipelines make inside the block
+    (through the names `pipeline` and `throughput` import): its arguments,
+    its generator's state before it, its outputs, its time on the host
+    clock between two synchronisations and the frontend graph counts
+    (`frontend.graph_counts`) before and after it.  The inputs are the
+    frames and the states the steps returned, which nothing writes
+    afterwards, so `check_graphed_steps` re-runs each step on them."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from dynosam_tpu_torch import pipeline, throughput
+        from dynosam_tpu_torch.frontend import frontend as fe
+
+        torch = self.torch
+        self._mods, self.real, self.calls = (pipeline, throughput), fe.frontend_step, []
+        self.counts = [fe.graph_counts()]
+        real, calls = self.real, self.calls
+
+        def recorded(*args, **kw):
+            gen = kw.get("generator")
+            state = None if gen is None else gen.get_state()
+            torch.cuda.synchronize()
+            before = fe.graph_counts()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            calls.append((args, kw, state, out, (time.perf_counter() - t0) * 1e3, before, fe.graph_counts()))
+            return out
+
+        for m in self._mods:
+            m.frontend_step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from dynosam_tpu_torch.frontend import frontend as fe
+
+        for m in self._mods:
+            m.frontend_step = self.real
+        self.counts.append(fe.graph_counts())
+        return False
+
+
+def check_graphed_steps(torch, label, rec, card) -> None:
+    """Print the run's frontend-step graph captures and, per frame, its
+    graph replays and its time in the run; then take each step again on
+    its own inputs, eagerly (`_graphs=False`) and graphed, its generator
+    restored, each on the host clock between two synchronisations, and a
+    steady frame's graphed repeat under the sync debug mode, whose host
+    reads are printed by their source lines.  Fails unless every step but
+    the first replayed graphs and every result equals the eager one bit
+    for bit (packet, state, report and ego result)."""
+    c0, c1 = rec.counts
+    leaves = torch.utils._pytree.tree_leaves
+    print(f"{label}: frontend-step graph captures {c1['captures'] - c0['captures']} in this run "
+          f"({c1['captures']} in the process), replays {c1['replays'] - c0['replays']} over {len(rec.calls)} steps",
+          flush=True)
+    eager_ms, graphed_ms, run_ms = [], [], []
+    steady = len(rec.calls) // 2
+    for k, (args, kw, gen_state, got, ms, before, after) in enumerate(rec.calls):
+        replays = after["replays"] - before["replays"]
+        first = kw.get("first_frame", False)
+        _require(first or replays > 0, f"{label}: step {k} replayed no graph")
+
+        def again(graphed):
+            gen = kw.get("generator")
+            if gen is not None:
+                gen = torch.Generator(device=gen.device)
+                gen.set_state(gen_state)
+            return lambda: rec.real(*args, **{**kw, "generator": gen, "_graphs": graphed})
+
+        eager, e_ms = _timed_host(torch, again(False))
+        if k == steady:
+            with SyncCounter(torch) as sc:
+                graphed, g_ms = _timed_host(torch, again(True))
+            print(f"{label}: step {k} graphed, {sc.count} host reads by site: {sc.sites}", flush=True)
+        else:
+            graphed, g_ms = _timed_host(torch, again(True))
+        same = [all(torch.equal(a, b) for a, b in zip(leaves(tuple(got)), leaves(tuple(x)))) for x in (eager, graphed)]
+        print(f"{label}: step {k}{' (first frame, eager)' if first else ''}: {replays} graph replays, {ms:.2f} ms "
+              f"in the run; again on its inputs: eager {e_ms:.2f} ms, graphed {g_ms:.2f} ms; the run's outputs "
+              f"{'equal' if same[0] else 'differ from'} the eager step's bit for bit, the repeat's "
+              f"{'equal' if same[1] else 'differ from'} them on {card}", flush=True)
+        _require(all(same), f"{label}: step {k}: graphed outputs differ from the eager step's")
+        if not first:
+            eager_ms.append(e_ms)
+            graphed_ms.append(g_ms)
+            run_ms.append(ms)
+    if run_ms:
+        print(f"{label}: frontend step, mean of {len(run_ms)} steady steps: {sum(run_ms) / len(run_ms):.2f} ms in "
+              f"the run (graphed), again graphed {sum(graphed_ms) / len(graphed_ms):.2f} ms, eager "
+              f"{sum(eager_ms) / len(eager_ms):.2f} ms (host clock, synchronised) on {card}", flush=True)
+
+
+def _timed_host(torch, fn):
+    """(result, ms): fn() on the host clock between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def _bit_equal(torch, a, b) -> bool:
@@ -1066,7 +1186,7 @@ def run_online_phase(torch, device, card, world_pose: bool = False) -> dict:
     n = PIPELINE_FRAMES
     scene, frames = kitti_scene(device, n_frames=n)
     with tempfile.TemporaryDirectory() as out:
-        with PipelineProbe(torch) as probe, GraphedSolves() as graphs:
+        with PipelineProbe(torch) as probe, GraphedSolves() as graphs, GraphedSteps(torch) as steps:
             result = run_and_log(RenderedDataset(scene, frames), cfg, out, device=device)
         evals = evaluate_all(out)
     h, w = frames[0].gray.shape
@@ -1095,6 +1215,7 @@ def run_online_phase(torch, device, card, world_pose: bool = False) -> dict:
     # a window's reads as counted around `_optimize` exclude its prior build's
     report_solves(label, backend, probe.reads, card)
     check_graphed_solves(torch, label, graphs, [ev[0].elapsed_time(ev[1]) for _, _, _, ev in backend.solves], card)
+    check_graphed_steps(torch, label, steps, card)
     if not world_pose:
         vals = graphs.calls[0][2].values
         W, O = vals["H"].t.shape[:2]
@@ -1310,8 +1431,12 @@ def run_masks_phase(torch, device, card, n: int = PIPELINE_FRAMES, size=(384, 12
     import dataclasses
     import tempfile
 
+    import functools
+
+    from dynosam_tpu_torch import pipeline
     from dynosam_tpu_torch.eval.evaluator import evaluate_all
     from dynosam_tpu_torch.frontend import byte_tracker, tracker
+    from dynosam_tpu_torch.frontend import frontend as fe
     from dynosam_tpu_torch.pipeline import run_and_log
     from dynosam_tpu_torch.testing.scenes import RenderedDataset, kitti_online_config, kitti_scene
 
@@ -1340,14 +1465,31 @@ def run_masks_phase(torch, device, card, n: int = PIPELINE_FRAMES, size=(384, 12
         propagated.append(propagate(*a, **kw))
         return propagated[-1]
 
+    # the recorders see every frame only if the step runs eagerly (a CUDA
+    # graph replay runs no Python); a second run, graphed, must give the
+    # same packets
+    real_step = pipeline.frontend_step
     byte_tracker.relabel_mask, tracker.propagate_mask = record_relabel, record_propagate
+    pipeline.frontend_step = functools.partial(real_step, _graphs=False)
     try:
         with tempfile.TemporaryDirectory() as out:
             with PipelineProbe(torch) as probe:
-                run_and_log(RenderedDataset(scene, host), cfg, out, device=device)
+                eager = run_and_log(RenderedDataset(scene, host), cfg, out, device=device)
             evals = evaluate_all(out)
     finally:
         byte_tracker.relabel_mask, tracker.propagate_mask = relabel, propagate
+        pipeline.frontend_step = real_step
+    with tempfile.TemporaryDirectory() as out:
+        before = fe.graph_counts()
+        graphed = run_and_log(RenderedDataset(scene, host), cfg, out, device=device)
+        after = fe.graph_counts()
+    leaves = torch.utils._pytree.tree_leaves
+    same = all(torch.equal(a, b) for p, q in zip(graphed.packets, eager.packets)
+               for a, b in zip(leaves(tuple(p)), leaves(tuple(q))))
+    print(f"{label}: the same run with the frontend step graphed: {after['replays'] - before['replays']} graph "
+          f"replays, packets {'equal' if same else 'differ from'} the eager run's bit for bit", flush=True)
+    _require(same and len(graphed.packets) == n and after["replays"] > before["replays"],
+             f"{label}: the graphed run's packets differ from the eager run's")
     check_launches(probe, label, PATH_KERNELS["masks"], n)
     _require(len(relabelled) == n and len(propagated) == n - 1,
              f"{label}: {len(relabelled)} relabels and {len(propagated)} propagations over {n} frames")

@@ -80,6 +80,8 @@ from .formulation import (
     world_pose_families,
     world_pose_residuals,
 )
+from ..utils import graphs
+from ..utils.graphs import signature, tree_clone, tree_copy_
 from .map import WindowData
 from .solver import LMConfig, LMResult, retract_tree, sqrt_weights, total_error
 
@@ -976,48 +978,6 @@ def _lm_loop(values: dict, residuals: Callable, build: Callable, step: Callable,
     return s["vals"], s["err"], s["err_init"], its, s["lam"], done
 
 
-def _tree_copy_(dst, src) -> None:
-    """Copy every tensor of `src` into the tensor at the same place of
-    `dst` (a dict's keys taken from `src`); other leaves, and tensors that
-    are their own destination, are skipped."""
-    if isinstance(dst, torch.Tensor):
-        if dst is not src:
-            dst.copy_(src)
-    elif isinstance(dst, dict):
-        for k in src:
-            _tree_copy_(dst[k], src[k])
-    elif isinstance(dst, (list, tuple)):
-        for a, b in zip(dst, src):
-            _tree_copy_(a, b)
-
-
-def _tree_clone(tree):
-    """A copy of `tree` with every tensor cloned."""
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    if isinstance(tree, dict):
-        return {k: _tree_clone(v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        items = [_tree_clone(v) for v in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
-    return tree
-
-
-def _signature(tree):
-    """The shape, strides and dtype of every tensor of `tree`, in its
-    structure (other leaves, as a window's `start`, read as None).  The
-    strides belong to it because a kernel may sum in another order over
-    another layout: a graph replays bit for bit what the eager loop
-    computes only on inputs laid out as at its capture."""
-    if isinstance(tree, torch.Tensor):
-        return tuple(tree.shape), tree.stride(), tree.dtype
-    if isinstance(tree, dict):
-        return tuple((k, _signature(v)) for k, v in tree.items())
-    if isinstance(tree, (list, tuple)):
-        return tuple(_signature(v) for v in tree)
-    return None
-
-
 class _WindowLM:
     """The direct-Schur LM of one window shape, its state in tensors it
     allocates once: the inputs (values, window, masks, anchor, prior; the
@@ -1037,68 +997,50 @@ class _WindowLM:
                  anchor: SE3, formulation: int = 0, anchor_prior_L=None):
         families, residual_fn, build_fn, pose_key, sqrt_w, step_fn, error_fn, retract = _pieces(formulation)
         specs = families(cfg).robust
-        self.inputs = _tree_clone((values, w, masks, anchor, anchor_prior_L))
+        self.inputs = tree_clone((values, w, masks, anchor, anchor_prior_L))
         vals, w, masks, anchor, prior = self.inputs
         self.p = _LMProblem(lambda v: residual_fn(v, w, masks, cfg, anchor, prior),
                             lambda v, res: build_fn(v, sqrt_w(res, specs), w, masks, cfg, anchor, res, prior),
                             lambda sys, lam: step_fn(sys, lam, lm_cfg.diag_floor, formulation),
                             lambda res: error_fn(res, specs), retract, pose_key, lm_cfg, ())
-        self.s = dict(_tree_clone(_lm_head(vals, self.p)), vals=vals)
+        self.s = dict(tree_clone(_lm_head(vals, self.p)), vals=vals)
         dev = self.s["err"].device
         self.s.update(sys=self.p.build(vals, self.s["res"]), accept=torch.zeros((), dtype=torch.bool, device=dev),
                       flags=torch.zeros((2, 1), dtype=torch.bool, device=dev))
         self.graphs = None
 
     def head(self) -> None:
-        _tree_copy_(self.s, _lm_head(self.s["vals"], self.p))
+        tree_copy_(self.s, _lm_head(self.s["vals"], self.p))
 
     def iteration(self, rebuild: bool) -> None:
-        _tree_copy_(self.s, _lm_iteration(self.s, rebuild, self.p))
+        tree_copy_(self.s, _lm_iteration(self.s, rebuild, self.p))
 
     def _variants(self) -> dict:
         return {"head": self.head, "build": lambda: self.iteration(True), "step": lambda: self.iteration(False)}
 
     def capture(self) -> None:
         """Capture the head and both iteration variants as CUDA graphs
-        sharing one memory pool, after two eager rounds on the capture
-        stream (the cuBLAS and cuSOLVER handles and workspaces are made
-        there, outside a capture).  The capture is thread-local: another
-        thread of the process (a loader's prefetch, which may rectify
-        frames or match stereo on the card) may allocate and synchronise
-        meanwhile.  The state is left as the warm-up leaves it: `solve`
-        loads it anew."""
-        stream = torch.cuda.Stream(device=self.s["err"].device)
-        stream.wait_stream(torch.cuda.current_stream())
-        variants = self._variants()
-        with torch.cuda.stream(stream):
-            for _ in range(2):
-                for fn in variants.values():
-                    fn()
-        torch.cuda.current_stream().wait_stream(stream)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = {}
-        for name, fn in variants.items():
-            graphs[name] = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graphs[name], pool=pool, stream=stream, capture_error_mode="thread_local"):
-                fn()
-        self.graphs = graphs
+        (`utils/graphs.py:capture`: one memory pool, two eager rounds on
+        the capture stream first, thread-local).  The state is left as the
+        warm-up leaves it: `solve` loads it anew."""
+        self.graphs = graphs.capture(self._variants(), self.s["err"].device)
 
     def _run(self, name: str) -> None:
         if self.graphs is None:
             self._variants()[name]()
         else:
             self.graphs[name].replay()
-            _GRAPH_COUNTS["replays"] += 1
+            graphs.count("window", "replays")
 
     def _iterate(self, rebuild: bool) -> torch.Tensor:
         self._run("build" if rebuild else "step")
         return self.s["flags"]
 
     def solve(self, values: dict, w: WindowData, masks: WindowMasks, anchor: SE3, anchor_prior_L=None) -> LMResult:
-        _tree_copy_(self.inputs, (values, w, masks, anchor, anchor_prior_L))
+        tree_copy_(self.inputs, (values, w, masks, anchor, anchor_prior_L))
         its, done = _lm_schedule(lambda: self._run("head"), self._iterate, self.p.lm_cfg)
         s = self.s
-        return LMResult(values=_tree_clone(s["vals"]), error=s["err"].clone(), initial_error=s["err_init"].clone(),
+        return LMResult(values=tree_clone(s["vals"]), error=s["err"].clone(), initial_error=s["err_init"].clone(),
                         iterations=its[0], lam=s["lam"].clone(), converged=done[0])
 
 
@@ -1107,14 +1049,13 @@ class _WindowLM:
 # run) reuses the captures of the process's earlier windows.
 _WINDOW_LMS: OrderedDict = OrderedDict()
 _WINDOW_LMS_MAX = 4
-_GRAPH_COUNTS = {"captures": 0, "replays": 0}
 
 
 def graph_counts() -> dict:
     """{"captures", "replays"}: window-LM graph sets captured and graphs
     replayed in this process (head, rebuild and step variants each count
     as one replay)."""
-    return dict(_GRAPH_COUNTS)
+    return graphs.counts("window")
 
 
 def _pieces(formulation: int) -> tuple:
@@ -1132,16 +1073,15 @@ def _captured_window_lm(values: dict, w: WindowData, masks: WindowMasks, cfg: Ba
     """The cached `_WindowLM` of this window's shape and settings, captured
     on first use (warm-up and capture run on the window itself)."""
     key = (values["X"].t.device, formulation, _pieces(formulation), cfg, lm_cfg,
-           _signature((values, w, masks, anchor, anchor_prior_L)))
-    lm = _WINDOW_LMS.pop(key, None)
-    if lm is None:
+           signature((values, w, masks, anchor, anchor_prior_L)))
+
+    def make():
         lm = _WindowLM(values, w, masks, cfg, lm_cfg, anchor, formulation, anchor_prior_L)
         lm.capture()
-        _GRAPH_COUNTS["captures"] += 1
-        while len(_WINDOW_LMS) >= _WINDOW_LMS_MAX:
-            _WINDOW_LMS.popitem(last=False)
-    _WINDOW_LMS[key] = lm
-    return lm
+        graphs.count("window", "captures")
+        return lm
+
+    return graphs.lru(_WINDOW_LMS, key, make, _WINDOW_LMS_MAX)
 
 
 def lm_optimize_schur(values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig,

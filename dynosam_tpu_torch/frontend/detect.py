@@ -29,9 +29,17 @@ def _conv2(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return out[0, 0]
 
 
+_SOBEL: dict = {}
+
+
 def sobel_gradients(gray: torch.Tensor):
-    kx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]],
-                      dtype=gray.dtype, device=gray.device) / 8.0
+    # the kernel is made once per dtype and device: a tensor built from host
+    # data is a copy from pageable memory, which a CUDA graph cannot capture
+    key = (gray.dtype, gray.device)
+    if key not in _SOBEL:
+        _SOBEL[key] = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]],
+                                   dtype=gray.dtype, device=gray.device) / 8.0
+    kx = _SOBEL[key]
     return _conv2(gray, kx), _conv2(gray, kx.T)
 
 
@@ -194,10 +202,12 @@ def border_mask(shape, shrink_row: int, shrink_col: int, device=None) -> torch.T
     """(H, W) bool: True where detection is forbidden (image border)."""
     h, w = shape
     r = torch.zeros((h, w), dtype=torch.bool, device=device)
+    # fills, not assignments of a Python scalar, which the card copies
+    # from host memory (a CUDA graph of the frontend step captures this)
     if shrink_row > 0:
-        r[:shrink_row, :] = True
-        r[-shrink_row:, :] = True
+        r[:shrink_row, :].fill_(True)
+        r[-shrink_row:, :].fill_(True)
     if shrink_col > 0:
-        r[:, :shrink_col] = True
-        r[:, -shrink_col:] = True
+        r[:, :shrink_col].fill_(True)
+        r[:, -shrink_col:].fill_(True)
     return r

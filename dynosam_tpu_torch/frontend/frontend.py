@@ -11,14 +11,26 @@ The JAX package `vmap`s the per-object solves; here the objects are a
 batch dimension of the solvers.  Every point lookup is one launch of
 kernel K2 (the per-object refined-keypoint sample is one launch over
 k_act * DPO rows).
+
+The step runs as stretches between its host reads (`_variants`, driven by
+the host loop `_schedule`): the refinements' round and LM flags and the
+homography refit's `eigh` are the only reads.  On the card each stretch
+but the `eigh` is a CUDA graph replay (`_FrameGraphs`), captured once per
+process for each shape and setting, and the RANSAC uniforms are drawn
+before the step (`_draw_uniforms`) so that the graphs take them as
+inputs.
 """
 
 from __future__ import annotations
 
+import sys
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
+from .. import kernels
 from ..core.camera import CameraParams, backproject, project
 from ..core.lie import (
     SE3,
@@ -29,13 +41,22 @@ from ..core.lie import (
     se3_where,
 )
 from ..core.types import INVALID_ID, DynamicObs, FrontendOutput, ObjectObs, StaticObs
+from ..ops import homography
 from ..ops.epipolar import normalize_points, ransac_essential, ransac_translation_given_rot, scale_from_depth
 from ..ops.klt import bilinear_sample, sample_channels
-from ..ops.ransac import STATUS_INVALID, STATUS_VALID, RansacResult, ransac_pose_3d2d, ransac_rigid
+from ..ops.ransac import (
+    STATUS_INVALID,
+    STATUS_VALID,
+    RansacResult,
+    draw_uniforms,
+    ransac_pose_3d2d,
+    ransac_rigid,
+)
+from ..utils import graphs
 from ..utils.config import FrontendConfig
 from ..utils.device import resolve_device
 from . import refine
-from .tracker import TrackerState, track_frame
+from .tracker import TrackerState, track_rest, track_static
 
 # per-object correspondence capacity for the motion solvers
 DPO = 512
@@ -161,36 +182,82 @@ def _depth_at(depth: torch.Tensor, uv: torch.Tensor, max_depth: float, valid=Non
     return d, (d > 0.0) & (d < max_depth)
 
 
-def frontend_step(
-    state: FrontendState,
-    prev_images: FrameImages,
-    images: FrameImages,
-    cam: CameraParams,
-    cfg: FrontendConfig,
-    generator: Optional[torch.Generator] = None,
-    use_klt: bool = True,
-    first_frame: bool = False,
-    device=None,
-):
-    """Process one frame: (state at k-1, images) -> (state at k, packet,
-    tracking report, ego RANSAC result).  Runs on CUDA unless `device`
-    says otherwise; `generator` draws every RANSAC hypothesis of the step."""
-    check_frontend_config(cfg)
-    dev = resolve_device(device)
-    state = to_device(state, dev)
-    prev_images = to_device(prev_images, dev)
-    images = to_device(images, dev)
-    if generator is not None and generator.device.type != dev.type:
-        raise ValueError("generator must live on the step's device")
+class _Step(NamedTuple):
+    """What one step's stretches take besides their tensors: the camera,
+    the configuration, the tracking mode, whether this is the first frame,
+    the generator of the draws not made beforehand (the 2d2d ego modes'),
+    and the two refinements' settings (None where the step skips one)."""
 
-    tcfg = cfg.tracker
+    cam: CameraParams
+    cfg: FrontendConfig
+    use_klt: bool
+    first_frame: bool
+    generator: Optional[torch.Generator]
+    fp: Optional[refine.FlowPose]
+    mo: Optional[refine.MotionOnly]
+
+
+def _step_settings(cam, cfg: FrontendConfig, use_klt: bool, first_frame: bool, generator) -> _Step:
+    run_fp = (cfg.refine_camera_pose_with_joint_of or cfg.refine_motion_with_joint_of) and not first_frame
+    fp = refine.FlowPose(cam, max_iterations=cfg.refinement_max_lm_iterations,
+                         outlier_rounds=cfg.refinement_outlier_rounds if cfg.joint_of_outlier_reject else 0)
+    mo = refine.MotionOnly(cam, max_iterations=cfg.refinement_max_lm_iterations,
+                           outlier_rounds=cfg.refinement_outlier_rounds if cfg.refinement_3d_outlier_reject else 0)
+    return _Step(cam, cfg, use_klt, first_frame, generator, fp if run_fp else None,
+                 mo if cfg.refine_motion_with_3d else None)
+
+
+def _draw_uniforms(state: FrontendState, cfg: FrontendConfig, first_frame: bool, generator, dev) -> dict:
+    """The step's RANSAC uniforms, drawn from `generator` in the order the
+    step consumes them (homography, ego motion, objects) and at their
+    shapes, so that a CUDA graph of the step takes them as inputs.  The
+    2d2d ego modes draw inside the step (None here, the objects' too, to
+    keep the order)."""
+    hom = None if first_frame else draw_uniforms((), 128, 4, generator, dev)
+    if ego_mode(cfg) == "2d2d":
+        return dict(hom=hom, ego=None, obj=None)
+    k_act = min(cfg.max_active_objects, state.tracker.obj_labels.shape[0])
+    ego = draw_uniforms((1,), cfg.camera_solver.ransac_iterations, 3, generator, dev)
+    obj = draw_uniforms((k_act,), cfg.object_solver.ransac_iterations, 3, generator, dev)
+    return dict(hom=hom, ego=ego, obj=obj)
+
+
+# ---------------------------------------------------------------------------
+# The step's stretches.  Each reads the step's tensors from the dict `s`
+# and returns the entries it writes; `_schedule` runs them in order with
+# the refinements' host loops between them.  On the CPU they run as they
+# are; on the card `_FrameGraphs` captures each as a CUDA graph and replays
+# it.  s["in"] holds the inputs: the state, the previous and current
+# images, and the uniforms.
+# ---------------------------------------------------------------------------
+
+
+def _seg_track(s: dict, c: _Step) -> dict:
+    """Tracking up to the homography refit's eigen-decomposition."""
+    state, prev, images = s["in"]["state"], s["in"]["prev"], s["in"]["images"]
+    return {"track": track_static(
+        state.tracker, prev.gray, images.gray, prev.flow, images.mask, c.cfg.tracker,
+        use_klt=c.use_klt, first_frame=c.first_frame, generator=c.generator,
+        mask_prev=prev.mask, hom_uniforms=s["in"]["u"]["hom"],
+    )}
+
+
+def _seg_eigh(s: dict, c: _Step) -> dict:
+    """The homography refit's eigen-decomposition: a host read on the card
+    (`homography.normal_eigenvectors`), run eagerly between two graphs."""
+    return {"vecs": homography.normal_eigenvectors(s["track"].hom.AtA)}
+
+
+def _seg_pre(s: dict, c: _Step) -> dict:
+    """The rest of tracking, depth association, ego motion, scene-flow
+    dynamicity, object selection and motion RANSAC, and the joint flow +
+    pose refinement's inputs."""
+    state, prev_images, images = s["in"]["state"], s["in"]["prev"], s["in"]["images"]
+    cam, cfg, first_frame = c.cam, c.cfg, c.first_frame
+    dev = images.gray.device
     prev_uv_s = state.tracker.s_uv
     prev_uv_d = state.tracker.d_uv
-    trk, report = track_frame(
-        state.tracker, prev_images.gray, images.gray, prev_images.flow,
-        images.mask, tcfg, use_klt=use_klt, first_frame=first_frame,
-        generator=generator, mask_prev=prev_images.mask,
-    )
+    trk, report = track_rest(state.tracker, images.gray, cfg.tracker, first_frame, s["track"], s.get("vecs"))
 
     # ---------------- depth association: ONE merged K2 sample for both pools
     ns_slots = trk.s_uv.shape[0]
@@ -226,13 +293,14 @@ def frontend_step(
         ego_lmk, ego_uv, ego_xyz, ego_valid = state.s_lmk, trk.s_uv, s_xyz, ego_corr
     cs = cfg.camera_solver
     mode = ego_mode(cfg)
+    generator, u = c.generator, s["in"]["u"]
     if mode == "3d2d":
         # 3d-2d PnP (the RGB-D default, `geometricOutlierRejection3d2d`)
         eb = ransac_pose_3d2d(
             ego_lmk[None], ego_uv[None], ego_xyz[None], ego_valid[None], cam,
             iters=cs.ransac_iterations, threshold_px=cs.ransac_threshold_px,
             min_inliers=cs.min_inliers, score_cap=cs.ransac_score_cap or None,
-            generator=generator,
+            generator=generator, uniforms=u["ego"],
         )
         ego = RansacResult(eb.pose[0], eb.inliers[0], eb.n_inliers[0], eb.status[0])
     elif mode == "3d3d":
@@ -240,7 +308,7 @@ def frontend_step(
         eb = ransac_rigid(
             ego_xyz[None], ego_lmk[None], ego_valid[None],
             iters=cs.ransac_iterations, threshold=cs.ransac_threshold_stereo_m,
-            min_inliers=5, score_cap=cs.ransac_score_cap or None, generator=generator,
+            min_inliers=5, score_cap=cs.ransac_score_cap or None, generator=generator, uniforms=u["ego"],
         )
         ego = RansacResult(eb.pose[0], eb.inliers[0], eb.n_inliers[0], eb.status[0])
     else:
@@ -312,15 +380,21 @@ def frontend_step(
         iters=cfg.object_solver.ransac_iterations,
         threshold_px=cfg.object_solver.ransac_threshold_px,
         min_inliers=cfg.object_solver.min_inliers,
-        generator=generator,
+        generator=generator, uniforms=u["obj"],
     )
     G_act, inl_act, solved_act = ro.pose, ro.inliers, ro.status == STATUS_VALID
+
+    f = dict(s_depth=s_depth, d_depth=d_depth, s_xyz=s_xyz, d_xyz=d_xyz, s_obs_ok=s_obs_ok, d_obs_ok=d_obs_ok,
+             X_k=X_k, ego_ok=ego_ok, prop=prop, onehot=onehot, n_per_obj=n_per_obj, obj_is_dynamic=obj_is_dynamic,
+             obj_static_new=obj_static_new, act=act, idxs=idxs, oks=oks, p_prev_w=p_prev_w, uv_cur=uv_cur,
+             uv_prev=uv_prev, G_act=G_act, inl_act=inl_act, solved_act=solved_act)
+    out = {"trk": trk, "report": report, "ego": ego}
 
     # ---------------- fused joint flow+pose refinement (ego + objects)
     run_obj_ref = cfg.refine_motion_with_joint_of and not first_frame
     part_obj = inl_act & (d_depth_prev[idxs] > 0.0)
-    outlier_rounds = cfg.refinement_outlier_rounds if cfg.joint_of_outlier_reject else 0
-    if run_ego_ref or run_obj_ref:
+    f["part_obj"] = part_obj
+    if c.fp is not None:
         width = max(ns_pool if run_ego_ref else 0, dpo if run_obj_ref else 0)
 
         def padw(a, fill):
@@ -333,6 +407,7 @@ def frontend_step(
         Rs, ts, kps, dps, fls, vas = [], [], [], [], [], []
         if run_ego_ref:
             participated = ego.inliers[:ns_pool] & prev_dok
+            f["participated"] = participated
             Rs.append(X_k.R[None])
             ts.append(X_k.t[None])
             kps.append(padw(prev_uv_s[None], 0.0))
@@ -346,15 +421,34 @@ def frontend_step(
             dps.append(padw(d_depth_prev[idxs], 0.0))
             fls.append(padw(uv_cur - uv_prev, 0.0))
             vas.append(padw(part_obj, False))
-        fp_all = refine.optimize_flow_and_pose(
-            cam, SE3(torch.cat(Rs), torch.cat(ts)), state.X_world,
-            torch.cat(kps), torch.cat(dps), torch.cat(fls), torch.cat(vas),
-            max_iterations=cfg.refinement_max_lm_iterations,
-            outlier_rounds=outlier_rounds,
-        )
+        flow_init = torch.cat(fls)
+        out["fp_P"] = refine.flow_pose_inputs(cam, SE3(torch.cat(Rs), torch.cat(ts)), state.X_world,
+                                              torch.cat(kps), torch.cat(dps), flow_init)
+        out["fp_R"] = refine.rounds_start(c.fp, torch.cat(vas), {"flow": flow_init})
+    out["f"] = f
+    return out
+
+
+def _seg_mid(s: dict, c: _Step) -> dict:
+    """The refined ego pose and flows written back, the objects' refined
+    flows written back, their motions, and the motion-only refinement's
+    inputs."""
+    state, images = s["in"]["state"], s["in"]["images"]
+    cam, cfg, first_frame = c.cam, c.cfg, c.first_frame
+    f, trk = dict(s["f"]), s["trk"]
+    dev = images.gray.device
+    prev_uv_s = state.tracker.s_uv
+    ns_pool = trk.s_uv.shape[0]
+    dpo = f["idxs"].shape[1]
+    X_k, ego_ok = f["X_k"], f["ego_ok"]
+    run_ego_ref = cfg.refine_camera_pose_with_joint_of and not first_frame
+    run_obj_ref = cfg.refine_motion_with_joint_of and not first_frame
+    if c.fp is not None:
+        fp_all = c.fp.result(s["fp_R"])
     o0 = 1 if run_ego_ref else 0
 
     if run_ego_ref:
+        participated = f["participated"]
         fp_flow = fp_all.flow[0, :ns_pool]
         fp_inl = fp_all.inliers[0, :ns_pool]
         X_k = se3_where(ego_ok, fp_all.pose[0], X_k)
@@ -376,18 +470,20 @@ def frontend_step(
             s_uv=torch.where(wb[:, None], refined_uv, trk.s_uv),
             s_active=trk.s_active & ~new_outlier,
         )
-        s_depth = torch.where(wb, d_ref, s_depth)
+        s_depth = torch.where(wb, d_ref, f["s_depth"])
         s_dok = (s_depth > 0.0) & (s_depth < cfg.max_background_depth)
-        s_xyz = backproject(cam, trk.s_uv, s_depth)
-        s_obs_ok = trk.s_active & s_dok
+        f["s_xyz"] = backproject(cam, trk.s_uv, s_depth)
+        f["s_obs_ok"] = trk.s_active & s_dok
 
     # ---------------- per-object post-processing, batched over objects
+    G_act, inl_act, solved_act, oks = f["G_act"], f["inl_act"], f["solved_act"], f["oks"]
+    uv_prev, uv_cur = f["uv_prev"], f["uv_cur"]
     solved_m = solved_act[:, None]
     G = G_act
     inl = inl_act
     ref_uvs = uv_cur
     wbs = torch.zeros_like(oks)
-    d_refs = torch.zeros(oks.shape, dtype=d_xyz.dtype, device=dev)
+    d_refs = torch.zeros(oks.shape, dtype=f["d_xyz"].dtype, device=dev)
     if run_obj_ref:
         fpo = fp_all.pose[o0:]
         fpo_flow = fp_all.flow[o0:, :dpo]
@@ -402,27 +498,40 @@ def frontend_step(
             & (ref_uv[..., 1] >= 0.0) & (ref_uv[..., 1] <= hgt - 1.0)
         )
         # one K2 launch over all k_act * DPO refined keypoints
-        sample_ok = part_obj & fpo_inl & solved_m
+        sample_ok = f["part_obj"] & fpo_inl & solved_m
         d_flat, lab_flat = sample_channels(
             (images.depth, images.mask), ("bilinear", "nearest"),
             ref_uv.reshape(-1, 2), valid=sample_ok.reshape(-1),
         )
         d_refs = d_flat.reshape(oks.shape)
-        lab_ok = lab_flat.reshape(oks.shape) == trk.obj_labels[act][:, None]
+        lab_ok = lab_flat.reshape(oks.shape) == trk.obj_labels[f["act"]][:, None]
         wbs = sample_ok & inb & lab_ok
         ref_uvs = torch.where(wbs[..., None], ref_uv, uv_cur)
     H = se3_compose(X_k, se3_inverse(G))                                 # (k,)
-    if cfg.refine_motion_with_3d:
-        mr = refine.optimize_motion_only(
-            cam, H, state.X_world, X_k, p_prev_w, uv_prev, uv_cur, inl,
-            max_iterations=cfg.refinement_max_lm_iterations,
-            outlier_rounds=(
-                cfg.refinement_outlier_rounds if cfg.refinement_3d_outlier_reject else 0
-            ),
-        )
+    f.update(X_k=X_k, inl=inl, ref_uvs=ref_uvs, wbs=wbs, d_refs=d_refs, H=H)
+    out = {"trk": trk, "f": f}
+    if c.mo is not None:
+        out["mo_P"] = refine.motion_only_inputs(H, state.X_world, X_k, f["p_prev_w"], uv_prev, uv_cur)
+        out["mo_R"] = refine.rounds_start(c.mo, inl, {"mp": f["p_prev_w"], "mc": out["mo_P"]["m_cur_init"]})
+    return out
+
+
+def _seg_tail(s: dict, c: _Step) -> dict:
+    """The refined motions, object pose propagation, the output packet and
+    the next state."""
+    state, images = s["in"]["state"], s["in"]["images"]
+    cfg, first_frame = c.cfg, c.first_frame
+    f, trk = s["f"], s["trk"]
+    dev = images.gray.device
+    X_k, H, inl, solved_act, act = f["X_k"], f["H"], f["inl"], f["solved_act"], f["act"]
+    idxs, prop, oks, d_depth, n_per_obj = f["idxs"], f["prop"], f["oks"], f["d_depth"], f["n_per_obj"]
+    no = trk.obj_labels.shape[0]
+    k_act = act.shape[0]
+    if c.mo is not None:
+        mr = c.mo.result(s["mo_R"])
         H = se3_where(solved_act, mr.motion, H)
         if cfg.refinement_3d_outlier_reject:
-            inl = torch.where(solved_m, mr.inliers, inl)
+            inl = torch.where(solved_act[:, None], mr.inliers, inl)
     if k_act < no:
         H_all = se3_identity((no,), X_k.dtype, dev)
         H_all.R[act] = H.R
@@ -431,7 +540,7 @@ def frontend_step(
         solved[act] = solved_act
     else:
         H_all, solved = H, solved_act
-    motion_valid = solved & obj_is_dynamic
+    motion_valid = solved & f["obj_is_dynamic"]
     if first_frame:
         motion_valid = torch.zeros_like(motion_valid)
 
@@ -444,23 +553,25 @@ def frontend_step(
     # refined-flow write-back for dynamic tracks: masked deltas added at the
     # gathered slots (a slot gets a nonzero delta from one object at most;
     # duplicate padding rows add zero, so the order of the adds is moot)
-    wb_flat = (wbs & oks).reshape(-1)
+    d_xyz = f["d_xyz"]
+    wb_flat = (f["wbs"] & oks).reshape(-1)
     delta_uv = torch.where(
-        wb_flat[:, None], ref_uvs.reshape(-1, 2) - trk.d_uv[idx_flat],
+        wb_flat[:, None], f["ref_uvs"].reshape(-1, 2) - trk.d_uv[idx_flat],
         torch.zeros((), dtype=d_xyz.dtype, device=dev),
     )
     trk = trk._replace(d_uv=trk.d_uv.index_add(0, idx_flat, delta_uv))
     delta_d = torch.where(
-        wb_flat, d_refs.reshape(-1) - d_depth[idx_flat],
+        wb_flat, f["d_refs"].reshape(-1) - d_depth[idx_flat],
         torch.zeros((), dtype=d_xyz.dtype, device=dev),
     )
     d_depth = d_depth.index_add(0, idx_flat, delta_d)
     d_dok = (d_depth > 0.0) & (d_depth < cfg.max_object_depth)
-    d_xyz = backproject(cam, trk.d_uv, d_depth)
+    d_xyz = backproject(c.cam, trk.d_uv, d_depth)
     d_obs_ok = trk.d_active & d_dok
     m_cur_w = se3_apply(X_k, d_xyz)
 
     # ---------------- object pose propagation
+    onehot = f["onehot"]
     denom = torch.clamp(n_per_obj[:, None], min=1.0)
     centroid = onehot.t() @ m_cur_w / denom
     cen_prev = onehot.t() @ state.d_lmk / denom
@@ -491,6 +602,8 @@ def frontend_step(
     )
 
     # ---------------- output packet
+    ego_ok = f["ego_ok"]
+    s_xyz, s_obs_ok = f["s_xyz"], f["s_obs_ok"]
     dyn_valid_out = d_obs_ok & d_inlier & torch.where(
         trk.d_obj >= 0,
         motion_valid[torch.clamp(trk.d_obj, 0, no - 1).long()],
@@ -523,10 +636,198 @@ def frontend_step(
         obj_pose_valid=pose_valid,
         obj_H_prev=H_all,
         obj_H_prev_valid=motion_valid,
-        obj_static=obj_static_new,
+        obj_static=f["obj_static_new"],
         obj_gap=obj_gap_new,
         rel_prev=se3_compose(se3_inverse(state.X_world), X_k),
         rel_prev_valid=ego_ok & (not first_frame),
         frame_idx=state.frame_idx + 1,
     )
-    return new_state, packet, report, ego
+    return {"out": (new_state, packet, s["report"], s["ego"])}
+
+
+def _round_variants(tag: str, kind) -> dict:
+    """A refinement's stretches under `tag` ("fp" or "mo"): the round's LM
+    head, the first and every later LM iteration, the first and every later
+    round's tail."""
+    P, R, L = f"{tag}_P", f"{tag}_R", f"{tag}_L"
+    return {
+        f"{tag}.head": lambda s: {L: refine.round_head(kind, s[P], s[R])},
+        f"{tag}.iteration.first": lambda s: {L: refine.round_iteration(kind, s[P], s[R], s[L], True)},
+        f"{tag}.iteration": lambda s: {L: refine.round_iteration(kind, s[P], s[R], s[L], False)},
+        f"{tag}.tail.first": lambda s: {R: refine.round_tail(kind, s[P], s[R], s[L], True)},
+        f"{tag}.tail": lambda s: {R: refine.round_tail(kind, s[P], s[R], s[L], False)},
+    }
+
+
+def _variants(c: _Step) -> dict:
+    """Every stretch of the step under `c`, by name (`_schedule` runs them)."""
+    out = {"track": lambda s: _seg_track(s, c)}
+    if not c.first_frame:
+        out["eigh"] = lambda s: _seg_eigh(s, c)
+    out["pre"] = lambda s: _seg_pre(s, c)
+    if c.fp is not None:
+        out.update(_round_variants("fp", c.fp))
+    out["mid"] = lambda s: _seg_mid(s, c)
+    if c.mo is not None:
+        out.update(_round_variants("mo", c.mo))
+    out["tail"] = lambda s: _seg_tail(s, c)
+    return out
+
+
+# the stretches that read the host, run eagerly between two graphs
+_EAGER = ("eigh",)
+
+
+def _schedule(run, more, c: _Step) -> None:
+    """The step's host loop: `run(name)` runs a stretch of `_variants(c)`,
+    `more(key)` reads the flag `s[key]["more"]` of a refinement's rounds
+    ("fp_R", "mo_R") or of its round's LM ("fp_L", "mo_L")."""
+    run("track")
+    if not c.first_frame:
+        run("eigh")
+    run("pre")
+    _rounds(run, more, "fp", c.fp)
+    run("mid")
+    _rounds(run, more, "mo", c.mo)
+    run("tail")
+
+
+def _rounds(run, more, tag: str, kind) -> None:
+    if kind is not None:
+        refine.rounds_schedule(lambda name, first: run(f"{tag}.{name}{'.first' if first else ''}"),
+                               lambda loop: more(f"{tag}_{'R' if loop == 'rounds' else 'L'}"), kind.max_iterations)
+
+
+def _run_eagerly(s: dict, c: _Step) -> dict:
+    variants = _variants(c)
+
+    def run(name):
+        s.update(variants[name](s))
+
+    _schedule(run, lambda key: bool(s[key]["more"]), c)
+    return s
+
+
+def frontend_step(
+    state: FrontendState,
+    prev_images: FrameImages,
+    images: FrameImages,
+    cam: CameraParams,
+    cfg: FrontendConfig,
+    generator: Optional[torch.Generator] = None,
+    use_klt: bool = True,
+    first_frame: bool = False,
+    device=None,
+    _graphs: bool = True,
+):
+    """Process one frame: (state at k-1, images) -> (state at k, packet,
+    tracking report, ego RANSAC result).  Runs on CUDA unless `device`
+    says otherwise; `generator` draws every RANSAC hypothesis of the step.
+
+    The step runs as stretches between its host reads (`_schedule`).  On
+    the card, past the first frame and where the configuration allows it
+    (`graphable`), each stretch is a CUDA graph replay (`_FrameGraphs`),
+    captured once per process, shape and setting; `_graphs=False` or any
+    `TorchDispatchMode` runs the stretches eagerly there too."""
+    check_frontend_config(cfg)
+    dev = resolve_device(device)
+    state = to_device(state, dev)
+    prev_images = to_device(prev_images, dev)
+    images = to_device(images, dev)
+    if generator is not None and generator.device.type != dev.type:
+        raise ValueError("generator must live on the step's device")
+    inputs = dict(state=state, prev=prev_images, images=images,
+                  u=_draw_uniforms(state, cfg, first_frame, generator, dev))
+    c = _step_settings(cam, cfg, use_klt, first_frame, generator)
+    if dev.type == "cuda" and _graphs and not first_frame and graphable(cfg) and _get_current_dispatch_mode() is None:
+        return _captured_step(inputs, c).step(inputs)
+    return _run_eagerly({"in": inputs}, c)["out"]
+
+
+def graphable(cfg: FrontendConfig) -> bool:
+    """Whether the card runs this configuration's step as CUDA graphs.  Not
+    the 2d2d ego modes (their essential-matrix RANSACs draw inside the step,
+    and their SVD and `eigh` check their status on the host) nor
+    `redetect_min_free_fraction > 0` (the tracker reads the tracked count
+    to decide on re-detection): those step eagerly."""
+    return ego_mode(cfg) != "2d2d" and cfg.tracker.redetect_min_free_fraction <= 0.0
+
+
+class _FrameGraphs:
+    """The steady step of one shape and setting as CUDA graphs: its tensors
+    in a dict `s` allocated once, and each stretch of `_variants` (but the
+    eager ones, `_EAGER`) captured as a graph that reads and writes only
+    `s` (`utils/graphs.py`).
+
+    Made on a frame: the stretches run eagerly on it once, which allocates
+    `s` (`graphs.tree_buffers`: each tensor laid out as the eager step
+    passed it on, so each graph reads what the eager step reads); then
+    `graphs.capture` warms every stretch up on the capture stream and
+    captures it.  Kernel launches of the making are not counted: `step`
+    counts the frame's.  `step` copies
+    a frame's inputs into `s["in"]`, runs `_schedule` over the replays (the
+    host loops read the same flags as the eager step) and clones the
+    outputs out of `s`, which the next replay overwrites."""
+
+    def __init__(self, inputs: dict, c: _Step):
+        launches = kernels.launch_counts()
+        self.s = graphs.tree_buffers(_run_eagerly({"in": inputs}, c))
+        self.c = c
+        variants = _variants(c)
+        self.eager = {name: variants.pop(name) for name in _EAGER if name in variants}
+        self.graphs = graphs.capture(
+            {name: (lambda fn=fn: graphs.tree_copy_(self.s, fn(self.s))) for name, fn in variants.items()},
+            inputs["images"].gray.device)
+        kernels.set_launch_counts(launches)
+
+    def _run(self, name: str) -> None:
+        if name in self.eager:
+            graphs.tree_copy_(self.s, self.eager[name](self.s))
+        else:
+            self.graphs[name].replay()
+            graphs.count("frontend", "replays")
+
+    def step(self, inputs: dict):
+        graphs.tree_copy_(self.s["in"], inputs)
+        _schedule(self._run, lambda key: bool(self.s[key]["more"]), self.c)
+        return graphs.tree_clone(self.s["out"])
+
+
+# Captured steps by everything a capture bakes in, least recently used
+# first: a fresh pipeline (a benchmark's next rep) reuses the captures.
+_FRAME_GRAPHS: OrderedDict = OrderedDict()
+_FRAME_GRAPHS_MAX = 4
+
+
+def graph_counts() -> dict:
+    """{"captures", "replays"}: frontend-step graph sets captured and
+    graphs replayed in this process."""
+    return graphs.counts("frontend")
+
+
+def _pieces() -> tuple:
+    """Every function the step's stretches reach through the port's module
+    names, resolved now: a capture bakes them in, so they belong to its
+    key (a function replaced for a run captures anew)."""
+    from ..backend import small_schur, solver
+    from ..core import camera, lie
+    from ..kernels import lk, point_sample, response
+    from ..ops import clahe, factors, klt, linalg, ransac, robust
+    from . import detect, mask_ops, tracker
+
+    return graphs.module_functions(sys.modules[__name__], tracker, refine, detect, mask_ops, homography, ransac,
+                                   klt, clahe, linalg, factors, robust, camera, lie, small_schur, solver, lk,
+                                   point_sample, response)
+
+
+def _captured_step(inputs: dict, c: _Step) -> _FrameGraphs:
+    """The cached `_FrameGraphs` of this step's shapes and settings,
+    made on these inputs on first use."""
+    key = (inputs["images"].gray.device, c.cam, c.cfg, c.use_klt, _pieces(), graphs.signature(inputs))
+
+    def make():
+        fg = _FrameGraphs(inputs, c)
+        graphs.count("frontend", "captures")
+        return fg
+
+    return graphs.lru(_FRAME_GRAPHS, key, make, _FRAME_GRAPHS_MAX)

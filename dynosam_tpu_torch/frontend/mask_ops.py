@@ -44,7 +44,7 @@ def propagate_mask(prev_mask: torch.Tensor, flow_prev: torch.Tensor, cur_mask: t
         0, (ty * w + tx).reshape(-1), prev_mask.reshape(-1), reduce="amax", include_self=True,
     ).reshape(h, w)
     lost = (label_counts(cur_mask, LABEL_CAP) == 0) & (label_counts(prev_mask, LABEL_CAP) > min_overlap_frac * 100)
-    lost[0] = False
+    lost[0].zero_()            # a fill: assigning a Python scalar copies it from the host
     warped_is_lost = lost[torch.clamp(warped, 0, LABEL_CAP - 1).long()]
     return torch.where((cur_mask == 0) & warped_is_lost, warped, cur_mask)
 

@@ -178,7 +178,7 @@ def orb_pyramid(
             resp = torch.where(_cell_max(r_init, cell_size) > 0.0, r_init, r_min)
             e = EDGE_THRESHOLD
             border = torch.ones((lh, lw), dtype=torch.bool, device=dev)
-            border[e:lh - e, e:lw - e] = False
+            border[e:lh - e, e:lw - e].fill_(False)
             # NMS cell sized for ~4x the quota in cells
             nms_cell = max(4, min(int(math.sqrt(lh * lw / max(4 * q, 1))), cell_size))
             dets = detect_grid_nms(resp, border, max_corners=q, cell_size=nms_cell, quality_level=0.0)
@@ -276,7 +276,7 @@ def match_descriptors(
     ham = torch.where(valid_a[:, None] & valid_b[None, :], ham, torch.full_like(ham, big))
     best = torch.argmin(ham, dim=1)
     d_best = torch.amin(ham, dim=1)
-    oh = F.one_hot(best, ham.shape[1]).to(ham.dtype)
+    oh = (best[:, None] == torch.arange(ham.shape[1], device=ham.device)).to(ham.dtype)   # no host range check
     d_second = torch.amin(ham + oh * big, dim=1)
     ok = (d_best <= max_hamming) & (d_best <= ratio * d_second)
     if cross_check:

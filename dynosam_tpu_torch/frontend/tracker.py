@@ -126,6 +126,12 @@ def _set_rows(x: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor, new: torch.T
     return out
 
 
+def _one_hot(x: torch.Tensor, n: int) -> torch.Tensor:
+    """`F.one_hot(x.long(), n)` for x in [0, n), without its range check
+    (a host read on the CPU)."""
+    return (x.long()[:, None] == torch.arange(n, device=x.device)).long()
+
+
 def _inb(uv: torch.Tensor, cfg: TrackerConfig, h: int, w: int) -> torch.Tensor:
     return (
         (uv[:, 0] >= cfg.shrink_col)
@@ -133,6 +139,20 @@ def _inb(uv: torch.Tensor, cfg: TrackerConfig, h: int, w: int) -> torch.Tensor:
         & (uv[:, 1] >= cfg.shrink_row)
         & (uv[:, 1] < h - cfg.shrink_row)
     )
+
+
+class StaticTrack(NamedTuple):
+    """`track_frame` up to the homography refit's eigen-decomposition:
+    the frame's (propagated) mask, the static pool's tracked positions and
+    flags, the dynamic pool's flow and labels, and the homography RANSAC's
+    head (None on the first frame)."""
+
+    mask_cur: torch.Tensor
+    s_uv: torch.Tensor
+    s_ok: torch.Tensor
+    fl_d: Optional[torch.Tensor]
+    cur_label_d: Optional[torch.Tensor]
+    hom: Optional[homography.HomographyHead]
 
 
 def track_frame(
@@ -147,68 +167,112 @@ def track_frame(
     generator: Optional[torch.Generator] = None,
     hom_idx: Optional[torch.Tensor] = None,
     mask_prev: Optional[torch.Tensor] = None,
+    hom_uniforms: Optional[torch.Tensor] = None,
 ):
     """One tracking step: (state at k-1, images) -> (state at k, report).
 
     `generator` draws the homography-RANSAC hypotheses; `hom_idx` (128, 4)
-    injects them instead.  With `use_propogate_mask`, labels of `mask_prev`
-    (the segmenter's mask of k-1) that the segmenter lost at k are carried
-    forward through the flow (`mask_ops.propagate_mask`)."""
+    injects them instead, and `hom_uniforms` (512,) are the generator's
+    draws made beforehand.  With `use_propogate_mask`, labels of
+    `mask_prev` (the segmenter's mask of k-1) that the segmenter lost at k
+    are carried forward through the flow (`mask_ops.propagate_mask`).
+
+    Runs `track_static`, the homography refit's eigen-decomposition (a
+    host read on the card) and `track_rest`; the frontend step runs the
+    three apart."""
+    st = track_static(state, prev_gray, cur_gray, flow_prev, mask_cur, cfg, use_klt, first_frame, generator,
+                      hom_idx, mask_prev, hom_uniforms)
+    vecs = None if st.hom is None else homography.normal_eigenvectors(st.hom.AtA)
+    return track_rest(state, cur_gray, cfg, first_frame, st, vecs)
+
+
+def track_static(
+    state: TrackerState,
+    prev_gray: torch.Tensor,
+    cur_gray: torch.Tensor,
+    flow_prev: torch.Tensor,
+    mask_cur: torch.Tensor,
+    cfg: TrackerConfig,
+    use_klt: bool = True,
+    first_frame: bool = False,
+    generator: Optional[torch.Generator] = None,
+    hom_idx: Optional[torch.Tensor] = None,
+    mask_prev: Optional[torch.Tensor] = None,
+    hom_uniforms: Optional[torch.Tensor] = None,
+) -> StaticTrack:
+    """The static pool's tracking through the homography RANSAC's head;
+    see `track_frame`."""
     if cfg.use_propogate_mask and not first_frame and mask_prev is not None:
         mask_cur = propagate_mask(mask_prev, flow_prev, mask_cur)
     h, w = cur_gray.shape
-    dev, dtype = cur_gray.device, cur_gray.dtype
-    i32 = torch.int32
 
     # ------------------------------------------------------------ static
     ns_pool = state.s_uv.shape[0]
-    fl_d = None
-    cur_label_d = None
     if first_frame:
-        s_uv, s_ok = state.s_uv, torch.zeros_like(state.s_active)
-        homo_inl = torch.zeros((), dtype=i32, device=dev)
-    else:
-        # one merged dense-flow sample (K2) for both pools
-        need_s_flow = cfg.klt_flow_warm_start or not use_klt
-        if need_s_flow:
-            fl_both = flow_at(
-                flow_prev,
-                torch.cat([state.s_uv, state.d_uv], dim=0),
-                torch.cat([state.s_active, state.d_active], dim=0),
-            )
-            fl_s, fl_d = fl_both[:ns_pool], fl_both[ns_pool:]
-        else:
-            fl_s = None
-            fl_d = flow_at(flow_prev, state.d_uv, state.d_active)
-        if use_klt:
-            if cfg.klt_flow_warm_start:
-                g0, levels, iters = fl_s, cfg.klt_warm_levels, cfg.klt_warm_iterations
-            else:
-                g0, levels, iters = None, cfg.klt_levels, cfg.klt_iterations
-            res = klt_track_lk(
-                prev_gray, cur_gray, state.s_uv, state.s_active,
-                win=cfg.klt_window, levels=levels, iters=iters,
-                eps=cfg.klt_eps, g0=g0,
-            )
-            s_uv, s_ok = res.uv, res.ok
-        else:
-            s_uv = state.s_uv + fl_s
-            s_ok = state.s_active
-        inb = _inb(s_uv, cfg, h, w)
-        # one merged mask-label sample (K2): static pool at tracked
-        # positions + dynamic pool at flow-propagated positions
-        labels_both = nearest_at(
-            mask_cur,
-            torch.cat([s_uv, state.d_uv + fl_d], dim=0),
+        return StaticTrack(mask_cur, state.s_uv, torch.zeros_like(state.s_active), None, None, None)
+    # one merged dense-flow sample (K2) for both pools
+    need_s_flow = cfg.klt_flow_warm_start or not use_klt
+    if need_s_flow:
+        fl_both = flow_at(
+            flow_prev,
+            torch.cat([state.s_uv, state.d_uv], dim=0),
             torch.cat([state.s_active, state.d_active], dim=0),
         )
-        on_bg = labels_both[:ns_pool] == 0
-        cur_label_d = labels_both[ns_pool:]
-        s_ok = s_ok & inb & on_bg & state.s_active
-        hres = homography.ransac_homography(
-            state.s_uv, s_uv, s_ok, iters=128, threshold=3.0,
-            generator=generator, idx=hom_idx,
+        fl_s, fl_d = fl_both[:ns_pool], fl_both[ns_pool:]
+    else:
+        fl_s = None
+        fl_d = flow_at(flow_prev, state.d_uv, state.d_active)
+    if use_klt:
+        if cfg.klt_flow_warm_start:
+            g0, levels, iters = fl_s, cfg.klt_warm_levels, cfg.klt_warm_iterations
+        else:
+            g0, levels, iters = None, cfg.klt_levels, cfg.klt_iterations
+        res = klt_track_lk(
+            prev_gray, cur_gray, state.s_uv, state.s_active,
+            win=cfg.klt_window, levels=levels, iters=iters,
+            eps=cfg.klt_eps, g0=g0,
         )
+        s_uv, s_ok = res.uv, res.ok
+    else:
+        s_uv = state.s_uv + fl_s
+        s_ok = state.s_active
+    inb = _inb(s_uv, cfg, h, w)
+    # one merged mask-label sample (K2): static pool at tracked
+    # positions + dynamic pool at flow-propagated positions
+    labels_both = nearest_at(
+        mask_cur,
+        torch.cat([s_uv, state.d_uv + fl_d], dim=0),
+        torch.cat([state.s_active, state.d_active], dim=0),
+    )
+    on_bg = labels_both[:ns_pool] == 0
+    cur_label_d = labels_both[ns_pool:]
+    s_ok = s_ok & inb & on_bg & state.s_active
+    hom = homography.ransac_homography_head(
+        state.s_uv, s_uv, s_ok, iters=128, threshold=3.0,
+        generator=generator, idx=hom_idx, uniforms=hom_uniforms,
+    )
+    return StaticTrack(mask_cur, s_uv, s_ok, fl_d, cur_label_d, hom)
+
+
+def track_rest(
+    state: TrackerState,
+    cur_gray: torch.Tensor,
+    cfg: TrackerConfig,
+    first_frame: bool,
+    st: StaticTrack,
+    hom_vecs: Optional[torch.Tensor],
+):
+    """`track_frame` from the homography refit's eigenvectors
+    (`homography.normal_eigenvectors(st.hom.AtA)`) on: the homography
+    check, re-detection, the object table and the dynamic pool."""
+    mask_cur, s_uv, s_ok, fl_d, cur_label_d = st.mask_cur, st.s_uv, st.s_ok, st.fl_d, st.cur_label_d
+    h, w = cur_gray.shape
+    dev, dtype = cur_gray.device, cur_gray.dtype
+    i32 = torch.int32
+    if first_frame:
+        homo_inl = torch.zeros((), dtype=i32, device=dev)
+    else:
+        hres = homography.ransac_homography_tail(st.hom, hom_vecs, threshold=3.0)
         enough = hres.n_inliers >= 10
         s_ok = torch.where(enough, s_ok & hres.inliers, s_ok)
         homo_inl = hres.n_inliers
@@ -319,7 +383,7 @@ def track_frame(
     # ------------------------------------------------------------ objects
     label_cap = cfg.max_instance_labels
     counts = label_counts(mask_cur, label_cap)
-    counts[0] = 0
+    counts[0].zero_()          # a fill: assigning a Python scalar copies it from the host
     present = counts >= cfg.min_object_pixels
     table = state.obj_labels
     label_ids = torch.arange(label_cap, dtype=i32, device=dev)
@@ -334,9 +398,7 @@ def track_frame(
 
     # ------------------------------------------------------------ dynamic
     no_ = state.obj_labels.shape[0]
-    d_oh = torch.nn.functional.one_hot(
-        torch.clamp(state.d_obj, 0, no_ - 1).long(), no_
-    ).to(i32) * (state.d_obj >= 0)[:, None].to(i32)
+    d_oh = _one_hot(torch.clamp(state.d_obj, 0, no_ - 1), no_).to(i32) * (state.d_obj >= 0)[:, None].to(i32)
 
     def _cnt(cond):
         return torch.sum(d_oh * cond[:, None].to(i32), dim=0).to(i32)
@@ -395,7 +457,7 @@ def track_frame(
         d_cooldown=d_cooldown, obj_labels=table, obj_active=obj_active,
     )
     n_sampled = torch.sum(
-        torch.nn.functional.one_hot(cand_slot[cand_i3].long(), no_).to(i32)
+        _one_hot(cand_slot[cand_i3], no_).to(i32)
         * ok3[:, None].to(i32), dim=0,
     ).to(i32)
     per_object = PerObjectStatus(

@@ -26,3 +26,15 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: m.launches for name, m in _MODULES.items()}
+
+
+def set_launch_counts(counts: dict) -> None:
+    for name, n in counts.items():
+        _MODULES[name].launches = n
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add launches made on the wrappers' behalf (a CUDA graph replay of
+    captured launches, `utils/graphs.py`)."""
+    for name, n in counts.items():
+        _MODULES[name].launches += n

@@ -61,8 +61,7 @@ def lk_level_plain(
 
     `valid=None` iterates every slot (the `ops/klt.py:klt_track` form)."""
     offs = patch_offsets(win, prev.dtype, prev.device)       # (P, 2)
-    ex = torch.tensor([1.0, 0.0], dtype=prev.dtype, device=prev.device)
-    ey = torch.tensor([0.0, 1.0], dtype=prev.dtype, device=prev.device)
+    ex, ey = torch.eye(2, dtype=prev.dtype, device=prev.device)
     coords = p[:, None, :] + offs[None]                       # (N, P, 2)
     t = bilinear_gather(prev, coords)
     gx = (bilinear_gather(prev, coords + ex) - bilinear_gather(prev, coords - ex)) * 0.5

@@ -45,6 +45,30 @@ def _dlt_rows(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor
     return rows * w2
 
 
+def _dlt_system(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor):
+    """(A, Tp, Tq): the weighted Hartley-normalised DLT rows and the two
+    normalising transforms."""
+    pn, Tp = _normalize(p, w)
+    qn, Tq = _normalize(q, w)
+    return _dlt_rows(pn, qn, w), Tp, Tq
+
+
+def _denormalize(h: torch.Tensor, Tp: torch.Tensor, Tq: torch.Tensor) -> torch.Tensor:
+    """(..., 9) normalised homography -> (..., 3, 3), scaled to h33 = 1."""
+    Hn = h.reshape(*h.shape[:-1], 3, 3)
+    H = torch.einsum("...ij,...jk->...ik", inv3(Tq), Hn @ Tp)
+    h33 = H[..., 2:3, 2:3]
+    return H / torch.where(torch.abs(h33) < 1e-12, torch.ones_like(h33), h33)
+
+
+def normal_eigenvectors(AtA: torch.Tensor) -> torch.Tensor:
+    """The eigenvectors of the DLT normal matrix, ascending (the first
+    column spans the null space).  `torch.linalg.eigh` checks its solver's
+    status on the host, so on the card this is a host read and runs
+    eagerly between two captured stretches of the frontend step."""
+    return torch.linalg.eigh(AtA)[1]
+
+
 def homography_from_points(
     p: torch.Tensor, q: torch.Tensor, w: Optional[torch.Tensor] = None,
     method: str = "eigh",
@@ -54,9 +78,7 @@ def homography_from_points(
     8x8 normal solve (the RANSAC hypothesis batch)."""
     if w is None:
         w = torch.ones(p.shape[:-1], dtype=p.dtype, device=p.device)
-    pn, Tp = _normalize(p, w)
-    qn, Tq = _normalize(q, w)
-    A = _dlt_rows(pn, qn, w)
+    A, Tp, Tq = _dlt_system(p, q, w)
     if method == "solve":
         A8 = A[..., :8]
         a9 = A[..., 8]
@@ -67,13 +89,8 @@ def homography_from_points(
         h8 = torch.einsum("...ij,...j->...i", inv_spd(M), b)
         h = torch.cat([h8, torch.ones((*h8.shape[:-1], 1), dtype=h8.dtype, device=h8.device)], dim=-1)
     else:
-        AtA = torch.einsum("...ni,...nj->...ij", A, A)
-        _, vecs = torch.linalg.eigh(AtA)
-        h = vecs[..., :, 0]
-    Hn = h.reshape(*h.shape[:-1], 3, 3)
-    H = torch.einsum("...ij,...jk->...ik", inv3(Tq), Hn @ Tp)
-    h33 = H[..., 2:3, 2:3]
-    return H / torch.where(torch.abs(h33) < 1e-12, torch.ones_like(h33), h33)
+        h = normal_eigenvectors(torch.einsum("...ni,...nj->...ij", A, A))[..., :, 0]
+    return _denormalize(h, Tp, Tq)
 
 
 def transfer_error(H: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -94,6 +111,66 @@ class HomographyResult(NamedTuple):
     n_inliers: torch.Tensor  # () int
 
 
+class HomographyHead(NamedTuple):
+    """`ransac_homography` up to the refit's eigen-decomposition."""
+
+    p: torch.Tensor
+    q: torch.Tensor
+    valid: torch.Tensor
+    AtA: torch.Tensor        # (9, 9) normal matrix of the refit on the best inlier set
+    Tp: torch.Tensor
+    Tq: torch.Tensor
+    inl_best: torch.Tensor   # (N,) the best hypothesis's inliers
+    score_best: torch.Tensor  # () their count
+    H_best: torch.Tensor     # (3, 3) the best hypothesis
+
+
+def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor, on the device (Python indexing by a
+    tensor reads it on the host)."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def ransac_homography_head(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    valid: torch.Tensor,
+    iters: int = 200,
+    threshold: float = 3.0,
+    generator: Optional[torch.Generator] = None,
+    idx: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> HomographyHead:
+    """The hypotheses, their scores and the refit's normal matrix; see
+    `ransac_homography`."""
+    from .ransac import sample_valid_indices
+
+    if idx is None:
+        idx = sample_valid_indices(valid, iters, 4, generator, uniforms)
+    idx = idx.long()
+    Hs = homography_from_points(p[idx], q[idx], method="solve")
+    err = transfer_error(Hs, p[None], q[None])           # (K, N)
+    inl = (err < threshold) & valid[None]
+    scores = torch.sum(inl, dim=-1)
+    best = torch.argmax(scores)                          # first maximum
+    inl_best = _pick(inl, best)
+    A, Tp, Tq = _dlt_system(p, q, inl_best.to(p.dtype))
+    return HomographyHead(p, q, valid, torch.einsum("...ni,...nj->...ij", A, A), Tp, Tq,
+                          inl_best, _pick(scores, best), _pick(Hs, best))
+
+
+def ransac_homography_tail(head: HomographyHead, vecs: torch.Tensor, threshold: float = 3.0) -> HomographyResult:
+    """The refit from `normal_eigenvectors(head.AtA)` and the choice
+    between it and the best hypothesis; see `ransac_homography`."""
+    H_ref = _denormalize(vecs[..., :, 0], head.Tp, head.Tq)
+    err_f = transfer_error(H_ref, head.p, head.q)
+    inl_f = (err_f < threshold) & head.valid
+    better = torch.sum(inl_f) >= head.score_best
+    H_out = torch.where(better, H_ref, head.H_best)
+    inl_out = torch.where(better, inl_f, head.inl_best)
+    return HomographyResult(H_out, inl_out, torch.sum(inl_out).to(torch.int32))
+
+
 def ransac_homography(
     p: torch.Tensor,
     q: torch.Tensor,
@@ -102,26 +179,13 @@ def ransac_homography(
     threshold: float = 3.0,
     generator: Optional[torch.Generator] = None,
     idx: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
 ) -> HomographyResult:
     """Robust homography p -> q; inliers under forward transfer error.
 
     `idx` (iters, 4) injects the hypothesis indices (the JAX package draws
-    them from `jax.random`); without it they come from `generator`."""
-    from .ransac import sample_valid_indices
-
-    if idx is None:
-        idx = sample_valid_indices(valid, iters, 4, generator)
-    idx = idx.long()
-    Hs = homography_from_points(p[idx], q[idx], method="solve")
-    err = transfer_error(Hs, p[None], q[None])           # (K, N)
-    inl = (err < threshold) & valid[None]
-    scores = torch.sum(inl, dim=-1)
-    best = torch.argmax(scores)                          # first maximum
-    w_in = inl[best].to(p.dtype)
-    H_ref = homography_from_points(p, q, w_in)
-    err_f = transfer_error(H_ref, p, q)
-    inl_f = (err_f < threshold) & valid
-    better = torch.sum(inl_f) >= scores[best]
-    H_out = torch.where(better, H_ref, Hs[best])
-    inl_out = torch.where(better, inl_f, inl[best])
-    return HomographyResult(H_out, inl_out, torch.sum(inl_out).to(torch.int32))
+    them from `jax.random`); without it they come from `generator`, or
+    from `uniforms` (iters * 4,) drawn from it beforehand
+    (`ransac.draw_uniforms`)."""
+    head = ransac_homography_head(p, q, valid, iters, threshold, generator, idx, uniforms)
+    return ransac_homography_tail(head, normal_eigenvectors(head.AtA), threshold)

@@ -81,21 +81,29 @@ def rigid_from_minimal(src3: torch.Tensor, dst3: torch.Tensor):
     return SE3(R, t), ok_e & ok_f
 
 
+def draw_uniforms(batch_shape: tuple, iters: int, k: int, generator: Optional[torch.Generator] = None,
+                  device=None) -> torch.Tensor:
+    """The (*batch_shape, iters * k) float64 uniforms `sample_valid_indices`
+    turns into hypothesis indices, drawn from `generator`."""
+    return torch.rand((*batch_shape, iters * k), generator=generator, dtype=torch.float64, device=device)
+
+
 def sample_valid_indices(
     valid: torch.Tensor, iters: int, k: int,
     generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(..., iters, k) indices drawn uniformly (with replacement) from the
     valid slots of `valid` (..., N) by inverse CDF on the cumulative valid
     count.  With no valid slot the indices are arbitrary in-range slots;
-    callers gate on their own inlier counts."""
+    callers gate on their own inlier counts.  The uniforms come from
+    `generator`, or are `uniforms` drawn from it beforehand by
+    `draw_uniforms` (the same numbers: a CUDA graph of the frontend step
+    takes them as an input)."""
     n = valid.shape[-1]
     c = torch.cumsum(valid.to(torch.int64), dim=-1)            # (..., N)
     m = c[..., -1:]                                            # (..., 1)
-    r = torch.rand(
-        (*valid.shape[:-1], iters * k), generator=generator,
-        dtype=torch.float64, device=valid.device,
-    )
+    r = uniforms if uniforms is not None else draw_uniforms(valid.shape[:-1], iters, k, generator, valid.device)
     m1 = torch.clamp(m, min=1)
     u = torch.minimum(torch.floor(r * m1).to(torch.int64), m1 - 1)
     # index of the (u+1)-th valid slot == #[prefix counts <= u]
@@ -125,6 +133,7 @@ def ransac_rigid(
     score_cap: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     idx: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
 ) -> RansacResult:
     """Robustly estimate T with dst ~ T(src), batched: src/dst (B, N, 3),
     valid (B, N), uv (B, N, 2) for the 3d2d mode (then T = ^w X_c and the
@@ -132,7 +141,9 @@ def ransac_rigid(
 
     `score_cap` compacts the valid slots to the front and solves on the
     first `score_cap` rows (exact while the live count <= cap); `idx`
-    (B, iters, 3) then indexes the compacted rows, as the JAX draw does."""
+    (B, iters, 3) then indexes the compacted rows, as the JAX draw does.
+    `uniforms` (B, iters * 3) are `generator`'s draws made beforehand
+    (`draw_uniforms`)."""
     bsz, n_pool = src.shape[0], src.shape[1]
     dt, dev = src.dtype, src.device
     scatter_order = None
@@ -145,7 +156,7 @@ def ransac_rigid(
         valid = torch.gather(valid, 1, order)
         scatter_order = order
     if idx is None:
-        idx = sample_valid_indices(valid, iters, _MIN_SET, generator)
+        idx = sample_valid_indices(valid, iters, _MIN_SET, generator, uniforms)
     idx = idx.long()
     src_min = _gather_rows(src, idx)                           # (B, K, 3, 3)
     dst_min = _gather_rows(dst, idx)
@@ -250,6 +261,7 @@ def ransac_pose_3d2d(
     score_cap: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     idx: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
 ) -> RansacResult:
     """Camera-pose PnP ^wX_c with pi(X^-1 p_w) = uv, hypotheses from 3-point
     alignment of current camera-frame points onto world landmarks; batched
@@ -258,5 +270,5 @@ def ransac_pose_3d2d(
         src=p_world, dst=xyz_cur, valid=valid, iters=iters,
         threshold=threshold_px, uv=uv, cam=cam, refine_steps=refine_steps,
         min_inliers=min_inliers, score_cap=score_cap, generator=generator,
-        idx=idx,
+        idx=idx, uniforms=uniforms,
     )

@@ -13,9 +13,12 @@ Frontend-only (default): runs the pipeline with the chosen detector
 then traces the remaining frames with `torch.profiler` (CPU and CUDA
 activities) and prints, per traced frame: host wall time and device busy
 time (kernels, copies and fills on the card) of the traced run, the
-device's idle share in that run, CUDA kernel launches, memcpy and
-synchronise calls (the host syncs), the device time of the port's own
-kernels, then the operators that take the most device and host time.
+device's idle share in that run, the kernels that ran on the card and how
+many of them the host launched one by one (the rest ran inside CUDA
+graph replays, counted apart), memcpy and synchronise calls (the host
+syncs), each synchronising call by the operators it was issued under, the
+device time of the port's own kernels, then the operators that take the
+most device and host time.
 
 `--pipeline`: the offline pipeline with the sliding-window backend
 (`throughput.make_offline_runner` on `kitti_pipeline_config`; the frame
@@ -58,6 +61,8 @@ from pathlib import Path
 
 PORT_KERNELS = ("lk_level_kernel", "point_sample_kernel", "shi_tomasi_kernel", "orb_sample_kernel")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchCooperativeKernel")
 
 
 def _stats(torch, prof, wall_ms: float, n: int) -> dict:
@@ -78,10 +83,11 @@ def _stats(torch, prof, wall_ms: float, n: int) -> dict:
         port[tag] = dict(launches=len(mine) / n, device_us_per_launch=us / max(len(mine), 1),
                          device_us=us / n)
     n_graphs = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+    n_launch_calls = sum(e.count for e in events if e.key in LAUNCH_CALLS)
     return dict(wall_ms=wall_ms / n, device_busy_ms=busy,
                 idle_share=None if busy is None else 1 - busy / (wall_ms / n),
-                kernel_launches=n_kernels / n, memcpy_or_sync_calls=n_sync / n, graph_launches=n_graphs / n,
-                port_kernels=port)
+                kernel_launches=n_kernels / n, launch_calls=n_launch_calls / n, memcpy_or_sync_calls=n_sync / n,
+                graph_launches=n_graphs / n, port_kernels=port)
 
 
 def _host_reads(prof) -> dict:
@@ -104,8 +110,9 @@ def _line(label: str, s: dict) -> str:
     busy = ("not measured (the profiler reported no device time)" if s["device_busy_ms"] is None
             else f"{s['device_busy_ms']:.3f} ms, idle share {s['idle_share']:.3f}")
     return (f"{label}: host wall {s['wall_ms']:.2f} ms; device busy {busy}; "
-            f"CUDA kernel launches {s['kernel_launches']:.0f}; memcpy/sync calls {s['memcpy_or_sync_calls']:.0f}; "
-            f"CUDA graph launches {s['graph_launches']:.0f}")
+            f"kernels on the card {s['kernel_launches']:.0f} (launched by the host {s['launch_calls']:.0f}, the "
+            f"rest by CUDA graph replays); CUDA graph launches {s['graph_launches']:.0f}; "
+            f"memcpy/sync calls {s['memcpy_or_sync_calls']:.0f}")
 
 
 def _profiled(torch, profile, activities, fn):
@@ -135,6 +142,9 @@ def _trace_frontend(torch, profile, acts, args, device, card) -> dict:
     print(f"card: {card}")
     print(f"{args.detector} detector: traced {n} steady frames after {args.warmup} warm-up frames, 1280x384")
     print(_line("under the profiler, per frame", s))
+    reads = _host_reads(prof)
+    for call, count in sorted(reads.items()):
+        print(f"  host reads: {count / n:g} a frame x {call}")
     for tag, k in s["port_kernels"].items():
         print(f"{tag}: {k['launches']:.1f} launches/frame, {k['device_us_per_launch']:.2f} us device time "
               f"per launch, {k['device_us']:.2f} us/frame")
@@ -143,8 +153,10 @@ def _trace_frontend(torch, profile, acts, args, device, card) -> dict:
         _chrome(prof, args.out, f"trace_frontend_torch_{args.detector}.json")
     return {"card": card, "detector": args.detector, "frames": n, "wall_ms_per_frame": s["wall_ms"],
             "device_busy_ms_per_frame": s["device_busy_ms"], "idle_share": s["idle_share"],
-            "kernel_launches_per_frame": s["kernel_launches"],
-            "memcpy_or_sync_calls_per_frame": s["memcpy_or_sync_calls"], "port_kernels": s["port_kernels"]}
+            "kernel_launches_per_frame": s["kernel_launches"], "launch_calls_per_frame": s["launch_calls"],
+            "graph_launches_per_frame": s["graph_launches"],
+            "memcpy_or_sync_calls_per_frame": s["memcpy_or_sync_calls"],
+            "host_reads_per_frame": {k: v / n for k, v in reads.items()}, "port_kernels": s["port_kernels"]}
 
 
 def _trace_pipeline(torch, profile, acts, args, device, card) -> dict:
@@ -156,11 +168,13 @@ def _trace_pipeline(torch, profile, acts, args, device, card) -> dict:
     for f in frames[:args.warmup]:
         runner.step(f)
     torch.cuda.synchronize()
-    fe, windows = [], []
+    fe, windows, fe_reads = [], [], {}
     prof = None
     for f in frames[args.warmup:]:
         prof, wall = _profiled(torch, profile, acts, lambda: runner.frontend(f))
         fe.append(_stats(torch, prof, wall, 1))
+        for call, count in _host_reads(prof).items():
+            fe_reads[call] = fe_reads.get(call, 0) + count
         start = runner.window_due()
         if start is not None:
             holder = []
@@ -175,14 +189,16 @@ def _trace_pipeline(torch, profile, acts, args, device, card) -> dict:
     n = len(fe)
     mean = lambda key, rows: sum(r[key] for r in rows) / len(rows) if rows and all(  # noqa: E731
         r[key] is not None for r in rows) else None
-    fe_mean = {k: mean(k, fe) for k in ("wall_ms", "device_busy_ms", "kernel_launches", "memcpy_or_sync_calls",
-                                        "graph_launches")}
+    fe_mean = {k: mean(k, fe) for k in ("wall_ms", "device_busy_ms", "kernel_launches", "launch_calls",
+                                        "memcpy_or_sync_calls", "graph_launches")}
     fe_mean["idle_share"] = (None if fe_mean["device_busy_ms"] is None
                              else 1 - fe_mean["device_busy_ms"] / fe_mean["wall_ms"])
     print(f"card: {card}")
     print(f"pipeline (frontend + window-10 backend): {args.frames} frames 1280x384, traced frames "
           f"{args.warmup}..{args.frames - 1} after {args.warmup} warm-up frames")
     print(_line(f"frontend step, mean of {n} frames", fe_mean))
+    for call, count in sorted(fe_reads.items()):
+        print(f"  host reads: {count / n:g} a frame x {call}")
     solve_frames = {w["frame"] for w in windows}
     for w in windows:
         print(_line(f"window solve [{w['start']}, {w['start'] + 10}) at frame {w['frame']}, "
@@ -195,7 +211,8 @@ def _trace_pipeline(torch, profile, acts, args, device, card) -> dict:
     if args.chrome and prof is not None:
         _chrome(prof, args.out, "trace_pipeline_torch_last.json")
     return {"card": card, "mode": "pipeline", "frames": args.frames, "traced_frames": n,
-            "frontend_per_frame": fe_mean, "windows": windows,
+            "frontend_per_frame": fe_mean, "frontend_host_reads_per_frame": {k: v / n for k, v in fe_reads.items()},
+            "windows": windows,
             "frames_with_a_solve": sorted(solve_frames)}
 
 

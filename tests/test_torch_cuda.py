@@ -3,8 +3,8 @@ PyTorch version on the same CUDA tensors, short frontend-only runs
 (Shi-Tomasi and ORB detectors) that must launch their kernels on every
 steady frame, backend solves (a direct-Schur window of each formulation,
 a batched dispatch of two windows, a full-batch LM-PCG) on the card
-against the CPU, the window solve's CUDA graphs against its eager loop,
-and drift recovery in full for both updaters.
+against the CPU, the window solve's and the frontend step's CUDA graphs
+against their eager runs, and drift recovery in full for both updaters.
 
 Marked `cuda`; a fixture skips them where no card is present.  On a machine
 with a card and the CUDA toolkit (this file imports neither JAX nor the
@@ -506,6 +506,7 @@ def test_online_run_captures_its_window_while_the_prefetch_thread_rectifies(cuda
     iteration) with its error down."""
     import threading
     import time
+    import traceback
 
     from dynosam_tpu_torch.backend import schur
     from dynosam_tpu_torch.core.distortion import Distortion
@@ -525,7 +526,9 @@ def test_online_run_captures_its_window_while_the_prefetch_thread_rectifies(cuda
     def begin(graph, *a, **k):
         real_begin(graph, *a, **k)
         spans.append([time.perf_counter(), None])
-        capturing.set()
+        # the window solve's capture (the frontend step's come at frame 1)
+        if any(f.name == "capture" and f.filename.endswith("schur.py") for f in traceback.extract_stack()):
+            capturing.set()
         time.sleep(0.2)                   # the capture stays open while the thread rectifies
 
     def end(graph, *a, **k):
@@ -874,3 +877,139 @@ def test_distributed_solves_on_a_one_rank_nccl_group(cuda):
     finally:
         dist.destroy_process_group()
     assert not dist.is_initialized()
+
+
+def _spin(pipe, frames, graphed, monkeypatch):
+    """Spin `pipe` over `frames` with the frontend step graphed or eager;
+    (packets, final frontend state, kernel launches of the run)."""
+    import functools
+
+    from dynosam_tpu_torch import pipeline
+
+    if not graphed:
+        monkeypatch.setattr(pipeline, "frontend_step", functools.partial(pipeline.frontend_step, _graphs=False))
+    kernels.reset_launch_counts()
+    for f in frames:
+        pipe.spin_once(f)
+    pipe.finish()
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    return pipe.packets, pipe.frontend_state, kernels.launch_counts()
+
+
+def _trees_equal(a, b) -> bool:
+    la, lb = torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def test_graphed_frontend_steps_equal_the_eager_step_bit_for_bit(cuda, monkeypatch):
+    """20 frames of `kitti_online_config` (1280x384, the online cell's
+    setting) with the frontend-step cache empty: one capture at frame 1,
+    then every step replays its stretches; every packet and the final
+    frontend state equal the eager step's bit for bit, and the kernels'
+    launch counters read the same graphed as eager (a replay adds the
+    launches its graphs captured)."""
+    from dynosam_tpu_torch.frontend import frontend as fe
+    from dynosam_tpu_torch.pipeline import DynoPipeline
+    from dynosam_tpu_torch.testing.scenes import kitti_online_config, kitti_scene
+
+    scene, frames = kitti_scene(cuda, n_frames=20)
+    cfg = kitti_online_config()
+    eager = _spin(DynoPipeline(scene.cam, cfg, device=cuda), frames, False, monkeypatch)
+    monkeypatch.setattr(fe, "_FRAME_GRAPHS", type(fe._FRAME_GRAPHS)())
+    before = fe.graph_counts()
+    graphed = _spin(DynoPipeline(scene.cam, cfg, device=cuda), frames, True, monkeypatch)
+    after = fe.graph_counts()
+    assert after["captures"] == before["captures"] + 1
+    assert after["replays"] - before["replays"] >= 10 * (len(frames) - 1)
+    assert all(_trees_equal(tuple(a), tuple(b)) for a, b in zip(graphed[0], eager[0]))
+    assert _trees_equal(tuple(graphed[1]), tuple(eager[1]))
+    assert graphed[2] == eager[2] and all(graphed[2][k] >= len(frames) - 1 for k in ("lk", "point_sample"))
+
+
+def test_a_second_pipeline_reuses_the_frontend_captures(cuda):
+    """A fresh `DynoPipeline` of the same shapes and settings (a
+    benchmark's next rep) replays the first one's captures and gives the
+    same packets."""
+    from dynosam_tpu_torch.frontend import frontend as fe
+    from dynosam_tpu_torch.pipeline import DynoPipeline
+    from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
+    from dynosam_tpu_torch.utils.config import CapacityConfig, DynoConfig, PipelineConfig
+
+    scene = RenderedScene(RenderConfig(n_frames=6, h=192, w=256, n_objects=2), device=cuda)
+    cfg = DynoConfig(pipeline=PipelineConfig(use_backend=False),
+                     capacity=CapacityConfig(max_static_tracks=512, max_dynamic_tracks=1024, max_objects=8))
+    first = DynoPipeline(scene.cam, cfg, device=cuda).run(scene.frames())
+    counts = fe.graph_counts()
+    second = DynoPipeline(scene.cam, cfg, device=cuda).run(scene.frames())
+    assert fe.graph_counts()["captures"] == counts["captures"]
+    assert fe.graph_counts()["replays"] > counts["replays"]
+    assert all(_trees_equal(tuple(a), tuple(b)) for a, b in zip(first.packets, second.packets))
+
+
+def test_frontend_capture_while_the_prefetch_thread_rectifies(cuda, monkeypatch, tmp_path):
+    """`run_and_log` over 8 rendered frames (192x256) served on the host
+    with `distortion` set, so the loader's prefetch thread rectifies each
+    frame on the card, with the frontend-step cache empty: the step is
+    captured at frame 1 while the thread's rectification of a later frame,
+    held until that capture has begun, runs; the run's packets equal an
+    eager run's bit for bit."""
+    import functools
+    import threading
+    import time
+
+    from dynosam_tpu_torch import pipeline
+    from dynosam_tpu_torch.core.distortion import Distortion
+    from dynosam_tpu_torch.frontend import frontend as fe
+    from dynosam_tpu_torch.frontend.frontend import to_device
+    from dynosam_tpu_torch.testing.render import RenderConfig, RenderedScene
+    from dynosam_tpu_torch.testing.scenes import RenderedDataset
+    from dynosam_tpu_torch.utils.config import CapacityConfig, DynoConfig, PipelineConfig
+
+    scene = RenderedScene(RenderConfig(n_frames=8, h=192, w=256, n_objects=2), device=cuda)
+    cfg = DynoConfig(pipeline=PipelineConfig(use_backend=False),
+                     capacity=CapacityConfig(max_static_tracks=512, max_dynamic_tracks=1024, max_objects=8))
+
+    def dataset(rectify_hook=None):
+        ds = RenderedDataset(scene, [to_device(f, "cpu") for f in scene.frames()])
+        ds.distortion, ds.device = Distortion((-0.15, 0.03, 0.0, 0.0)), cuda
+        if rectify_hook is not None:
+            real = ds._get_rectifier()
+            monkeypatch.setattr(ds, "_get_rectifier", lambda: functools.partial(rectify_hook, real))
+        return ds
+
+    capturing, spans, rects = threading.Event(), [], []
+    real_begin, real_end = torch.cuda.CUDAGraph.capture_begin, torch.cuda.CUDAGraph.capture_end
+
+    def begin(graph, *a, **k):
+        real_begin(graph, *a, **k)
+        spans.append([time.perf_counter(), None])
+        capturing.set()
+        time.sleep(0.05)                  # each capture stays open while the thread rectifies
+
+    def end(graph, *a, **k):
+        spans[-1][1] = time.perf_counter()
+        real_end(graph, *a, **k)
+
+    def rectify(real, f):
+        if len(rects) == 3:
+            capturing.wait(timeout=120)
+        t0 = time.perf_counter()
+        out = real(f)
+        rects.append((t0, time.perf_counter()))
+        return out
+
+    eager_step = functools.partial(pipeline.frontend_step, _graphs=False)
+    monkeypatch.setattr(pipeline, "frontend_step", eager_step)
+    eager = pipeline.run_and_log(dataset(), cfg, str(tmp_path / "eager"), device=cuda)
+    monkeypatch.undo()
+    monkeypatch.setattr(fe, "_FRAME_GRAPHS", type(fe._FRAME_GRAPHS)())
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", begin)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_end", end)
+    before = fe.graph_counts()
+    graphed = pipeline.run_and_log(dataset(rectify), cfg, str(tmp_path / "graphed"), device=cuda)
+    torch.cuda.synchronize()
+    assert fe.graph_counts()["captures"] == before["captures"] + 1
+    assert len(rects) == 8
+    assert any(s0 <= t0 and t1 <= s1 for t0, t1 in rects for s0, s1 in spans), (rects, spans)
+    assert all(_trees_equal(tuple(a), tuple(b)) for a, b in zip(graphed.packets, eager.packets))
