@@ -16,6 +16,18 @@ no result line:
              held against its plain PyTorch version on the card within a
              stated tolerance, then timed with CUDA events beside its plain
              version, the library yardstick where one exists, and its bound.
+             K5 (the refinement rounds, both kinds) and K6 (the motion
+             RANSAC, 3d2d and 3d3d) on every call that eager steps make on
+             the main path's frames (and, for 3d3d, the same frames in that
+             ego mode) and on the golden scene: each against its plain
+             version on the card, with tolerances from the plain version's
+             own spread (the plain version on the CPU against it on the
+             card, K_MARGIN times that, at least ULP_FLOOR); counts and
+             inlier rows may differ only where a residual lies within that
+             spread of its threshold or of the chi^2 gate (such rows are
+             counted and printed); then timed per call, on the device (the
+             profiler) and plain, beside a bound from the FLOPs and bytes
+             this data needs (no single PyTorch call computes either).
              K1 is also held on slots within 10 px of the border and on
              slots whose warm start is off by more than its staged window's
              margin; K2 on float32, int32, bool and strided channels read in
@@ -82,6 +94,10 @@ no result line:
              then the window solves' graphs as in the pipeline path, and the
              kernels of one eager reduced-system factorisation at the
              window's size (cuSOLVER, which a capture can hold, or MAGMA);
+             then 6 frames of the same configuration, each spin's graph
+             replays and host reads by site: fails unless every steady
+             spin replays two graphs and reads the host at most 3 times,
+             never in a refinement or a RANSAC;
 9. world pose -- the online phase's run with WorldPose (`backend_updater_enum`
              1) and the fixed-lag boundary prior: the same report plus
              each boundary-prior build's time and host reads; fails unless
@@ -195,6 +211,9 @@ the full-batch backend, 100 LM iterations allowed; it fails unless each
 recovered ATE is below the corrupted ATE / 1.8 and 0.11 m (JAX's bounds).
 
 Launch counts are set to 0 just before each path and read just after it.
+Every path that runs the frontend must launch K5 and K6 on every frame
+after the first (the 2d2d ego modes run K6 for the objects only), and
+every graphed steady step must read the host at most twice (the `eigh`).
 
 The first line is the card's name and power limit as `nvidia-smi` gives
 them; the line before the last is a JSON object with one entry per kernel,
@@ -203,6 +222,7 @@ the last line `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -317,29 +337,58 @@ FLOP_RESPONSE = 100    # Sobel 2x11, 3 products, 3x24 box sums, 3 divides, lambd
 FLOP_ORB_MOMENT = 4    # per disc pixel: 2 products, 2 sums
 FLOP_ORB_KEYPOINT = 6  # r (2 products, 1 sum, 1 root), ca and sa (2 divides); atan2 not counted
 FLOP_ORB_TAP = 8 + FLOP_BILINEAR   # rotation (4 products, 4 sums), bilinear sample
+# K5 and K6, counted from their sources: per row and LM iteration, the
+# linearisation, the track's elimination and its part of S (pass A) and the
+# back-substitution and trial error (pass B); per row and round, the head's
+# and the tail's residuals
+FLOP_K5_ITERATION_ROW = {"FlowPose": 800, "MotionOnly": 3300}
+FLOP_K5_ROUND_ROW = {"FlowPose": 90, "MotionOnly": 200}
+FLOP_K6_HYPOTHESIS = 200   # two triads, R = F E^T, centroids, t (and the inverse in 3d2d)
+FLOP_K6_SCORE_ROW = 30     # transform, projection or difference, norm, compare
+FLOP_K6_POLISH_ROW = 200   # transform, residual, Jacobian rows, their part of A and g
+# K5 and K6 against their plain versions on the card, each problem held to
+# K_MARGIN times the plain version's own spread on that problem: its largest
+# difference from the plain version on the card over N_SPREAD_RUNS other
+# runs of the same math in another float order -- on the CPU, on the card
+# with the rows in N_PERMUTED other orders (every sum adds in another
+# order), and on the card with every float input moved by PERTURB, one or
+# two ulps -- so an ill-conditioned problem gets the wide spread its own
+# runs show and a well-conditioned one a narrow one; at least ULP_FLOOR of
+# the output's scale;
+# where an outlier decision at the chi^2
+# gate fell the other way (a row within the spread of the gate), the pose
+# and blocks within LOOSE, the bands tests/test_torch_refine.py holds the
+# port's refinements to against JAX's (rotation, translation m, blocks)
+K_MARGIN = 4.0
+ULP_FLOOR = 16 * 2.0 ** -23
+PERTURB = 2.0 ** -22
+N_PERTURBED, N_PERMUTED = 2, 2
+N_SPREAD_RUNS = 1 + N_PERTURBED + N_PERMUTED   # and the CPU
+LOOSE = {"R": 2e-4, "t": 2e-3, "blocks": 1e-2}
 
 # the kernels of each path, and each kernel's name in `kernels.launch_counts()`
-PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response"),
-                "orb": ("orb_sample", "lk", "point_sample"),
-                "pipeline": ("lk", "point_sample", "response"),
-                "golden": ("lk", "point_sample", "response"),
-                "online": ("lk", "point_sample", "response"),
-                "world_pose": ("lk", "point_sample", "response"),
-                "batched": ("lk", "point_sample", "response"),
-                "ego_3d2d": ("lk", "point_sample", "response"),
-                "ego_3d3d": ("lk", "point_sample", "response"),
-                "ego_2d2d": ("lk", "point_sample", "response"),
-                "ego_2point": ("lk", "point_sample", "response"),
-                "masks": ("lk", "point_sample", "response"),
-                "rectify": ("lk", "point_sample", "response"),
+PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response", "refine", "ransac"),
+                "orb": ("orb_sample", "lk", "point_sample", "refine", "ransac"),
+                "pipeline": ("lk", "point_sample", "response", "refine", "ransac"),
+                "golden": ("lk", "point_sample", "response", "refine", "ransac"),
+                "online": ("lk", "point_sample", "response", "refine", "ransac"),
+                "world_pose": ("lk", "point_sample", "response", "refine", "ransac"),
+                "batched": ("lk", "point_sample", "response", "refine", "ransac"),
+                "ego_3d2d": ("lk", "point_sample", "response", "refine", "ransac"),
+                "ego_3d3d": ("lk", "point_sample", "response", "refine", "ransac"),
+                "ego_2d2d": ("lk", "point_sample", "response", "refine", "ransac"),
+                "ego_2point": ("lk", "point_sample", "response", "refine", "ransac"),
+                "masks": ("lk", "point_sample", "response", "refine", "ransac"),
+                "rectify": ("lk", "point_sample", "response", "refine", "ransac"),
                 "stereo": (),
-                "streaming": ("lk", "point_sample", "response"),
-                "multi_sequence": ("lk", "point_sample", "response"),
+                "streaming": ("lk", "point_sample", "response", "refine", "ransac"),
+                "multi_sequence": ("lk", "point_sample", "response", "refine", "ransac"),
                 "distributed": (),
-                "tools": ("lk", "point_sample", "response"),
-                "evaluation": ("lk", "point_sample", "response")}
+                "tools": ("lk", "point_sample", "response", "refine", "ransac"),
+                "evaluation": ("lk", "point_sample", "response", "refine", "ransac")}
 COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
-           "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample"}
+           "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample",
+           "refine_rounds": "refine", "ransac": "ransac"}
 
 
 class SmokeFailure(RuntimeError):
@@ -654,6 +703,526 @@ def check_orb_sample(torch, frames, device, reps):
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 note=f"{n} keypoints on a {hc}x{wc} canvas; {raw_px} raw and {blur_px} blurred pixels read; "
                      f"bits agree {bits:.6f}")
+
+
+# ---------------------------------------------------------- solver kernels
+def record_solver_calls(torch, device, n_main: int = 6, n_golden: int = 6, n_3d3d: int = 3) -> dict:
+    """The arguments of every call of K5's and K6's wrappers (cloned:
+    `refine.run_rounds`, `ops/ransac.hypotheses_and_polish`) that eager steps make
+    on the main path's frames in the 3d3d ego mode (frames 0..n_3d3d-1, for
+    K6's 3d3d mode), on the main path's frames (`kitti_config`, 1280x384,
+    frames 0..n_main-1) and on the golden scene (frames 0..n_golden-1),
+    each labelled with its scene and frame:
+    {"K5": [(label, kind, P, R0)], "K6": [(label, args, kwargs)]}."""
+    import functools
+
+    from dynosam_tpu_torch import pipeline
+    from dynosam_tpu_torch.frontend import refine
+    from dynosam_tpu_torch.ops import ransac as ops_ransac
+    from dynosam_tpu_torch.pipeline import DynoPipeline
+    from dynosam_tpu_torch.testing.scenes import golden_config, golden_dataset, kitti_config, kitti_scene
+    from dynosam_tpu_torch.utils.graphs import tree_clone
+
+    calls = {"K5": [], "K6": []}
+    where = {"label": None}
+    real5, real6, real_step = refine.run_rounds, ops_ransac.hypotheses_and_polish, pipeline.frontend_step
+
+    def rounds(kind, P, R0):
+        calls["K5"].append((where["label"], kind, tree_clone(P), tree_clone(R0)))
+        return real5(kind, P, R0)
+
+    def ransac(*args):
+        calls["K6"].append((where["label"], tree_clone(args), {}))
+        return real6(*args)
+
+    refine.run_rounds, ops_ransac.hypotheses_and_polish = rounds, ransac
+    pipeline.frontend_step = functools.partial(real_step, _graphs=False)
+    try:
+        scene, frames = kitti_scene(device, n_frames=max(n_main, n_3d3d))
+        ds = golden_dataset(device)
+        main = kitti_config()
+        d3 = dataclasses.replace(main, frontend=dataclasses.replace(main.frontend, ego_motion_solver="3d3d"))
+        for name, cam, cfg, fr in (("3d3d", scene.cam, d3, frames[:n_3d3d]),
+                                   ("main path", scene.cam, main, frames[:n_main]),
+                                   ("golden", ds.camera_params(), golden_config(False),
+                                    [ds.frame(i) for i in range(n_golden)])):
+            cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline, use_backend=False))
+            pipe = DynoPipeline(cam, cfg, device=device)
+            for k, f in enumerate(fr):
+                where["label"] = f"{name} frame {k}"
+                pipe.spin_once(f)
+        torch.cuda.synchronize()
+    finally:
+        refine.run_rounds, ops_ransac.hypotheses_and_polish, pipeline.frontend_step = real5, real6, real_step
+    return calls
+
+
+def _spread_tol(spread: float, scale: float) -> float:
+    """A kernel's tolerance on one output: K_MARGIN times the plain
+    version's own spread, at least ULP_FLOOR of the output's scale."""
+    return max(K_MARGIN * spread, ULP_FLOOR * scale)
+
+
+def _perturbed(torch, tree, seed: int):
+    """`tree` with every float tensor multiplied by 1 +- PERTURB, the sign
+    drawn per element from `seed`: the same inputs one or two ulps off."""
+    def move(x):
+        if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+            return x
+        g = torch.Generator(device=x.device).manual_seed(seed)
+        sign = torch.randint(0, 2, x.shape, generator=g, device=x.device).to(x.dtype) * 2 - 1
+        return x * (1 + sign * PERTURB)
+
+    return torch.utils._pytree.tree_map(move, tree)
+
+
+def _row_order(torch, n: int, seed: int, device):
+    """A permutation of n rows drawn from `seed`, and its inverse."""
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed)).to(device)
+    return perm, torch.argsort(perm)
+
+
+def _rows_permuted(torch, tree, bsz: int, n: int, perm):
+    """`tree` with every tensor's row axis (the one after the problems' B,
+    where a tensor has (B, N) in its shape) taken in the order `perm`."""
+    def take(x):
+        if isinstance(x, torch.Tensor):
+            for d in range(x.dim() - 1):
+                if tuple(x.shape[d:d + 2]) == (bsz, n):
+                    return x.index_select(d + 1, perm)
+        return x
+
+    return torch.utils._pytree.tree_map(take, tree)
+
+
+def _plain_trace(torch, kind, P, R0, i: int = 0):
+    """The plain rounds on the card, traced: the LM iterations they run,
+    summed over the problems (each round's LM counter where the round ran:
+    the work this call's data needs), and problem `i`'s pose change in each
+    LM iteration that moved it (the largest component of R and t)."""
+    from dynosam_tpu_torch.frontend import refine
+    from dynosam_tpu_torch.utils.graphs import tree_clone
+
+    total, steps = [0], []
+    real_tail, real_it = refine.round_tail, refine.round_iteration
+
+    def tail(kind_, P_, R, L, first):
+        total[0] += int((L["it"] * R["run"]).sum())
+        return real_tail(kind_, P_, R, L, first)
+
+    def iteration(kind_, P_, R, L, first):
+        out = real_it(kind_, P_, R, L, first)
+        d = max(float((out["glob"].R[i] - L["glob"].R[i]).abs().max()),
+                float((out["glob"].t[i] - L["glob"].t[i]).abs().max()))
+        if d > 0:
+            steps.append(d)
+        return out
+
+    refine.round_tail, refine.round_iteration = tail, iteration
+    try:
+        refine.rounds_plain(kind, P, tree_clone(R0))
+    finally:
+        refine.round_tail, refine.round_iteration = real_tail, real_it
+    return total[0], steps
+
+
+def device_ms_per_call(torch, fn, names, reps: int = 5) -> float:
+    """The device time of the kernels whose names contain one of `names`,
+    per call of `fn`, from the profiler's CUDA activity."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names))
+    return us / reps / 1e3
+
+
+def check_refine_rounds(torch, calls, card, reps) -> dict:
+    """K5 against its plain version on every recorded call: the kernel (its
+    wrapper, `refine.run_rounds`, on the card) and the plain version on the
+    card, and the plain version's other runs (on the CPU, and on the card
+    with its rows in other orders or its inputs one or two ulps off), whose
+    spread sets the tolerances.  Each problem is held to its own spread: where the kernel's
+    discrete outputs (active rows, rounds, new outliers) equal the plain
+    version's on the card, every float output is within `_spread_tol` of
+    that problem's largest difference over the other runs that took its
+    outlier decisions (of its call's largest, where none did); where they
+    differ, each differing row must lie within the spread of the chi^2
+    gate (or differ between the plain version's CPU and card runs too),
+    and the pose and blocks within LOOSE.  Then the main path's two calls of a steady frame are
+    timed, and the ego problem's tolerance is printed beside its pose
+    change per LM iteration."""
+    from dynosam_tpu_torch.frontend import refine
+    from dynosam_tpu_torch.utils.graphs import tree_clone
+
+    def to_cpu(tree):
+        return torch.utils._pytree.tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, tree)
+
+    def outputs(R, kind):
+        g = R["res"][kind.glob]
+        return dict(R=g.R.reshape(-1, 9), t=g.t, blocks=torch.cat([R["carried"][k] for k in kind.keys], -1),
+                    error=R["error"], active=R["active"], it=R["it"], n_new=R["n_new"])
+
+    def chi2(kind, P, R0, R):
+        prob = kind.problem(P, R0["active"])
+        r = prob.residual_fn(R["res"])[kind.gated]
+        return torch.sum(r * r, dim=-1)
+
+    runs = []
+    for label, kind, P, R0 in calls:
+        got = refine.run_rounds(kind, P, tree_clone(R0))
+        card_p = refine.rounds_plain(kind, P, tree_clone(R0))
+        P_cpu, R0_cpu = to_cpu(P), to_cpu(R0)
+        cpu_p = refine.rounds_plain(kind, P_cpu, R0_cpu)
+        others = [outputs(refine.rounds_plain(kind, _perturbed(torch, P, seed), _perturbed(torch, R0, seed)), kind)
+                  for seed in range(N_PERTURBED)]
+        bsz, n = R0["active"].shape
+        for seed in range(N_PERMUTED):
+            perm, inv = _row_order(torch, n, seed, R0["active"].device)
+            o = outputs(refine.rounds_plain(kind, _rows_permuted(torch, P, bsz, n, perm),
+                                            _rows_permuted(torch, R0, bsz, n, perm)), kind)
+            others.append(_rows_permuted(torch, o, bsz, n, inv))
+        torch.cuda.synchronize()
+        dev = got["error"].device
+        c = {k: v.to(dev) for k, v in outputs(cpu_p, kind).items()}
+        runs.append(dict(label=label, kind=kind, k=outputs(got, kind), p=outputs(card_p, kind), c=c,
+                         others=[c] + others,
+                         chi2_p=chi2(kind, P, R0, card_p), chi2_c=chi2(kind, P_cpu, R0_cpu, cpu_p).to(dev)))
+    floats = ("R", "t", "blocks", "error")
+    same = lambda a, b, i: all(torch.equal(a[key][i], b[key][i]) for key in ("active", "it", "n_new"))  # noqa: E731
+
+    def spread_of(r, i):
+        """Problem i's largest difference from the plain version on the
+        card over the other runs that took its outlier decisions, or None."""
+        mates = [o for o in r["others"] if same(r["p"], o, i)]
+        if not mates:
+            return None
+        out = {}
+        for key in floats:
+            d = torch.stack([(r["p"][key][i] - o[key][i]).abs() for o in mates])
+            d = d[torch.isfinite(d)]
+            out[key] = float(d.max()) if d.numel() else 0.0
+        return out
+
+    worst, near_rows, diverged, own, fallback = 0.0, 0, 0, 0, 0
+    for kname in ("FlowPose", "MotionOnly"):
+        mine = [r for r in runs if type(r["kind"]).__name__ == kname]
+        if not mine:
+            continue
+        gate = mine[0]["kind"].chi2_gate
+        largest = {key: 0.0 for key in floats}
+        dchi = 0.0
+        for r in mine:
+            bsz = r["p"]["error"].shape[0]
+            r["spread"] = [spread_of(r, i) for i in range(bsz)]
+            known = [sp for sp in r["spread"] if sp is not None]
+            r["call_spread"] = {key: max([sp[key] for sp in known], default=None) for key in floats}
+            for sp in known:
+                largest = {key: max(largest[key], sp[key]) for key in floats}
+            ok = (r["chi2_p"] <= 2 * gate) & torch.isfinite(r["chi2_c"])
+            if bool(ok.any()):
+                dchi = max(dchi, float((r["chi2_p"] - r["chi2_c"]).abs()[ok].max()))
+        delta = _spread_tol(dchi, gate)
+        for r in mine:
+            r["tol"] = []
+            for i in range(r["p"]["error"].shape[0]):
+                sp = r["spread"][i]
+                if sp is None:
+                    fallback += 1
+                    sp = {key: largest[key] if r["call_spread"][key] is None else r["call_spread"][key]
+                          for key in floats}
+                    print(f"K5 {kname}, {r['label']}, problem {i}: every other run of the plain version took "
+                          f"other outlier decisions; held to its call's largest spread {sp}", flush=True)
+                else:
+                    own += 1
+                tol = {key: _spread_tol(sp[key], float(r["p"][key][i].abs().max())) for key in floats}
+                r["tol"].append(tol)
+                diff = {key: float((r["k"][key][i] - r["p"][key][i]).abs().max()) for key in floats}
+                if same(r["k"], r["p"], i):
+                    bad = [key for key in floats if not diff[key] <= tol[key]]
+                    _require(not bad, f"K5 {kname}, {r['label']}, problem {i}: {bad} differ by "
+                                      f"{[diff[key] for key in bad]} (tolerances {[tol[key] for key in bad]})")
+                    worst = max(worst, max(diff[key] for key in ("R", "t", "blocks")))
+                    continue
+                diverged += 1
+                rows = (r["k"]["active"][i] != r["p"]["active"][i]).nonzero()[:, 0]
+                near = ((r["chi2_p"][i] - gate).abs() <= delta) | (r["p"]["active"][i] != r["c"]["active"][i])
+                near_rows += int(rows.numel())
+                print(f"K5 {kname}, {r['label']}, problem {i}: an outlier decision at the gate differs: rows "
+                      f"{rows.tolist()[:8]} (chi^2 {[round(float(r['chi2_p'][i][j]), 4) for j in rows[:8]]}, gate "
+                      f"{gate}, spread {delta:.3g}); rounds {int(r['k']['it'][i])} / {int(r['p']['it'][i])}; "
+                      f"|dR| {diff['R']:.3g}, |dt| {diff['t']:.3g}, |dblocks| {diff['blocks']:.3g}", flush=True)
+                _require(bool(near[rows].all()), f"K5 {kname}, {r['label']}, problem {i}: rows {rows.tolist()} "
+                                                 f"changed their outlier decision away from the gate")
+                _require(diff["R"] <= LOOSE["R"] and diff["t"] <= LOOSE["t"] and diff["blocks"] <= LOOSE["blocks"],
+                         f"K5 {kname}, {r['label']}, problem {i}: {diff} beyond {LOOSE}")
+        print(f"K5 {kname}: {len(mine)} calls, {sum(r['p']['error'].shape[0] for r in mine)} problems, each held "
+              f"to {K_MARGIN}x its own spread over {N_SPREAD_RUNS} other runs (CPU, {N_PERMUTED} row orders, "
+              f"{N_PERTURBED} perturbed inputs), at least "
+              f"{ULP_FLOOR:.3g} of its outputs' scale; the largest spread {json.dumps({k: float('%.3g' % v) for k, v in largest.items()})}, chi^2 "
+              f"{dchi:.3g}", flush=True)
+    print(f"K5: max |kernel - plain| over the pose and blocks of agreeing problems {worst:.3g}; {own} problems held "
+          f"to their own spread, {fallback} to their call's; {diverged} problems with an outlier decision at the "
+          f"gate that differs ({near_rows} rows)", flush=True)
+    tol_of = {(r["label"], type(r["kind"]).__name__): r["tol"] for r in runs}
+
+    timed = [r for r in calls if r[0].startswith("main path") and r[0] != "main path frame 0"][-2:]
+    rows_out = {}
+    for label, kind, P, R0 in timed:
+        kname = type(kind).__name__
+        bsz, n = R0["active"].shape
+        ms = cuda_ms(torch, lambda: refine.run_rounds(kind, P, R0), reps)
+        dev_ms = device_ms_per_call(torch, lambda: refine.run_rounds(kind, P, R0), ("refine_rounds_kernel",))
+        plain_ms = cuda_ms(torch, lambda: refine.rounds_plain(kind, P, tree_clone(R0)), 3, warmup=1)
+        its, steps = _plain_trace(torch, kind, P, R0)
+        rounds = int(refine.rounds_plain(kind, P, tree_clone(R0))["it"].sum())
+        b = 2 if kind.glob == "X" else 6
+        rc = 8 if kind.glob == "X" else 4
+        flop = its * n * FLOP_K5_ITERATION_ROW[kname] + rounds * n * FLOP_K5_ROUND_ROW[kname]
+        nbytes = bsz * n * (4 * rc + 4 * b + 1) + bsz * 48 + bsz * n * (4 * b + 1) + bsz * (48 + 4 + 16)
+        b_ms, b_by = bound_ms(nbytes, flop)
+        rows_out[kname] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                               shape=f"B {bsz} x N {n}", its=its, rounds=rounds)
+        print(f"K5 refine_rounds {kname} ({label}, B {bsz} x N {n}, {rounds} rounds, {its} LM iterations over the "
+              f"problems): {ms * 1e3:.1f} us per call, {dev_ms * 1e3:.1f} us on the device, plain {plain_ms:.2f} ms, "
+              f"bound {b_ms * 1e3:.2f} us by {b_by} on {card}", flush=True)
+        if kname == "FlowPose" and steps:
+            t0 = tol_of[(label, kname)][0]
+            print(f"K5 FlowPose ego problem ({label}): tolerance R {t0['R']:.3g}, t {t0['t']:.3g}; its pose change "
+                  f"per LM iteration that moved it: median {float(np.median(steps)):.3g}, smallest "
+                  f"{min(steps):.3g}, last {steps[-1]:.3g} ({len(steps)} iterations)", flush=True)
+    fp, mo = rows_out["FlowPose"], rows_out["MotionOnly"]
+    return dict(name="refine_rounds", route="cuda", source="dynosam_tpu_torch/csrc/refine.cu",
+                replaces="none: dynosam_tpu/frontend/refine.py:57,186 (the lax.while_loops around "
+                         "dynosam_tpu/backend/small_schur.py:88)",
+                max_abs_err=worst, ms=fp["ms"], plain_ms=fp["plain_ms"], bound_ms=fp["bound_ms"],
+                bound_by=fp["bound_by"], library_ms=None, device_ms=fp["device_ms"],
+                ms_motion_only=mo["ms"], device_ms_motion_only=mo["device_ms"], plain_ms_motion_only=mo["plain_ms"],
+                bound_ms_motion_only=mo["bound_ms"], bound_by_motion_only=mo["bound_by"],
+                note=f"FlowPose {fp['shape']}, MotionOnly {mo['shape']} (the main path's last steady frame); "
+                     f"MotionOnly {mo['ms'] * 1e3:.1f} us per call, {mo['device_ms'] * 1e3:.1f} us on the device, "
+                     f"plain {mo['plain_ms']:.2f} ms")
+
+
+def check_ransac(torch, calls, card, reps) -> dict:
+    """K6 against its plain version on every recorded call, with the plain
+    version on the CPU for the spread: each hypothesis's inlier count
+    equals the plain version's on the card but for rows whose scoring error
+    lies within that hypothesis's own spread of the threshold (K_MARGIN
+    times the largest CPU-vs-card difference of its errors within twice
+    the threshold, at least ULP_FLOOR of it; a hypothesis that is proper in
+    one plain run only may differ in every row).  Each problem whose best
+    hypothesis is the plain version's holds its pose to its own spread
+    (its largest difference from the plain version on the card over the
+    other runs that chose the same hypothesis: on the CPU, and on the card
+    with its rows in other orders or its inputs one or two ulps off; its
+    call's largest where none did) and its final inliers to rows within its own spread of the
+    threshold (likewise).  Every problem's final
+    inliers are those of the kernel's own pose, its errors computed here in
+    PyTorch, but for rows within its call's spread of the threshold; count
+    and status follow the inliers.  Then the main path's two calls of a
+    steady frame are timed, and the ego problem's pose tolerance is printed
+    beside its Gauss-Newton steps."""
+    from dynosam_tpu_torch.core.camera import project_local
+    from dynosam_tpu_torch.core.lie import SE3, se3_apply, se3_inverse
+    from dynosam_tpu_torch.kernels import ransac as k6
+    from dynosam_tpu_torch.ops import ransac as ops_ransac
+
+    def plain(packed, cam, thr, steps, min_inl, diagnostics):
+        r = ops_ransac.hypotheses_and_polish_plain(*packed, cam, thr, steps, min_inl, diagnostics)
+        return r.pose.R, r.pose.t, r.inliers, r.n_inliers, r.status
+
+    def final_err(R, t, src, dst, uv, cam):
+        """The polish's final errors of pose (R, t) (B,) over the rows."""
+        T = SE3(R, t)
+        if uv is None:
+            return torch.linalg.vector_norm(se3_apply(T[:, None], src) - dst, dim=-1)
+        pred, z = project_local(cam, se3_apply(se3_inverse(T)[:, None], src))
+        e = torch.linalg.vector_norm(pred - uv, dim=-1)
+        return torch.where(z > 0.05, e, torch.full_like(e, float("inf")))
+
+    runs = []
+    for label, args, kw in calls:
+        src, dst, valid, idx, uv, cam, thr, steps, min_inl = args
+        packed = k6.pack(src, dst, valid, idx, uv)
+        counts = torch.empty(idx.shape[:2], dtype=torch.int32, device=src.device)
+        got = k6.ransac(src, dst, valid, idx, uv, cam, thr, steps, min_inl, counts=counts)
+        dp, dc = {}, {}
+        card_p = plain(packed, cam, thr, steps, min_inl, dp)
+        cpu_p = plain([None if t is None else t.cpu() for t in packed], cam, thr, steps, min_inl, dc)
+        moved = []
+        for seed in range(N_PERTURBED):
+            dm = {}
+            moved.append((plain(_perturbed(torch, packed, seed), cam, thr, steps, min_inl, dm), dm))
+        bsz, n = valid.shape
+        for seed in range(N_PERMUTED):
+            perm, inv = _row_order(torch, n, seed, src.device)
+            dm = {}
+            s_, d_, v_, _, u_ = _rows_permuted(torch, packed, bsz, n, perm)
+            o = plain((s_, d_, v_, inv[packed[3]], u_), cam, thr, steps, min_inl, dm)
+            moved.append((_rows_permuted(torch, o, bsz, n, inv),
+                          {**dm, "final_err": dm["final_err"].index_select(1, inv)}))
+        torch.cuda.synchronize()
+        dev = src.device
+        dc = {k: v.to(dev) for k, v in dc.items()}
+        c = tuple(x.to(dev) for x in cpu_p)
+        runs.append(dict(label=label, thr=thr, min_inl=min_inl, k=got, counts=counts, p=card_p, dp=dp, c=c, dc=dc,
+                         others=[(c, dc)] + moved,
+                         err_k=final_err(got[0], got[1], *packed[:2], packed[4], cam), valid=packed[2],
+                         ego=label.startswith("main path") and uv is not None and src.shape[0] == 1))
+
+    def own_delta(e_p, e_c, m, thr):
+        """K_MARGIN times each leading index's largest CPU-vs-card error
+        difference within twice the threshold, at least ULP_FLOOR x thr."""
+        ok = (e_p <= 2 * thr) & (e_c <= 2 * thr) & m
+        spread = torch.where(ok, (e_p - e_c).abs(), torch.zeros_like(e_p)).amax(-1)
+        return torch.clamp(K_MARGIN * spread, min=ULP_FLOOR * thr)
+
+    # the plain version's CPU-vs-card spread of the scoring errors, by the
+    # rows it is taken over: the checks use the last (rows of hypotheses
+    # proper in both runs, within twice the threshold in both)
+    where = {"finite in both runs": 0.0, "improper hypotheses": 0.0, "proper, beyond 2x the threshold": 0.0,
+             "proper, within 2x the threshold": 0.0}
+    for r in runs:
+        e_p, e_c, thr = r["dp"]["err"], r["dc"]["err"], r["thr"]
+        both = (r["dp"]["proper"] & r["dc"]["proper"])[..., None]
+        fin = torch.isfinite(e_p) & torch.isfinite(e_c)
+        near2 = (e_p <= 2 * thr) & (e_c <= 2 * thr)
+        d = (e_p - e_c).abs()
+        for key, m in (("finite in both runs", fin), ("improper hypotheses", fin & ~both),
+                       ("proper, beyond 2x the threshold", fin & both & ~near2),
+                       ("proper, within 2x the threshold", both & near2)):
+            if bool(m.any()):
+                where[key] = max(where[key], float(d[m].max()))
+    d_err = where["proper, within 2x the threshold"]
+
+    worst, n_count_diff, n_best_diff, n_row_diff, n_own, n_fallback, n_self = 0.0, 0, 0, 0, 0, 0, 0
+    ego_lines = []
+    for r in runs:
+        thr = r["thr"]
+        dp, dc = r["dp"], r["dc"]
+        delta_k = own_delta(dp["err"], dc["err"], (dp["proper"] & dc["proper"])[..., None], thr)   # (B, K)
+        near = ((dp["err"] - thr).abs() <= delta_k[..., None]) | (dp["proper"] != dc["proper"])[..., None]
+        dcount = (r["counts"].long() - dp["scores"]).abs()
+        allowed = near.sum(-1)
+        _require(bool((dcount <= allowed).all()), f"K6 {r['label']}: hypothesis counts differ by "
+                                                  f"{int(dcount.max())} beyond their rows near the threshold")
+        n_count_diff += int((dcount > 0).sum())
+        # each problem's spread over the other runs that chose its best
+        # hypothesis: the pose's largest component, and the final errors
+        # within twice the threshold
+        pose_sp = torch.zeros_like(dp["best"], dtype=torch.float32)
+        err_sp = torch.zeros_like(pose_sp)
+        agree = torch.zeros_like(dp["best"], dtype=torch.bool)                                          # (B,)
+        pose_d = []
+        for o, do in r["others"]:
+            a = do["best"] == dp["best"]
+            d = torch.maximum((r["p"][0] - o[0]).abs().flatten(1).amax(-1), (r["p"][1] - o[1]).abs().amax(-1))
+            ok = (dp["final_err"] <= 2 * thr) & (do["final_err"] <= 2 * thr) & a[:, None]
+            e = torch.where(ok, (dp["final_err"] - do["final_err"]).abs(), torch.zeros_like(dp["final_err"]))
+            pose_sp = torch.where(a, torch.maximum(pose_sp, d), pose_sp)
+            pose_d.append(torch.where(a, d, torch.full_like(d, float("nan"))))
+            err_sp = torch.where(a, torch.maximum(err_sp, e.amax(-1)), err_sp)
+            agree |= a
+        delta_f = torch.clamp(K_MARGIN * err_sp, min=ULP_FLOOR * thr)                                   # (B,)
+        call_pose = float(pose_sp[agree].max()) if bool(agree.any()) else None
+        call_delta = float(delta_f[agree].max()) if bool(agree.any()) else _spread_tol(d_err, thr)
+        best_k = torch.argmax(r["counts"], dim=-1)
+        for i in range(best_k.shape[0]):
+            R_k, t_k, inl_k, n_k, st_k = (x[i] for x in r["k"])
+            R_p, t_p, inl_p, n_p, st_p = (x[i] for x in r["p"])
+            _require(int(n_k) == int(inl_k.sum()) or int(st_k) != 0, f"K6 {r['label']}: count and inliers disagree")
+            # the final inliers are those of the kernel's own pose
+            own_inl = (r["err_k"][i] < thr) & r["valid"][i] & (st_k == 0)
+            rows = (inl_k != own_inl).nonzero()[:, 0]
+            n_self += int(rows.numel())
+            _require(bool(((r["err_k"][i][rows] - thr).abs() <= call_delta).all()),
+                     f"K6 {r['label']}, problem {i}: final inliers {rows.tolist()[:8]} are not its pose's")
+            if int(best_k[i]) != int(dp["best"][i]):
+                n_best_diff += 1
+                d = max(float((R_k - R_p).abs().max()), float((t_k - t_p).abs().max()))
+                print(f"K6 {r['label']}, problem {i}: best hypothesis {int(best_k[i])} against the plain version's "
+                      f"{int(dp['best'][i])} (counts {int(r['counts'][i, best_k[i]])} / "
+                      f"{int(dp['scores'][i, dp['best'][i]])}); status {int(st_k)} / {int(st_p)}; "
+                      f"pose {d:.3g}", flush=True)
+                continue
+            if bool(agree[i]):
+                n_own += 1
+                sp, delta_b = float(pose_sp[i]), float(delta_f[i])
+            else:
+                n_fallback += 1
+                sp = call_pose if call_pose is not None else float(pose_sp.max())
+                delta_b = call_delta
+                print(f"K6 {r['label']}, problem {i}: every other run of the plain version chose another "
+                      f"hypothesis than the card's {int(dp['best'][i])}; held to its call's spread (pose {sp:.3g}, "
+                      f"errors {delta_b:.3g})", flush=True)
+            d = max(float((R_k - R_p).abs().max()), float((t_k - t_p).abs().max()))
+            tol = _spread_tol(sp, max(1.0, float(t_p.abs().max())))
+            _require(d <= tol, f"K6 {r['label']}, problem {i}: pose differs by {d} (tolerance {tol}; the other "
+                               f"runs' differences {[float('%.3g' % x[i]) for x in pose_d]}, nan where another "
+                               f"hypothesis won)")
+            worst = max(worst, d)
+            rows = (inl_k != inl_p).nonzero()[:, 0]
+            n_row_diff += int(rows.numel())
+            near_f = (dp["final_err"][i] - thr).abs() <= delta_b
+            _require(bool(near_f[rows].all()), f"K6 {r['label']}, problem {i}: final inliers {rows.tolist()} "
+                                               f"differ away from the threshold")
+            _require(int(st_k) == int(st_p) or bool(rows.numel()),
+                     f"K6 {r['label']}, problem {i}: status {int(st_k)} against {int(st_p)}")
+            if r["ego"]:
+                ego_lines.append(f"K6 ego problem ({r['label']}): pose tolerance {tol:.3g} (its spread {sp:.3g}), "
+                                 f"|kernel - plain| {d:.3g}; its Gauss-Newton steps' largest components "
+                                 f"{[float('%.3g' % x) for x in dp['steps'][i].tolist()]}")
+    n3 = sum(1 for c in calls if c[1][4] is None)
+    print(f"K6: {len(runs)} calls ({n3} in 3d3d), {sum(r['counts'].shape[0] for r in runs)} problems; the plain "
+          f"version's CPU-vs-card spread of the scoring errors, by rows: "
+          f"{json.dumps({k: float('%.3g' % v) for k, v in where.items()})} (the checks read the last); "
+          f"problems held to their own pose spread ({N_SPREAD_RUNS} other runs: CPU, {N_PERMUTED} row orders, "
+          f"{N_PERTURBED} perturbed inputs) {n_own}, to "
+          f"their call's {n_fallback}; tolerance {K_MARGIN}x "
+          f"the spread, at least {ULP_FLOOR:.3g} of the scale; hypotheses whose count differs (by rows near the "
+          f"threshold) {n_count_diff}, problems whose best hypothesis differs {n_best_diff}, final inlier rows "
+          f"that differ {n_row_diff}, that differ from the kernel's own pose's {n_self}; max |kernel - plain| "
+          f"pose {worst:.3g}", flush=True)
+    for line in ego_lines[-3:]:
+        print(line, flush=True)
+
+    timed = [c for c in calls if c[0].startswith("main path") and c[0] != "main path frame 0"][-2:]
+    rows_out = {}
+    for label, args, kw in timed:
+        src, dst, valid, idx, uv, cam, thr, steps, min_inl = args
+        mode = "3d2d" if uv is not None else "3d3d"
+        bsz, n = valid.shape
+        k = idx.shape[1]
+        packed = k6.pack(src, dst, valid, idx, uv)
+        ms = cuda_ms(torch, lambda: k6.ransac(src, dst, valid, idx, uv, cam, thr, steps, min_inl), reps)
+        dev_ms = device_ms_per_call(torch, lambda: k6.ransac(src, dst, valid, idx, uv, cam, thr, steps, min_inl),
+                                    ("ransac_score_kernel", "ransac_polish_kernel"))
+        plain_ms = cuda_ms(torch, lambda: plain(packed, cam, thr, steps, min_inl, None), 5, warmup=1)
+        flop = bsz * k * (FLOP_K6_HYPOTHESIS + n * FLOP_K6_SCORE_ROW) + bsz * n * (steps * FLOP_K6_POLISH_ROW
+                                                                                   + 2 * FLOP_K6_SCORE_ROW)
+        nbytes = bsz * n * (12 + 12 + (8 if uv is not None else 0) + 1) + bsz * k * 24 + bsz * (48 + n + 8)
+        b_ms, b_by = bound_ms(nbytes, flop)
+        kind = "ego" if bsz == 1 else "objects"
+        rows_out[kind] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              shape=f"{mode} B {bsz} x K {k} x N {n}")
+        print(f"K6 ransac {kind} ({label}, {mode}, B {bsz} x K {k} hypotheses x N {n} rows): {ms * 1e3:.1f} us per "
+              f"call, {dev_ms * 1e3:.1f} us on the device (score and polish), plain {plain_ms:.2f} ms, bound "
+              f"{b_ms * 1e3:.2f} us by {b_by} on {card}", flush=True)
+    ego, obj = rows_out["ego"], rows_out["objects"]
+    return dict(name="ransac", route="cuda", source="dynosam_tpu_torch/csrc/ransac.cu",
+                replaces="none: dynosam_tpu/ops/ransac.py:165,314 (ransac_rigid, ransac_pose_3d2d)",
+                max_abs_err=worst, ms=ego["ms"], plain_ms=ego["plain_ms"], bound_ms=ego["bound_ms"],
+                bound_by=ego["bound_by"], library_ms=None, device_ms=ego["device_ms"],
+                ms_objects=obj["ms"], device_ms_objects=obj["device_ms"], plain_ms_objects=obj["plain_ms"],
+                bound_ms_objects=obj["bound_ms"], bound_by_objects=obj["bound_by"],
+                note=f"ego {ego['shape']}, objects {obj['shape']} (the main path's last steady frame); objects "
+                     f"{obj['ms'] * 1e3:.1f} us per call, {obj['device_ms'] * 1e3:.1f} us on the device, plain "
+                     f"{obj['plain_ms']:.2f} ms")
 
 
 # ---------------------------------------------------------------- main path
@@ -980,8 +1549,10 @@ def check_graphed_steps(torch, label, rec, card) -> None:
     restored, each on the host clock between two synchronisations, and a
     steady frame's graphed repeat under the sync debug mode, whose host
     reads are printed by their source lines.  Fails unless every step but
-    the first replayed graphs and every result equals the eager one bit
-    for bit (packet, state, report and ego result)."""
+    the first replayed graphs, every result equals the eager one bit for
+    bit (packet, state, report and ego result), and the steady step reads
+    the host at most twice (the `eigh`) and never in a refinement or a
+    RANSAC."""
     c0, c1 = rec.counts
     leaves = torch.utils._pytree.tree_leaves
     print(f"{label}: frontend-step graph captures {c1['captures'] - c0['captures']} in this run "
@@ -1005,7 +1576,11 @@ def check_graphed_steps(torch, label, rec, card) -> None:
         if k == steady:
             with SyncCounter(torch) as sc:
                 graphed, g_ms = _timed_host(torch, again(True))
-            print(f"{label}: step {k} graphed, {sc.count} host reads by site: {sc.sites}", flush=True)
+            print(f"{label}: step {k} graphed, {sc.count} host reads by site: {sc.sites} (the design: the "
+                  f"homography refit's eigh, 2)", flush=True)
+            solver_sites = [site for site in sc.sites if any(m in site for m in ("refine", "ransac", "small_schur"))]
+            _require(sc.count <= 2 and not solver_sites,
+                     f"{label}: step {k} reads the host {sc.count} times: {sc.sites}")
         else:
             graphed, g_ms = _timed_host(torch, again(True))
         same = [all(torch.equal(a, b) for a, b in zip(leaves(tuple(got)), leaves(tuple(x)))) for x in (eager, graphed)]
@@ -1237,6 +1812,38 @@ def run_online_phase(torch, device, card, world_pose: bool = False) -> dict:
     _require(np.isfinite(fe_ate) and fe_ate < ATE_LIMIT_M, f"{label}: frontend ATE {fe_ate} m")
     _require(np.isfinite(be_ate) and be_ate < BACKEND_ATE_LIMIT_M, f"{label}: backend ATE {be_ate} m")
     return dict(totals=probe.totals)
+
+
+def check_steady_spin_reads(torch, device, card, n: int = 6) -> list:
+    """`kitti_online_config` (the online cell's setting) over `n` frames,
+    before any window solve: each spin's frontend graph replays and host
+    reads (sync debug mode) by site.  Fails unless every steady spin (frame
+    2 on) replays two graphs and reads the host at most 3 times (the
+    design: the homography refit's `eigh` twice, `update_map` once), never
+    in a refinement or a RANSAC."""
+    from dynosam_tpu_torch.frontend import frontend as fe
+    from dynosam_tpu_torch.pipeline import DynoPipeline
+    from dynosam_tpu_torch.testing.scenes import kitti_online_config, kitti_scene
+
+    label = "steady spins"
+    scene, frames = kitti_scene(device, n_frames=n)
+    pipe = DynoPipeline(scene.cam, kitti_online_config(), device=device)
+    out = []
+    for k, f in enumerate(frames):
+        before = fe.graph_counts()["replays"]
+        with SyncCounter(torch) as sc:
+            pipe.spin_once(f)
+        torch.cuda.synchronize()
+        replays = fe.graph_counts()["replays"] - before
+        out.append((replays, sc.count))
+        print(f"{label}: frame {k}: {replays} frontend graph replays, {sc.count} host reads by site {sc.sites} "
+              f"on {card}", flush=True)
+        if k >= 2:
+            solver_sites = [site for site in sc.sites if any(m in site for m in ("refine", "ransac", "small_schur"))]
+            _require(replays == 2, f"{label}: frame {k} replayed {replays} graphs, not 2")
+            _require(sc.count <= 3 and not solver_sites, f"{label}: frame {k} reads the host {sc.count} times: "
+                                                        f"{sc.sites}")
+    return out
 
 
 def run_drift_recovery(torch, device, card, packets, ground_truth) -> None:
@@ -2331,6 +2938,12 @@ def _run(torch) -> int:
         check_response(torch, frames, device, reps=500),
         check_orb_sample(torch, frames, device, reps=200),
     ]
+    t0 = time.perf_counter()
+    calls = record_solver_calls(torch, device)
+    print(f"solver kernels: {len(calls['K5'])} K5 and {len(calls['K6'])} K6 calls recorded from eager steps of the "
+          f"main path's frames and the golden scene in {time.perf_counter() - t0:.1f} s", flush=True)
+    rows += [check_refine_rounds(torch, calls["K5"], card, reps=50), check_ransac(torch, calls["K6"], card, reps=200)]
+    del calls
     for r in rows:
         lib_us = "none" if r["library_ms"] is None else "%.1f us" % (r["library_ms"] * 1e3)
         print(f"{r['name']}: {r['ms'] * 1e3:.1f} us per call (plain {r['plain_ms'] * 1e3:.1f} us, "
@@ -2345,6 +2958,7 @@ def _run(torch) -> int:
     paths["pipeline"] = run_pipeline_path(torch, device, card)
     paths["golden"] = run_golden_phase(torch, device, card)
     paths["online"] = run_online_phase(torch, device, card)
+    check_steady_spin_reads(torch, device, card)
     paths["world_pose"] = run_online_phase(torch, device, card, world_pose=True)
     paths["batched"] = run_batched_phase(torch, device, card)
     paths.update(run_ego_phase(torch, scene, frames, device, card))
@@ -2367,9 +2981,13 @@ def _run(torch) -> int:
         by_path = {p: paths[p]["totals"][COUNTER[r["name"]]] for p in paths}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
+        r["launches_per_steady_frame"] = paths["shi_tomasi"]["per_frame"][-1][COUNTER[r["name"]]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "ms_flow", "ms_depth_mask",
-            "ms_rectify", "plain_ms_rectify", "library_ms_rectify", "bound_ms_rectify", "bound_by_rectify")
+            "ms_rectify", "plain_ms_rectify", "library_ms_rectify", "bound_ms_rectify", "bound_by_rectify",
+            "device_ms", "ms_motion_only", "device_ms_motion_only", "plain_ms_motion_only", "bound_ms_motion_only",
+            "bound_by_motion_only", "ms_objects", "device_ms_objects", "plain_ms_objects", "bound_ms_objects",
+            "bound_by_objects", "launches_per_steady_frame")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,13 +12,16 @@ batch dimension of the solvers.  Every point lookup is one launch of
 kernel K2 (the per-object refined-keypoint sample is one launch over
 k_act * DPO rows).
 
-The step runs as stretches between its host reads (`_variants`, driven by
-the host loop `_schedule`): the refinements' round and LM flags and the
-homography refit's `eigh` are the only reads.  On the card each stretch
-but the `eigh` is a CUDA graph replay (`_FrameGraphs`), captured once per
-process for each shape and setting, and the RANSAC uniforms are drawn
-before the step (`_draw_uniforms`) so that the graphs take them as
-inputs.
+The step runs as three stretches between its host reads (`_variants`,
+driven by `_schedule`): tracking, the homography refit's `eigh` (the only
+host read on the card), and the rest (`_seg_rest`).  On the card the
+motion RANSACs are kernel K6 and each refinement is one launch of kernel
+K5, which runs its outlier rounds and LM iterations on the device; on the
+CPU both run their plain versions, whose host loops read the rounds' and
+the LM's flags inside `rest`.  On the card each stretch but the `eigh` is
+a CUDA graph replay (`_FrameGraphs`), captured once per process for each
+shape and setting, and the RANSAC uniforms are drawn before the step
+(`_draw_uniforms`) so that the graphs take them as inputs.
 """
 
 from __future__ import annotations
@@ -224,10 +227,9 @@ def _draw_uniforms(state: FrontendState, cfg: FrontendConfig, first_frame: bool,
 
 # ---------------------------------------------------------------------------
 # The step's stretches.  Each reads the step's tensors from the dict `s`
-# and returns the entries it writes; `_schedule` runs them in order with
-# the refinements' host loops between them.  On the CPU they run as they
-# are; on the card `_FrameGraphs` captures each as a CUDA graph and replays
-# it.  s["in"] holds the inputs: the state, the previous and current
+# and returns the entries it writes; `_schedule` runs them in order.  On
+# the CPU they run as they are; on the card `_FrameGraphs` captures each but
+# the `eigh` as a CUDA graph and replays it.  s["in"] holds the inputs: the state, the previous and current
 # images, and the uniforms.
 # ---------------------------------------------------------------------------
 
@@ -645,32 +647,25 @@ def _seg_tail(s: dict, c: _Step) -> dict:
     return {"out": (new_state, packet, s["report"], s["ego"])}
 
 
-def _round_variants(tag: str, kind) -> dict:
-    """A refinement's stretches under `tag` ("fp" or "mo"): the round's LM
-    head, the first and every later LM iteration, the first and every later
-    round's tail."""
-    P, R, L = f"{tag}_P", f"{tag}_R", f"{tag}_L"
-    return {
-        f"{tag}.head": lambda s: {L: refine.round_head(kind, s[P], s[R])},
-        f"{tag}.iteration.first": lambda s: {L: refine.round_iteration(kind, s[P], s[R], s[L], True)},
-        f"{tag}.iteration": lambda s: {L: refine.round_iteration(kind, s[P], s[R], s[L], False)},
-        f"{tag}.tail.first": lambda s: {R: refine.round_tail(kind, s[P], s[R], s[L], True)},
-        f"{tag}.tail": lambda s: {R: refine.round_tail(kind, s[P], s[R], s[L], False)},
-    }
+def _seg_rest(s: dict, c: _Step) -> dict:
+    """Everything after the `eigh` as one stretch: `pre`, the joint flow +
+    pose refinement's rounds (`refine.run_rounds`: one launch of K5 on the
+    card), `mid`, the motion-only refinement's, and `tail`."""
+    t = dict(s)
+    t.update(_seg_pre(t, c))
+    if c.fp is not None:
+        t["fp_R"] = refine.run_rounds(c.fp, t["fp_P"], t["fp_R"])
+    t.update(_seg_mid(t, c))
+    if c.mo is not None:
+        t["mo_R"] = refine.run_rounds(c.mo, t["mo_P"], t["mo_R"])
+    return {"out": _seg_tail(t, c)["out"]}
 
 
 def _variants(c: _Step) -> dict:
     """Every stretch of the step under `c`, by name (`_schedule` runs them)."""
-    out = {"track": lambda s: _seg_track(s, c)}
+    out = {"track": lambda s: _seg_track(s, c), "rest": lambda s: _seg_rest(s, c)}
     if not c.first_frame:
         out["eigh"] = lambda s: _seg_eigh(s, c)
-    out["pre"] = lambda s: _seg_pre(s, c)
-    if c.fp is not None:
-        out.update(_round_variants("fp", c.fp))
-    out["mid"] = lambda s: _seg_mid(s, c)
-    if c.mo is not None:
-        out.update(_round_variants("mo", c.mo))
-    out["tail"] = lambda s: _seg_tail(s, c)
     return out
 
 
@@ -678,33 +673,17 @@ def _variants(c: _Step) -> dict:
 _EAGER = ("eigh",)
 
 
-def _schedule(run, more, c: _Step) -> None:
-    """The step's host loop: `run(name)` runs a stretch of `_variants(c)`,
-    `more(key)` reads the flag `s[key]["more"]` of a refinement's rounds
-    ("fp_R", "mo_R") or of its round's LM ("fp_L", "mo_L")."""
+def _schedule(run, c: _Step) -> None:
+    """The step's stretches in order: `run(name)` runs one of `_variants(c)`."""
     run("track")
     if not c.first_frame:
         run("eigh")
-    run("pre")
-    _rounds(run, more, "fp", c.fp)
-    run("mid")
-    _rounds(run, more, "mo", c.mo)
-    run("tail")
-
-
-def _rounds(run, more, tag: str, kind) -> None:
-    if kind is not None:
-        refine.rounds_schedule(lambda name, first: run(f"{tag}.{name}{'.first' if first else ''}"),
-                               lambda loop: more(f"{tag}_{'R' if loop == 'rounds' else 'L'}"), kind.max_iterations)
+    run("rest")
 
 
 def _run_eagerly(s: dict, c: _Step) -> dict:
     variants = _variants(c)
-
-    def run(name):
-        s.update(variants[name](s))
-
-    _schedule(run, lambda key: bool(s[key]["more"]), c)
+    _schedule(lambda name: s.update(variants[name](s)), c)
     return s
 
 
@@ -765,9 +744,8 @@ class _FrameGraphs:
     `graphs.capture` warms every stretch up on the capture stream and
     captures it.  Kernel launches of the making are not counted: `step`
     counts the frame's.  `step` copies
-    a frame's inputs into `s["in"]`, runs `_schedule` over the replays (the
-    host loops read the same flags as the eager step) and clones the
-    outputs out of `s`, which the next replay overwrites."""
+    a frame's inputs into `s["in"]`, runs `_schedule` over the replays and
+    clones the outputs out of `s`, which the next replay overwrites."""
 
     def __init__(self, inputs: dict, c: _Step):
         launches = kernels.launch_counts()
@@ -789,7 +767,7 @@ class _FrameGraphs:
 
     def step(self, inputs: dict):
         graphs.tree_copy_(self.s["in"], inputs)
-        _schedule(self._run, lambda key: bool(self.s[key]["more"]), self.c)
+        _schedule(self._run, self.c)
         return graphs.tree_clone(self.s["out"])
 
 
@@ -812,12 +790,14 @@ def _pieces() -> tuple:
     from ..backend import small_schur, solver
     from ..core import camera, lie
     from ..kernels import lk, point_sample, response
+    from ..kernels import ransac as ransac_kernel
+    from ..kernels import refine as refine_kernel
     from ..ops import clahe, factors, klt, linalg, ransac, robust
     from . import detect, mask_ops, tracker
 
     return graphs.module_functions(sys.modules[__name__], tracker, refine, detect, mask_ops, homography, ransac,
                                    klt, clahe, linalg, factors, robust, camera, lie, small_schur, solver, lk,
-                                   point_sample, response)
+                                   point_sample, response, ransac_kernel, refine_kernel)
 
 
 def _captured_step(inputs: dict, c: _Step) -> _FrameGraphs:

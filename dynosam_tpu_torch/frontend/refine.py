@@ -13,12 +13,15 @@ the pose restarts from its initial value each round while flows /
 landmarks carry over).  Both are batched over a leading B of independent
 problems with per-problem loop semantics (the JAX package `vmap`s them).
 
-Each cycle is split at its host reads into device stretches over a dict of
-tensors: `rounds_start`, then per round `round_head` (the LM head),
-`round_iteration` (one LM iteration) and `round_tail` (outliers and the
-next round's flag), driven by the host loop `rounds_schedule`.  The public
-functions run them eagerly; the frontend step runs the same stretches from
-the same loop as CUDA graph replays on the card.
+`rounds_start` sets a cycle up and `run_rounds`, the wrapper of kernel K5,
+runs it to its end.  On CUDA tensors that is one launch of K5
+(`kernels/refine.py`, `csrc/refine.cu`), which runs every problem's rounds
+and LM iterations on the device with no host read, over the arguments
+`pack` lays out; `unpack` reads its outputs back.  On CPU tensors it is
+K5's plain version, `rounds_plain`: device stretches over a dict of
+tensors, per round `round_head` (the LM head), `round_iteration` (one LM
+iteration) and `round_tail` (outliers and the next round's flag), driven by
+the host loop `rounds_schedule`, which reads the flags.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..core.camera import (
     project_jacobian_pose,
 )
 from ..core.lie import SE3, se3_apply, se3_inverse, se3_where, so3_hat
+from ..kernels import refine as refine_kernel
 from ..ops import factors
 
 
@@ -269,8 +273,64 @@ def rounds_schedule(run: Callable, more: Callable, max_iterations: int) -> None:
         first = False
 
 
-def _run_eagerly(kind, P: dict, valid: torch.Tensor, start: dict) -> dict:
-    s = {"R": rounds_start(kind, valid, start)}
+def _pose12(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return torch.cat([R.reshape(*R.shape[:-2], 9), t], dim=-1).contiguous()
+
+
+def pack(kind, P: dict, R0: dict):
+    """K5's arguments (`csrc/refine.cu` states the layout): (kind id, float
+    settings, int settings, tensors).  Tensors: per-row inputs (B, N, C),
+    the blocks' start (B, N, b), the global's start as 12 floats (B, 12: R
+    row-major, then t), the shared poses (MotionOnly: both camera poses,
+    24; FlowPose: X_prev, 12) and the active rows (B, N) bool."""
+    lm = LMConfig(max_iterations=kind.max_iterations)
+    cam = kind.cam
+    if kind.glob == "X":
+        kid, s0, s1 = refine_kernel.FLOW_POSE, kind.flow_sigma, kind.flow_prior_sigma
+        rows = torch.cat([P["kp_prev"], P["depth_prev"][..., None], P["flow_init"], P["p_world"]], dim=-1)
+        start = R0["carried"]["flow"]
+        glob0 = _pose12(P["X_init"].R, P["X_init"].t)
+        shared = _pose12(P["X_prev"].R, P["X_prev"].t)
+    else:
+        kid, s0, s1 = refine_kernel.MOTION_ONLY, kind.projection_sigma, kind.landmark_motion_sigma
+        rows = torch.cat([P["uvs"][0], P["uvs"][1]], dim=-1)
+        start = torch.cat([R0["carried"]["mp"], R0["carried"]["mc"]], dim=-1)
+        glob0 = _pose12(P["H_init"].R, P["H_init"].t)
+        shared = _pose12(P["Xs_R"].reshape(2, 3, 3), P["Xs_t"].reshape(2, 3)).reshape(24)
+    fparams = (cam.fx, cam.fy, cam.cx, cam.cy, s0, s1, kind.k_huber, 0.5 * kind.k_huber * kind.k_huber,
+               kind.chi2_gate, lm.initial_lambda, lm.lambda_factor, lm.max_lambda, lm.min_lambda,
+               lm.rel_error_tol, lm.abs_error_tol, lm.diag_floor)
+    iparams = (kind.max_iterations, kind.outlier_rounds)
+    return kid, fparams, iparams, (rows.contiguous(), start.contiguous(), glob0, shared, R0["active"].contiguous())
+
+
+def unpack(kind, out) -> dict:
+    """The rounds' final state, as `rounds_plain` returns it, from K5's
+    outputs: carried blocks (B, N, b), active (B, N), the global (B, 12),
+    error (B,), n_new and it (B,)."""
+    carried, active, glob, error, n_new, it = out
+    d = 2 if kind.glob == "X" else 3
+    blocks = {key: carried[..., i * d:(i + 1) * d] for i, key in enumerate(kind.keys)}
+    g = SE3(glob[:, :9].reshape(-1, 3, 3), glob[:, 9:])
+    R = dict(active=active, carried=blocks, n_new=n_new, it=it, res={**blocks, kind.glob: g}, error=error)
+    return _round_flags(R, kind.outlier_rounds)
+
+
+def run_rounds(kind, P: dict, R0: dict) -> dict:
+    """K5's wrapper: the rounds from `R0` (`rounds_start`) to their end.
+    On CUDA tensors one launch of K5, which raises if it cannot build or
+    launch; on CPU tensors the plain version, `rounds_plain`."""
+    if R0["active"].device.type == "cpu":
+        return rounds_plain(kind, P, R0)
+    kid, fparams, iparams, tensors = pack(kind, P, R0)
+    return unpack(kind, refine_kernel.rounds(kid, fparams, iparams, *tensors))
+
+
+def rounds_plain(kind, P: dict, R0: dict) -> dict:
+    """K5's plain version: the rounds from `R0` as the host loops of
+    `rounds_schedule` over `round_head`, `round_iteration` and
+    `round_tail` (on any device)."""
+    s = {"R": R0}
 
     def run(name, first):
         if name == "head":
@@ -302,7 +362,7 @@ def optimize_flow_and_pose(
     kp_prev/flow_init (B, N, 2), depth_prev/valid (B, N)."""
     kind = FlowPose(cam, flow_sigma, flow_prior_sigma, k_huber, max_iterations, outlier_rounds)
     P = flow_pose_inputs(cam, X_init, X_prev, kp_prev, depth_prev, flow_init)
-    return kind.result(_run_eagerly(kind, P, valid, {"flow": flow_init}))
+    return kind.result(run_rounds(kind, P, rounds_start(kind, valid, {"flow": flow_init})))
 
 
 def optimize_motion_only(
@@ -324,4 +384,4 @@ def optimize_motion_only(
     and X_cur () shared, m_prev_world (B, N, 3), uv_prev/uv_cur (B, N, 2)."""
     kind = MotionOnly(cam, landmark_motion_sigma, projection_sigma, k_huber, max_iterations, outlier_rounds)
     P = motion_only_inputs(H_init, X_prev, X_cur, m_prev_world, uv_prev, uv_cur)
-    return kind.result(_run_eagerly(kind, P, valid, {"mp": m_prev_world, "mc": P["m_cur_init"]}))
+    return kind.result(run_rounds(kind, P, rounds_start(kind, valid, {"mp": m_prev_world, "mc": P["m_cur_init"]})))

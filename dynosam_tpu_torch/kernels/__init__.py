@@ -8,15 +8,25 @@ launch counter and a plain PyTorch version beside it.
 | K3 | `response.shi_tomasi_response`  | `dynosam_tpu/ops/pallas/response.py:shi_tomasi_response_pallas` |
 | K4 | `orb_sample.orb_orientation_descriptors` | `dynosam_tpu/ops/pallas/orb_sample.py:orb_orientation_descriptors` |
 
+and two kernels with no Pallas counterpart, each the device-side form of a
+fused JAX program that the port had run as host loops of small operators:
+
+| Id | Wrapper           | Stands for (JAX)                                                     |
+|----|-------------------|----------------------------------------------------------------------|
+| K5 | `refine.rounds`   | the refinements' `while_loop`s, `dynosam_tpu/frontend/refine.py:57`, `:186` |
+| K6 | `ransac.ransac`   | `dynosam_tpu/ops/ransac.py:165` (`ransac_rigid`), `:314` (`ransac_pose_3d2d`) |
+
 K3 runs on the Shi-Tomasi detector path, K4 on the ORB detector path
-(`TrackerConfig(feature_detector_type="orb")`); K1 and K2 on both.
+(`TrackerConfig(feature_detector_type="orb")`); K1 and K2 on both; K5 and
+K6 wherever the frontend refines or solves a 3-D motion RANSAC.
 """
 
 from __future__ import annotations
 
-from . import lk, orb_sample, point_sample, response
+from . import lk, orb_sample, point_sample, ransac, refine, response
 
-_MODULES = {"lk": lk, "point_sample": point_sample, "response": response, "orb_sample": orb_sample}
+_MODULES = {"lk": lk, "point_sample": point_sample, "response": response, "orb_sample": orb_sample,
+            "refine": refine, "ransac": ransac}
 
 
 def reset_launch_counts() -> None:

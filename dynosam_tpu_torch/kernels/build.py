@@ -20,11 +20,14 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("lk.cu", "point_sample.cu", "response.cu", "orb_sample.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("lk.cu", "point_sample.cu", "response.cu", "orb_sample.cu", "ransac.cu", "refine.cu")
+HEADERS = ("common.cuh", "small.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# the solver kernels round every product and sum as their PyTorch plain
+# versions' separate operations do (`csrc/small.cuh`)
+SOURCE_FLAGS = {"ransac.cu": ("-fmad=false",), "refine.cu": ("-fmad=false",)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -34,6 +37,9 @@ _SIGNATURES = {
     "dyno_lk_level": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "dyno_shi_tomasi": (_P, _I, _I, _P, _P),
     "dyno_orb_sample": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
+    "dyno_ransac": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # (kind, float settings, int settings, pointers, stream): see csrc/refine.cu
+    "dyno_refine_rounds": (_I, _P, _P, _P, _P),
 }
 
 
@@ -53,7 +59,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(FLAGS).encode() + repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -72,7 +78,7 @@ def build(verbose: bool = False) -> Path:
         procs = []
         for name in SOURCES:
             obj = Path(tmp) / (name + ".o")
-            cmd = [nvcc, *FLAGS, "-Xptxas", "-v", "-c", str(CSRC / name),
+            cmd = [nvcc, *FLAGS, *SOURCE_FLAGS.get(name, ()), "-Xptxas", "-v", "-c", str(CSRC / name),
                    "-o", str(obj)]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

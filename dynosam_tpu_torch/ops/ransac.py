@@ -7,6 +7,11 @@ hypothesis is polished by Gauss-Newton on its inliers.  The port runs a
 leading batch dimension B natively (the JAX package `vmap`s over objects):
 inputs are (B, N, ...) and every problem of the batch is independent.
 
+After the draw, `ransac_rigid` solves, scores and polishes through
+`hypotheses_and_polish`, the wrapper of kernel K6: on CUDA tensors the
+kernel (`kernels/ransac.py`, `csrc/ransac.cu`, two launches a call), on CPU
+tensors its plain version, `hypotheses_and_polish_plain`.
+
 Random draws: the JAX package draws hypothesis indices with `jax.random`.
 Torch cannot reproduce those streams, so every solver takes an optional
 `idx` of hypothesis indices; without it they come from a `torch.Generator`.
@@ -20,6 +25,7 @@ import torch
 
 from ..core.camera import CameraParams, project_jacobian_pose, project_local
 from ..core.lie import SE3, _mm, _mv, se3_apply, se3_inverse, se3_retract, so3_hat
+from ..kernels import ransac as ransac_kernel
 from .linalg import inv_spd
 
 STATUS_VALID = 0
@@ -145,7 +151,7 @@ def ransac_rigid(
     `uniforms` (B, iters * 3) are `generator`'s draws made beforehand
     (`draw_uniforms`)."""
     bsz, n_pool = src.shape[0], src.shape[1]
-    dt, dev = src.dtype, src.device
+    dev = src.device
     scatter_order = None
     if score_cap is not None and n_pool > score_cap:
         order = torch.sort((~valid).to(torch.int8), dim=-1, stable=True).indices[:, :score_cap]
@@ -157,7 +163,36 @@ def ransac_rigid(
         scatter_order = order
     if idx is None:
         idx = sample_valid_indices(valid, iters, _MIN_SET, generator, uniforms)
-    idx = idx.long()
+    res = hypotheses_and_polish(src, dst, valid, idx, uv, cam, threshold, refine_steps, min_inliers)
+    if scatter_order is not None:
+        full = torch.zeros((bsz, n_pool), dtype=torch.bool, device=dev)
+        res = res._replace(inliers=full.scatter(1, scatter_order, res.inliers))
+    return res
+
+
+def hypotheses_and_polish(src, dst, valid, idx, uv, cam, threshold: float, refine_steps: int,
+                          min_inliers: int) -> RansacResult:
+    """K6's wrapper: `ransac_rigid` after the draw and the compaction.  On
+    CUDA tensors kernel K6, which raises if it cannot build or launch; on
+    CPU tensors the plain version, `hypotheses_and_polish_plain`."""
+    if src.device.type == "cpu":
+        return hypotheses_and_polish_plain(src, dst, valid, idx.long(), uv, cam, threshold, refine_steps,
+                                           min_inliers)
+    R, t, inliers, n_inliers, status = ransac_kernel.ransac(src, dst, valid, idx, uv, cam, threshold, refine_steps,
+                                                            min_inliers)
+    return RansacResult(SE3(R, t), inliers, n_inliers, status)
+
+
+def hypotheses_and_polish_plain(src, dst, valid, idx, uv, cam, threshold: float, refine_steps: int,
+                                min_inliers: int, diagnostics: Optional[dict] = None) -> RansacResult:
+    """K6's plain version: the minimal sets `idx` (B, K, 3) solved, scored
+    over the rows, the first best polished by Gauss-Newton on its inliers,
+    the final inliers and status.  A `diagnostics` dict receives the scores
+    (B, K), the scoring errors (B, K, N), the best hypothesis (B,), which
+    hypotheses are proper (B, K), each Gauss-Newton step's largest
+    component (B, refine_steps) and the final errors (B, N)."""
+    bsz = src.shape[0]
+    dt, dev = src.dtype, src.device
     src_min = _gather_rows(src, idx)                           # (B, K, 3, 3)
     dst_min = _gather_rows(dst, idx)
     hyp, proper = rigid_from_minimal(src_min, dst_min)         # (B, K)
@@ -182,8 +217,11 @@ def ransac_rigid(
     ar = torch.arange(bsz, device=dev)
     T = SE3(hyp.R[ar, best], hyp.t[ar, best])                  # (B,)
     best_inl = inl[ar, best]                                   # (B, N)
+    if diagnostics is not None:
+        diagnostics.update(scores=scores, err=err, best=best, proper=proper)
 
     eye6 = torch.eye(6, dtype=dt, device=dev)
+    steps = []
     for _ in range(refine_steps):
         if reproj:
             p_cam = se3_apply(se3_inverse(T)[:, None], src)    # (B, N, 3)
@@ -211,6 +249,8 @@ def ransac_rigid(
         # float32 step may diverge and drop the motion (ROADMAP.md, Faults)
         xi = -_mv6(inv_spd(A), g)
         T = se3_retract(T, xi)
+        if diagnostics is not None:
+            steps.append(xi.abs().amax(-1))
 
     if reproj:
         p_cam = se3_apply(se3_inverse(T)[:, None], src)
@@ -220,6 +260,8 @@ def ransac_rigid(
     else:
         final_err = torch.linalg.vector_norm(se3_apply(T[:, None], src) - dst, dim=-1)
     final_inl = (final_err < threshold) & valid
+    if diagnostics is not None:
+        diagnostics.update(final_err=final_err, steps=torch.stack(steps, -1) if steps else final_err[:, :0])
     n_final = torch.sum(final_inl, dim=-1).to(torch.int32)
     n_valid = torch.sum(valid, dim=-1)
     status = torch.where(
@@ -237,11 +279,7 @@ def ransac_rigid(
         torch.where(ok[:, None, None], T.R, eye3),
         torch.where(ok[:, None], T.t, torch.zeros_like(T.t)),
     )
-    inliers = final_inl & ok[:, None]
-    if scatter_order is not None:
-        full = torch.zeros((bsz, n_pool), dtype=torch.bool, device=dev)
-        inliers = full.scatter(1, scatter_order, inliers)
-    return RansacResult(pose, inliers, n_final, status)
+    return RansacResult(pose, final_inl & ok[:, None], n_final, status)
 
 
 def _mv6(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

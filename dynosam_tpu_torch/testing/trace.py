@@ -59,7 +59,8 @@ import sys
 import time
 from pathlib import Path
 
-PORT_KERNELS = ("lk_level_kernel", "point_sample_kernel", "shi_tomasi_kernel", "orb_sample_kernel")
+PORT_KERNELS = ("lk_level_kernel", "point_sample_kernel", "shi_tomasi_kernel", "orb_sample_kernel",
+                "refine_rounds_kernel", "ransac_score_kernel", "ransac_polish_kernel")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaLaunchCooperativeKernel")

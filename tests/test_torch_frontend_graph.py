@@ -10,9 +10,10 @@ the card captures as CUDA graphs, here on the CPU:
 - the homography RANSAC's selection of its best hypothesis on the device
   equals Python indexing by the argmax;
 - a steady frame, in each configuration the card graphs, reads the host
-  only where the design leaves a read: the refinements' round and LM
-  flags, between stretches, and the homography refit's `eigh` (a read on
-  the card), in its own eager stretch;
+  only where the design leaves a read: the homography refit's `eigh` (a
+  read on the card), in its own eager stretch, and on the CPU the round
+  and LM flags of the refinements' plain version (the host loops K5
+  replaces on the card), inside the stretch `rest`;
 - the capture cache's key changes when a module function a stretch calls
   is replaced.
 
@@ -93,9 +94,9 @@ def fresh_cache(monkeypatch):
 
 def test_replayed_stretches_equal_the_eager_step_bit_for_bit(golden, fresh_cache):
     """Frame 0 runs eagerly on both sides; from frame 1 on, one capture
-    serves every frame and each frame replays the same stretches (18: the
-    two refinements' heads, LM iterations and tails, and the stretches
-    between them), each frame's outputs cloned out of the buffers."""
+    serves every frame and each frame replays the same stretches (2:
+    tracking and the rest; the `eigh` between them runs eagerly), each
+    frame's outputs cloned out of the buffers."""
     cam, cfg, frames = golden
     assert fe.graphable(cfg.frontend)
     st_e = st_g = _state(cfg)
@@ -116,7 +117,7 @@ def test_replayed_stretches_equal_the_eager_step_bit_for_bit(golden, fresh_cache
     assert all(_equal(a, b) for a, b in held)
     now = graphs.counts("frontend")
     assert now["captures"] == counts["captures"] + 1
-    assert now["replays"] - counts["replays"] >= 18 * (N_FRAMES - 1)
+    assert now["replays"] - counts["replays"] == 2 * (N_FRAMES - 1)
 
 
 def test_uniforms_drawn_beforehand_give_the_generators_hypotheses():
@@ -181,13 +182,15 @@ def _variant(cfg, **tracker):
 
 @pytest.mark.parametrize("setting", [{}, {"feature_detector_type": "orb", "orb_reassociate": True}, {"ego": "3d3d"},
                                      {"use_propogate_mask": True}], ids=["default", "orb", "3d3d", "propagate"])
-def test_a_steady_frame_reads_the_host_only_where_the_design_does(golden, setting):
+def test_a_steady_frame_reads_the_host_only_where_the_design_does(golden, setting, monkeypatch):
     """Frame 1 of the golden scene in each configuration the card graphs:
-    every read outside a stretch is a flag the host loops read (one per
-    `more` call), the homography refit's `eigh` is the one read inside a
-    stretch, and no stretch copies host data; the F.one_hot range checks,
-    Python indexing by 0-d tensors and Python scalars assigned by
-    indexing are gone."""
+    no read between stretches, the homography refit's `eigh` the one read
+    in its stretch, and in `rest` only the flags the refinements' host
+    loops read (one per `more` call of each refinement's
+    `refine.rounds_schedule`: the CPU's plain version of K5, one launch
+    with no read on the card); no stretch copies host data; the F.one_hot
+    range checks, Python indexing by 0-d tensors and Python scalars
+    assigned by indexing are gone."""
     cam, cfg, frames = golden
     cfg = _variant(cfg, **setting)
     assert fe.graphable(cfg.frontend)
@@ -196,25 +199,33 @@ def test_a_steady_frame_reads_the_host_only_where_the_design_does(golden, settin
                           device=CPU)[0]
     c = fe._step_settings(cam, cfg.frontend, True, False, g)
     s = {"in": _inputs(state, frames[0], frames[1], cfg, False, g)}
-    variants, flags, mode = fe._variants(c), [], HostOps()
+    variants, flags, loops, mode = fe._variants(c), [], [], HostOps()
+    real = refine.rounds_schedule
+
+    def rounds_schedule(run, more, max_iterations):
+        loops.append(max_iterations)
+
+        def counted(name):
+            flags.append(name)
+            return more(name)
+
+        return real(run, counted, max_iterations)
+
+    monkeypatch.setattr(refine, "rounds_schedule", rounds_schedule)
 
     def run(name):
         mode.stretch = name
         s.update(variants[name](s))
         mode.stretch = None
 
-    def more(key):
-        flags.append(key)
-        return bool(s[key]["more"])
-
     with mode:
-        fe._schedule(run, more, c)
-    between = [op for op, st in mode.seen if st is None]
-    inside = [(op, st) for op, st in mode.seen if st is not None]
-    assert len(between) == len(flags) and set(between) <= {"_local_scalar_dense", "is_nonzero", "item"}
-    assert inside == [("_linalg_eigh", "eigh")] and fe._EAGER == ("eigh",)
-    n_lm = sum(1 for k in flags if k.endswith("_L"))
-    assert {k for k in flags} == {"fp_R", "fp_L", "mo_R", "mo_L"} and n_lm >= 2
+        fe._schedule(run, c)
+    assert [op for op, st in mode.seen if st is None] == []
+    assert [op for op, st in mode.seen if st == "eigh"] == ["_linalg_eigh"] and fe._EAGER == ("eigh",)
+    in_rest = [op for op, st in mode.seen if st == "rest"]
+    assert {st for _, st in mode.seen} <= {"eigh", "rest"}
+    assert len(in_rest) == len(flags) and set(in_rest) <= {"_local_scalar_dense", "is_nonzero", "item"}
+    assert len(loops) == 2 and set(flags) == {"rounds", "lm"} and flags.count("lm") >= 2
 
 
 def test_the_configurations_that_step_eagerly_on_the_card(golden):

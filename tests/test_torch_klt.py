@@ -209,7 +209,30 @@ def test_wrappers_on_cpu_leave_launch_counts_at_zero(rng):
     from dynosam_tpu_torch.kernels.orb_sample import orb_orientation_descriptors
 
     orb_orientation_descriptors(T(img), T(img), T(uv))
-    assert kernels.launch_counts() == {"lk": 0, "point_sample": 0, "response": 0, "orb_sample": 0}
+    from dynosam_tpu_torch.core.camera import CameraParams
+    from dynosam_tpu_torch.core.lie import se3_identity
+    from dynosam_tpu_torch.frontend import refine
+    from dynosam_tpu_torch.kernels import ransac, refine as refine_kernel
+    from dynosam_tpu_torch.ops import ransac as ops_ransac
+
+    pts = T(rng.normal(0, 2, (1, 40, 3)))
+    args = (pts, pts + 0.5, torch.ones((1, 40), dtype=torch.bool), torch.randint(0, 40, (1, 20, 3)), None, None, 0.1)
+    ops_ransac.hypotheses_and_polish(*args, 5, 5)
+    kind = refine.FlowPose(CameraParams(100.0, 100.0, 80.0, 48.0), max_iterations=2, outlier_rounds=1)
+    kp, flow0 = T(uv[None]), torch.ones((1, uv.shape[0], 2))
+    P = refine.flow_pose_inputs(kind.cam, se3_identity((1,)), se3_identity(()), kp, torch.full(kp.shape[:2], 5.0),
+                                flow0)
+    R0 = refine.rounds_start(kind, torch.ones(kp.shape[:2], dtype=torch.bool), {"flow": flow0})
+    refine.run_rounds(kind, P, R0)
+    # the K5 and K6 bindings launch or raise: the CPU's plain versions are
+    # the wrappers' choice, not theirs
+    with pytest.raises(ValueError):
+        ransac.ransac(*args)
+    kid, fparams, iparams, tensors = refine.pack(kind, P, R0)
+    with pytest.raises(ValueError):
+        refine_kernel.rounds(kid, fparams, iparams, *tensors)
+    assert kernels.launch_counts() == {"lk": 0, "point_sample": 0, "response": 0, "orb_sample": 0, "refine": 0,
+                                       "ransac": 0}
 
 
 @pytest.mark.parametrize("fn", ["tracker_state_from_numpy", "frontend_state_from_numpy"])
