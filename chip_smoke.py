@@ -25,9 +25,15 @@ no result line:
              card, K_MARGIN times that, at least ULP_FLOOR); counts and
              inlier rows may differ only where a residual lies within that
              spread of its threshold or of the chi^2 gate (such rows are
-             counted and printed); then timed per call, on the device (the
-             profiler) and plain, beside a bound from the FLOPs and bytes
-             this data needs (no single PyTorch call computes either).
+             counted and printed); every call launched twice and the two
+             results equal bit for bit; then timed per call, on the device (the
+             profiler; K6's scoring and polish kernels also apart) and plain,
+             beside a bound from the FLOPs and bytes this data needs (no
+             single PyTorch call computes either), with each kernel's launch
+             shape (clusters, CTAs, threads, dynamic shared memory) and
+             ptxas' registers and spills; then a frontend-only run over 4
+             frames whose graphed steps must launch both and equal the eager
+             steps bit for bit.
              K1 is also held on slots within 10 px of the border and on
              slots whose warm start is off by more than its staged window's
              margin; K2 on float32, int32, bool and strided channels read in
@@ -841,21 +847,34 @@ def device_ms_per_call(torch, fn, names, reps: int = 5) -> float:
     return us / reps / 1e3
 
 
-def check_refine_rounds(torch, calls, card, reps) -> dict:
-    """K5 against its plain version on every recorded call: the kernel (its
-    wrapper, `refine.run_rounds`, on the card) and the plain version on the
-    card, and the plain version's other runs (on the CPU, and on the card
-    with its rows in other orders or its inputs one or two ulps off), whose
-    spread sets the tolerances.  Each problem is held to its own spread: where the kernel's
-    discrete outputs (active rows, rounds, new outliers) equal the plain
-    version's on the card, every float output is within `_spread_tol` of
-    that problem's largest difference over the other runs that took its
-    outlier decisions (of its call's largest, where none did); where they
-    differ, each differing row must lie within the spread of the chi^2
-    gate (or differ between the plain version's CPU and card runs too),
-    and the pose and blocks within LOOSE.  Then the main path's two calls of a steady frame are
-    timed, and the ego problem's tolerance is printed beside its pose
-    change per LM iteration."""
+def same_bits(torch, a, b) -> bool:
+    """Every tensor of two trees equal bit for bit (NaNs included)."""
+    leaves = torch.utils._pytree.tree_leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
+        for x, y in zip(la, lb) if isinstance(x, torch.Tensor))
+
+
+def kernel_resources(torch, source: str, match: str) -> str:
+    """ptxas' registers, spills and static shared memory of the kernels of
+    `source` whose mangled names contain `match`, from this process's build."""
+    from dynosam_tpu_torch.kernels import build
+
+    use = {k: v for k, v in build.resource_usage(source).items() if match in k}
+    if not use:
+        return "not reported (the library was not built in this process)"
+    return "; ".join(f"{name.split(match)[-1][:28] or match}: {u.get('registers')} registers, spill stores "
+                     f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B, {u.get('smem')} B static smem"
+                     for name, u in sorted(use.items()))
+
+
+def hold_refine_rounds(torch, calls) -> tuple:
+    """K5 against its plain version on every call of `calls` (see
+    `check_refine_rounds`), and each call launched twice, both results equal
+    bit for bit.  Returns the largest |kernel - plain| over the pose and
+    blocks of agreeing problems and each call's tolerances by (label, kind)."""
     from dynosam_tpu_torch.frontend import refine
     from dynosam_tpu_torch.utils.graphs import tree_clone
 
@@ -872,9 +891,13 @@ def check_refine_rounds(torch, calls, card, reps) -> dict:
         r = prob.residual_fn(R["res"])[kind.gated]
         return torch.sum(r * r, dim=-1)
 
-    runs = []
+    runs, repeats = [], 0
     for label, kind, P, R0 in calls:
         got = refine.run_rounds(kind, P, tree_clone(R0))
+        again = refine.run_rounds(kind, P, tree_clone(R0))
+        _require(same_bits(torch, outputs(got, kind), outputs(again, kind)),
+                 f"K5 {type(kind).__name__}, {label}: two launches on the same inputs differ")
+        repeats += 1
         card_p = refine.rounds_plain(kind, P, tree_clone(R0))
         P_cpu, R0_cpu = to_cpu(P), to_cpu(R0)
         cpu_p = refine.rounds_plain(kind, P_cpu, R0_cpu)
@@ -967,8 +990,31 @@ def check_refine_rounds(torch, calls, card, reps) -> dict:
               f"{dchi:.3g}", flush=True)
     print(f"K5: max |kernel - plain| over the pose and blocks of agreeing problems {worst:.3g}; {own} problems held "
           f"to their own spread, {fallback} to their call's; {diverged} problems with an outlier decision at the "
-          f"gate that differs ({near_rows} rows)", flush=True)
+          f"gate that differs ({near_rows} rows); {repeats} calls launched twice, equal bit for bit", flush=True)
     tol_of = {(r["label"], type(r["kind"]).__name__): r["tol"] for r in runs}
+    return worst, tol_of
+
+
+def check_refine_rounds(torch, calls, card, reps) -> dict:
+    """K5 against its plain version on every recorded call: the kernel (its
+    wrapper, `refine.run_rounds`, on the card) and the plain version on the
+    card, and the plain version's other runs (on the CPU, and on the card
+    with its rows in other orders or its inputs one or two ulps off), whose
+    spread sets the tolerances.  Each problem is held to its own spread: where the kernel's
+    discrete outputs (active rows, rounds, new outliers) equal the plain
+    version's on the card, every float output is within `_spread_tol` of
+    that problem's largest difference over the other runs that took its
+    outlier decisions (of its call's largest, where none did); where they
+    differ, each differing row must lie within the spread of the chi^2
+    gate (or differ between the plain version's CPU and card runs too),
+    and the pose and blocks within LOOSE.  Then the main path's two calls of a steady frame are
+    timed, and the ego problem's tolerance is printed beside its pose
+    change per LM iteration."""
+    from dynosam_tpu_torch.frontend import refine
+    from dynosam_tpu_torch.kernels import refine as k5
+    from dynosam_tpu_torch.utils.graphs import tree_clone
+
+    worst, tol_of = hold_refine_rounds(torch, calls)
 
     timed = [r for r in calls if r[0].startswith("main path") and r[0] != "main path frame 0"][-2:]
     rows_out = {}
@@ -990,11 +1036,16 @@ def check_refine_rounds(torch, calls, card, reps) -> dict:
         print(f"K5 refine_rounds {kname} ({label}, B {bsz} x N {n}, {rounds} rounds, {its} LM iterations over the "
               f"problems): {ms * 1e3:.1f} us per call, {dev_ms * 1e3:.1f} us on the device, plain {plain_ms:.2f} ms, "
               f"bound {b_ms * 1e3:.2f} us by {b_by} on {card}", flush=True)
+        shape = k5.launch_shape(k5.FLOW_POSE if kind.glob == "X" else k5.MOTION_ONLY, bsz, n)
+        print(f"K5 refine_rounds {kname} launch: {bsz} clusters of {shape['cluster']} CTAs ({shape['ctas']} CTAs) of "
+              f"{shape['threads']} threads, {shape['smem']} B of dynamic shared memory a CTA (at most "
+              f"{shape['max_rows']} rows a problem)", flush=True)
         if kname == "FlowPose" and steps:
             t0 = tol_of[(label, kname)][0]
             print(f"K5 FlowPose ego problem ({label}): tolerance R {t0['R']:.3g}, t {t0['t']:.3g}; its pose change "
                   f"per LM iteration that moved it: median {float(np.median(steps)):.3g}, smallest "
                   f"{min(steps):.3g}, last {steps[-1]:.3g} ({len(steps)} iterations)", flush=True)
+    print(f"K5 ptxas: {kernel_resources(torch, 'refine.cu', 'refine_rounds_kernel')}", flush=True)
     fp, mo = rows_out["FlowPose"], rows_out["MotionOnly"]
     return dict(name="refine_rounds", route="cuda", source="dynosam_tpu_torch/csrc/refine.cu",
                 replaces="none: dynosam_tpu/frontend/refine.py:57,186 (the lax.while_loops around "
@@ -1008,33 +1059,21 @@ def check_refine_rounds(torch, calls, card, reps) -> dict:
                      f"plain {mo['plain_ms']:.2f} ms")
 
 
-def check_ransac(torch, calls, card, reps) -> dict:
-    """K6 against its plain version on every recorded call, with the plain
-    version on the CPU for the spread: each hypothesis's inlier count
-    equals the plain version's on the card but for rows whose scoring error
-    lies within that hypothesis's own spread of the threshold (K_MARGIN
-    times the largest CPU-vs-card difference of its errors within twice
-    the threshold, at least ULP_FLOOR of it; a hypothesis that is proper in
-    one plain run only may differ in every row).  Each problem whose best
-    hypothesis is the plain version's holds its pose to its own spread
-    (its largest difference from the plain version on the card over the
-    other runs that chose the same hypothesis: on the CPU, and on the card
-    with its rows in other orders or its inputs one or two ulps off; its
-    call's largest where none did) and its final inliers to rows within its own spread of the
-    threshold (likewise).  Every problem's final
-    inliers are those of the kernel's own pose, its errors computed here in
-    PyTorch, but for rows within its call's spread of the threshold; count
-    and status follow the inliers.  Then the main path's two calls of a
-    steady frame are timed, and the ego problem's pose tolerance is printed
-    beside its Gauss-Newton steps."""
+def _ransac_plain(torch, packed, cam, thr, steps, min_inl, diagnostics):
+    from dynosam_tpu_torch.ops import ransac as ops_ransac
+
+    r = ops_ransac.hypotheses_and_polish_plain(*packed, cam, thr, steps, min_inl, diagnostics)
+    return r.pose.R, r.pose.t, r.inliers, r.n_inliers, r.status
+
+
+def hold_ransac(torch, calls) -> float:
+    """K6 against its plain version on every call of `calls` (see
+    `check_ransac`), and each call launched twice, both results and counts
+    equal bit for bit.  Returns the largest |kernel - plain| pose
+    difference."""
     from dynosam_tpu_torch.core.camera import project_local
     from dynosam_tpu_torch.core.lie import SE3, se3_apply, se3_inverse
     from dynosam_tpu_torch.kernels import ransac as k6
-    from dynosam_tpu_torch.ops import ransac as ops_ransac
-
-    def plain(packed, cam, thr, steps, min_inl, diagnostics):
-        r = ops_ransac.hypotheses_and_polish_plain(*packed, cam, thr, steps, min_inl, diagnostics)
-        return r.pose.R, r.pose.t, r.inliers, r.n_inliers, r.status
 
     def final_err(R, t, src, dst, uv, cam):
         """The polish's final errors of pose (R, t) (B,) over the rows."""
@@ -1045,25 +1084,30 @@ def check_ransac(torch, calls, card, reps) -> dict:
         e = torch.linalg.vector_norm(pred - uv, dim=-1)
         return torch.where(z > 0.05, e, torch.full_like(e, float("inf")))
 
-    runs = []
+    runs, repeats = [], 0
     for label, args, kw in calls:
         src, dst, valid, idx, uv, cam, thr, steps, min_inl = args
         packed = k6.pack(src, dst, valid, idx, uv)
         counts = torch.empty(idx.shape[:2], dtype=torch.int32, device=src.device)
         got = k6.ransac(src, dst, valid, idx, uv, cam, thr, steps, min_inl, counts=counts)
+        counts2 = torch.empty_like(counts)
+        again = k6.ransac(src, dst, valid, idx, uv, cam, thr, steps, min_inl, counts=counts2)
+        _require(same_bits(torch, (got, counts), (again, counts2)),
+                 f"K6 {label}: two launches on the same inputs differ")
+        repeats += 1
         dp, dc = {}, {}
-        card_p = plain(packed, cam, thr, steps, min_inl, dp)
-        cpu_p = plain([None if t is None else t.cpu() for t in packed], cam, thr, steps, min_inl, dc)
+        card_p = _ransac_plain(torch, packed, cam, thr, steps, min_inl, dp)
+        cpu_p = _ransac_plain(torch, [None if t is None else t.cpu() for t in packed], cam, thr, steps, min_inl, dc)
         moved = []
         for seed in range(N_PERTURBED):
             dm = {}
-            moved.append((plain(_perturbed(torch, packed, seed), cam, thr, steps, min_inl, dm), dm))
+            moved.append((_ransac_plain(torch, _perturbed(torch, packed, seed), cam, thr, steps, min_inl, dm), dm))
         bsz, n = valid.shape
         for seed in range(N_PERMUTED):
             perm, inv = _row_order(torch, n, seed, src.device)
             dm = {}
             s_, d_, v_, _, u_ = _rows_permuted(torch, packed, bsz, n, perm)
-            o = plain((s_, d_, v_, inv[packed[3]], u_), cam, thr, steps, min_inl, dm)
+            o = _ransac_plain(torch, (s_, d_, v_, inv[packed[3]], u_), cam, thr, steps, min_inl, dm)
             moved.append((_rows_permuted(torch, o, bsz, n, inv),
                           {**dm, "final_err": dm["final_err"].index_select(1, inv)}))
         torch.cuda.synchronize()
@@ -1190,7 +1234,32 @@ def check_ransac(torch, calls, card, reps) -> dict:
           f"pose {worst:.3g}", flush=True)
     for line in ego_lines[-3:]:
         print(line, flush=True)
+    print(f"K6: {repeats} calls launched twice, results and counts equal bit for bit", flush=True)
+    return worst
 
+
+def check_ransac(torch, calls, card, reps) -> dict:
+    """K6 against its plain version on every recorded call, with the plain
+    version on the CPU for the spread: each hypothesis's inlier count
+    equals the plain version's on the card but for rows whose scoring error
+    lies within that hypothesis's own spread of the threshold (K_MARGIN
+    times the largest CPU-vs-card difference of its errors within twice
+    the threshold, at least ULP_FLOOR of it; a hypothesis that is proper in
+    one plain run only may differ in every row).  Each problem whose best
+    hypothesis is the plain version's holds its pose to its own spread
+    (its largest difference from the plain version on the card over the
+    other runs that chose the same hypothesis: on the CPU, and on the card
+    with its rows in other orders or its inputs one or two ulps off; its
+    call's largest where none did) and its final inliers to rows within its own spread of the
+    threshold (likewise).  Every problem's final
+    inliers are those of the kernel's own pose, its errors computed here in
+    PyTorch, but for rows within its call's spread of the threshold; count
+    and status follow the inliers.  Then the main path's two calls of a
+    steady frame are timed, and the ego problem's pose tolerance is printed
+    beside its Gauss-Newton steps."""
+    from dynosam_tpu_torch.kernels import ransac as k6
+
+    worst = hold_ransac(torch, calls)
     timed = [c for c in calls if c[0].startswith("main path") and c[0] != "main path frame 0"][-2:]
     rows_out = {}
     for label, args, kw in timed:
@@ -1200,25 +1269,36 @@ def check_ransac(torch, calls, card, reps) -> dict:
         k = idx.shape[1]
         packed = k6.pack(src, dst, valid, idx, uv)
         ms = cuda_ms(torch, lambda: k6.ransac(src, dst, valid, idx, uv, cam, thr, steps, min_inl), reps)
-        dev_ms = device_ms_per_call(torch, lambda: k6.ransac(src, dst, valid, idx, uv, cam, thr, steps, min_inl),
-                                    ("ransac_score_kernel", "ransac_polish_kernel"))
-        plain_ms = cuda_ms(torch, lambda: plain(packed, cam, thr, steps, min_inl, None), 5, warmup=1)
+        call = lambda: k6.ransac(src, dst, valid, idx, uv, cam, thr, steps, min_inl)  # noqa: E731
+        dev_ms = device_ms_per_call(torch, call, ("ransac_score_kernel", "ransac_polish_kernel"))
+        score_ms = device_ms_per_call(torch, call, ("ransac_score_kernel",))
+        polish_ms = device_ms_per_call(torch, call, ("ransac_polish_kernel",))
+        plain_ms = cuda_ms(torch, lambda: _ransac_plain(torch, packed, cam, thr, steps, min_inl, None), 5, warmup=1)
         flop = bsz * k * (FLOP_K6_HYPOTHESIS + n * FLOP_K6_SCORE_ROW) + bsz * n * (steps * FLOP_K6_POLISH_ROW
                                                                                    + 2 * FLOP_K6_SCORE_ROW)
         nbytes = bsz * n * (12 + 12 + (8 if uv is not None else 0) + 1) + bsz * k * 24 + bsz * (48 + n + 8)
         b_ms, b_by = bound_ms(nbytes, flop)
         kind = "ego" if bsz == 1 else "objects"
         rows_out[kind] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              shape=f"{mode} B {bsz} x K {k} x N {n}")
+                              shape=f"{mode} B {bsz} x K {k} x N {n}", score_ms=score_ms, polish_ms=polish_ms)
         print(f"K6 ransac {kind} ({label}, {mode}, B {bsz} x K {k} hypotheses x N {n} rows): {ms * 1e3:.1f} us per "
-              f"call, {dev_ms * 1e3:.1f} us on the device (score and polish), plain {plain_ms:.2f} ms, bound "
-              f"{b_ms * 1e3:.2f} us by {b_by} on {card}", flush=True)
+              f"call, {dev_ms * 1e3:.1f} us on the device (score {score_ms * 1e3:.1f} us, polish "
+              f"{polish_ms * 1e3:.1f} us), plain {plain_ms:.2f} ms, bound {b_ms * 1e3:.2f} us by {b_by} on {card}",
+              flush=True)
+        shape = k6.launch_shape(bsz, n, k, uv is not None)
+        print(f"K6 ransac {kind} launch: scoring {shape['score_blocks']} blocks of {shape['score_threads']} threads, "
+              f"{shape['score_warps']} warps a hypothesis; "
+              f"polish {bsz} clusters of {shape['cluster']} CTAs ({shape['ctas']} CTAs) of {shape['threads']} "
+              f"threads, {shape['smem']} B of dynamic shared memory a CTA", flush=True)
+    print(f"K6 ptxas: {kernel_resources(torch, 'ransac.cu', 'ransac_')}", flush=True)
     ego, obj = rows_out["ego"], rows_out["objects"]
     return dict(name="ransac", route="cuda", source="dynosam_tpu_torch/csrc/ransac.cu",
                 replaces="none: dynosam_tpu/ops/ransac.py:165,314 (ransac_rigid, ransac_pose_3d2d)",
                 max_abs_err=worst, ms=ego["ms"], plain_ms=ego["plain_ms"], bound_ms=ego["bound_ms"],
                 bound_by=ego["bound_by"], library_ms=None, device_ms=ego["device_ms"],
+                device_ms_score=ego["score_ms"], device_ms_polish=ego["polish_ms"],
                 ms_objects=obj["ms"], device_ms_objects=obj["device_ms"], plain_ms_objects=obj["plain_ms"],
+                device_ms_score_objects=obj["score_ms"], device_ms_polish_objects=obj["polish_ms"],
                 bound_ms_objects=obj["bound_ms"], bound_by_objects=obj["bound_by"],
                 note=f"ego {ego['shape']}, objects {obj['shape']} (the main path's last steady frame); objects "
                      f"{obj['ms'] * 1e3:.1f} us per call, {obj['device_ms'] * 1e3:.1f} us on the device, plain "
@@ -1226,6 +1306,34 @@ def check_ransac(torch, calls, card, reps) -> dict:
 
 
 # ---------------------------------------------------------------- main path
+def check_solver_graphs(torch, device, card, n: int = 4) -> None:
+    """K5 and K6 inside the frontend's CUDA graphs: the frontend-only main
+    path (`kitti_config`) over n KITTI-width frames with every step
+    recorded, then each step taken again eagerly and graphed
+    (`check_graphed_steps`).  Fails unless every step after the first
+    replayed graphs that launch K5 and K6 and equals the eager step bit for
+    bit."""
+    from dynosam_tpu_torch import kernels
+    from dynosam_tpu_torch.pipeline import DynoPipeline
+    from dynosam_tpu_torch.testing.scenes import kitti_config, kitti_scene
+
+    scene, frames = kitti_scene(device, n_frames=n)
+    pipe = DynoPipeline(scene.cam, kitti_config(), device=device)
+    launched = []
+    with GraphedSteps(torch) as rec:
+        for f in frames:
+            before = kernels.launch_counts()
+            pipe.spin_once(f)
+            after = kernels.launch_counts()
+            launched.append({k: after[k] - before[k] for k in ("refine", "ransac")})
+    for k, (call, got) in enumerate(zip(rec.calls, launched)):
+        replays = call[6]["replays"] - call[5]["replays"]
+        _require(k == 0 or (replays > 0 and got["refine"] >= 1 and got["ransac"] >= 1),
+                 f"K5/K6 graphed steps: step {k} replayed {replays} graphs launching {got}")
+    print(f"K5/K6 in graphed steps: launches a frame {launched}", flush=True)
+    check_graphed_steps(torch, "K5/K6 graphed steps", rec, card)
+
+
 def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:
     """Camera ATE (m): RMSE of positions after one Umeyama SE(3) fit of the
     estimated positions onto the ground truth (evo's APE with -a)."""
@@ -2944,6 +3052,7 @@ def _run(torch) -> int:
           f"main path's frames and the golden scene in {time.perf_counter() - t0:.1f} s", flush=True)
     rows += [check_refine_rounds(torch, calls["K5"], card, reps=50), check_ransac(torch, calls["K6"], card, reps=200)]
     del calls
+    check_solver_graphs(torch, device, card)
     for r in rows:
         lib_us = "none" if r["library_ms"] is None else "%.1f us" % (r["library_ms"] * 1e3)
         print(f"{r['name']}: {r['ms'] * 1e3:.1f} us per call (plain {r['plain_ms'] * 1e3:.1f} us, "
@@ -2987,7 +3096,8 @@ def _run(torch) -> int:
             "ms_rectify", "plain_ms_rectify", "library_ms_rectify", "bound_ms_rectify", "bound_by_rectify",
             "device_ms", "ms_motion_only", "device_ms_motion_only", "plain_ms_motion_only", "bound_ms_motion_only",
             "bound_by_motion_only", "ms_objects", "device_ms_objects", "plain_ms_objects", "bound_ms_objects",
-            "bound_by_objects", "launches_per_steady_frame")
+            "bound_by_objects", "device_ms_score", "device_ms_polish", "device_ms_score_objects",
+            "device_ms_polish_objects", "launches_per_steady_frame")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -25,21 +25,39 @@
 //
 // Bound at the main path's shapes (ego: B 1, K 500, N 1,536; objects: B 8,
 // K 500, N 512): scoring is 2.8 M hypothesis-rows of ~35 FLOPs, ~0.1 GFLOP,
-// 1.5 us at the card's float32 rate; inputs and outputs are < 0.2 MB.  The
-// polish is a chain of 5 dependent block reductions and 6x6 solves per
-// problem, so its latency, not a rate, bounds it.
+// 1.5 us of the card's float32 rate; inputs and outputs are < 0.2 MB.  The
+// polish is a chain of 5 dependent sums over the rows and 6x6 solves per
+// problem, so its latency, not a rate, bounds it.  With a warp a
+// hypothesis reading its rows from global memory, the ego scoring took
+// 29 us: each lane's 48 dependent row loads waited on L2.
 //
-// Design: (a) `ransac_score_kernel`, one warp per hypothesis: every lane
-// solves the minimal set (three rows, a few hundred FLOPs), takes rows
-// lane, lane + 32, ..., and the warp adds its integer counts (exact in any
-// order).  (b) `ransac_polish_kernel`, one block per problem: the argmax
-// as a block reduction of (count, -k), the best hypothesis solved again
-// (the same device code, so the same bits as in (a)), then each GN step as
-// one fixed-order block sum of the 21 + 6 entries of A and g and one
-// thread's 6x6 solve and retraction, shared through shared memory.  No
-// atomics: the result is the same on every run.
+// Design: (a) `ransac_score_kernel`, blocks of SCORE_T threads, each over
+// a few hypotheses of one problem: the block stages the problem's rows
+// (src, dst or uv, valid) in shared memory as they lie in memory, TILE rows
+// at a time, with 16-byte loads, lists the tile's valid rows (a block scan
+// of their flags: invalid rows count for nothing, and object problems are
+// mostly padding), and G warps score each hypothesis over the list, every
+// lane about SCORE_ROWS rows of a tile (each lane solves the minimal set;
+// the warps' integer counts are exact in any order).  At the ego shape
+// (500 hypotheses of 1,536 rows) that is 4 warps a hypothesis and 250
+// blocks, so the call spreads over the card.
+// (b) `ransac_polish_kernel`, one thread block cluster per problem, C CTAs
+// of POLISH_T threads (C = ceil(N / POLISH_T), at most 8), CTA r owning
+// rows [r S, r S + S), which it stages in its shared memory with their
+// inlier flags (N is bounded by that memory): every CTA takes the argmax
+// of the K counts itself (the first maximum: the same k_best everywhere)
+// and solves the best hypothesis again (the same device code as (a), so
+// the same bits); each Gauss-Newton step is one `dyno::cluster_sum` of the
+// 21 + 6 entries of A and g (fixed-order warp, CTA and rank-ordered
+// cluster sums over distributed shared memory, no atomics), after which
+// every thread forms the same 6x6 solve and retraction; the final inlier
+// pass, its counts and the status are split and summed the same way.  The
+// result is the same on every run.  A step costs ~1.9 us at the main
+// path's shapes: rows ~0.4-0.6, the exchange ~0.6, the solve ~0.7.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "small.cuh"
@@ -49,7 +67,12 @@ namespace {
 using dyno::Cam;
 using dyno::SE3;
 
-constexpr int POLISH_THREADS = 256;
+constexpr int POLISH_T = 128;     // threads a polish CTA
+constexpr int TILE = 1536;        // rows a scoring block stages at a time (the main path's capped ego rows)
+// a polish row's shared memory: src (3) and uv (2) or dst (3) floats, valid and inlier bytes
+constexpr int polish_row_bytes(bool reproj) { return 4 * (3 + (reproj ? 2 : 3)) + 2; }
+constexpr int SCORE_T = 256;       // threads a scoring block
+constexpr int SCORE_ROWS = 16;     // rows a lane scores in a tile, about
 
 struct Problem {
   const float* src;      // (B, N, 3)
@@ -139,10 +162,10 @@ __device__ __forceinline__ SE3 hypothesis(const Problem& p, int b, int k, bool* 
 
 __device__ __forceinline__ float norm2(float a, float b) { return sqrtf(a * a + b * b); }
 
-// the scoring error of row n under hypothesis h (see the contract)
+// the scoring error of a row (src s; uv, 3d2d, or dst d, 3d3d) under
+// hypothesis h (see the contract)
 template <bool REPROJ>
-__device__ __forceinline__ float score_error(const Problem& p, const SE3& h, long long row) {
-  const float* s = p.src + row * 3;
+__device__ __forceinline__ float score_error(const Problem& p, const SE3& h, const float* s, const float* d) {
   if (REPROJ) {
     float diff[3], pc[3], uv[2], z;
     sub3(s, h.t, diff);
@@ -150,12 +173,11 @@ __device__ __forceinline__ float score_error(const Problem& p, const SE3& h, lon
 #pragma unroll
     for (int i = 0; i < 3; ++i) pc[i] = (h.R[i] * diff[0] + h.R[3 + i] * diff[1]) + h.R[6 + i] * diff[2];
     dyno::project_local(p.cam, pc, uv, &z);
-    const float e = norm2(uv[0] - p.uv[row * 2], uv[1] - p.uv[row * 2 + 1]);
+    const float e = norm2(uv[0] - d[0], uv[1] - d[1]);
     return z > 0.05f ? e : CUDART_INF_F;
   }
   float m[3];
   dyno::mv3(h.R, s, m);
-  const float* d = p.dst + row * 3;
   const float e0 = (m[0] + h.t[0]) - d[0], e1 = (m[1] + h.t[1]) - d[1], e2 = (m[2] + h.t[2]) - d[2];
   return sqrtf((e0 * e0 + e1 * e1) + e2 * e2);
 }
@@ -163,60 +185,108 @@ __device__ __forceinline__ float score_error(const Problem& p, const SE3& h, lon
 // the final error of row n under the polished pose T (3d2d: through
 // `se3_inverse(T)` applied, as the plain version's last pass)
 template <bool REPROJ>
-__device__ __forceinline__ float final_error(const Problem& p, const SE3& Tinv, const SE3& T, long long row) {
-  const float* s = p.src + row * 3;
+__device__ __forceinline__ float final_error(const Problem& p, const SE3& Tinv, const SE3& T, const float* s,
+                                             const float* d) {
   float q[3];
   if (REPROJ) {
     float uv[2], z;
     dyno::se3_apply(Tinv, s, q);
     dyno::project_local(p.cam, q, uv, &z);
-    const float e = norm2(uv[0] - p.uv[row * 2], uv[1] - p.uv[row * 2 + 1]);
+    const float e = norm2(uv[0] - d[0], uv[1] - d[1]);
     return z > 0.05f ? e : CUDART_INF_F;
   }
   dyno::se3_apply(T, s, q);
-  const float* d = p.dst + row * 3;
   const float e0 = q[0] - d[0], e1 = q[1] - d[1], e2 = q[2] - d[2];
   return sqrtf((e0 * e0 + e1 * e1) + e2 * e2);
 }
 
 template <bool REPROJ>
-__global__ void ransac_score_kernel(const __grid_constant__ Problem p, int* __restrict__ counts) {
-  const int h = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (h >= p.B * p.K) return;  // whole warps
-  const int b = h / p.K, k = h % p.K;
-  bool proper;
-  const SE3 hyp = hypothesis<REPROJ>(p, b, k, &proper);
+__global__ void __launch_bounds__(SCORE_T)
+    ransac_score_kernel(const __grid_constant__ Problem p, int G, int* __restrict__ counts) {
+  constexpr int ND = REPROJ ? 2 : 3;
+  // a tile of the problem's rows as they lie in memory: lane j's rows at
+  // stride 3 (src) and ND floats are conflict-free or 2-way
+  __shared__ __align__(16) float ts[3 * TILE], td[3 * TILE];
+  __shared__ uint16_t list[TILE];   // the tile's valid rows, in order
+  __shared__ int part[SCORE_T / 32], n_valid;
+  // G warps score a hypothesis, each a G-th of the tile's valid rows
+  const int b = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * (SCORE_T / 32 / G) + warp / G, share = warp % G;
+  const bool live = k < p.K;
+  const long long base = (long long)b * p.N;
   int c = 0;
-  if (proper)
-    for (int n = lane; n < p.N; n += 32) {
-      const long long row = (long long)b * p.N + n;
-      c += (p.valid[row] && score_error<REPROJ>(p, hyp, row) < p.threshold) ? 1 : 0;
+  bool proper = false;
+  SE3 hyp;
+  for (int t0 = 0; t0 < p.N; t0 += TILE) {
+    const int nt = min(TILE, p.N - t0);
+    __syncthreads();  // every warp is done with the previous tile
+    dyno::copy_to_shared(ts, p.src + (base + t0) * 3, nt * 3);
+    dyno::copy_to_shared(td, REPROJ ? p.uv + (base + t0) * 2 : p.dst + (base + t0) * 3, nt * ND);
+    // thread t's PER rows j0 .. j0 + PER - 1: their valid flags, and their
+    // place in the list from a block scan of the counts
+    constexpr int PER = (TILE + SCORE_T - 1) / SCORE_T;
+    const int j0 = threadIdx.x * PER;
+    bool f[PER];
+    int mine = 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      f[i] = j0 + i < nt && p.valid[base + t0 + j0 + i] != 0;
+      mine += f[i] ? 1 : 0;
     }
+    if (t0 == 0 && live) hyp = hypothesis<REPROJ>(p, b, k, &proper);   // while the tile's loads are in flight
+    int incl = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) part[warp] = incl;
+    dyno::copy_wait();
+    __syncthreads();
+    int at = incl - mine;
+    for (int w = 0; w < warp; ++w) at += part[w];
+    if (threadIdx.x == SCORE_T - 1) n_valid = at + mine;
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      if (f[i]) list[at++] = (uint16_t)(j0 + i);
+    __syncthreads();
+    const int nv = n_valid;
+    if (live && proper)
+#pragma unroll 2
+      for (int q = share * 32 + lane; q < nv; q += 32 * G) {
+        const int j = list[q];
+        c += score_error<REPROJ>(p, hyp, ts + 3 * j, td + ND * j) < p.threshold ? 1 : 0;
+      }
+  }
+  __syncthreads();  // part[] is reused for the counts
   c = __reduce_add_sync(0xffffffffu, c);
-  if (lane == 0) counts[h] = c;
+  if (lane == 0) part[warp] = c;
+  __syncthreads();
+  if (live && share == 0 && lane == 0) {
+    int total = part[warp];
+    for (int w = 1; w < G; ++w) total += part[warp + w];
+    counts[(long long)b * p.K + k] = total;
+  }
 }
 
 // Gauss-Newton rows of one correspondence at T (the plain version's
 // polish): residuals r (ND of them) and Jacobian rows J (ND x 6); w the
 // row weight (0 or 1)
 template <bool REPROJ>
-__device__ __forceinline__ void polish_row(const Problem& p, const SE3& T, const SE3& Tinv, long long row,
-                                           bool best_inl, float* r, float* J, float* w) {
-  const float* s = p.src + row * 3;
+__device__ __forceinline__ void polish_row(const Problem& p, const SE3& T, const SE3& Tinv, const float* s,
+                                           const float* d, bool best_inl, float* r, float* J, float* w) {
   if (REPROJ) {
     float pc[3], uv[2], z;
     dyno::se3_apply(Tinv, s, pc);
     dyno::project_local(p.cam, pc, uv, &z);
-    r[0] = uv[0] - p.uv[row * 2];
-    r[1] = uv[1] - p.uv[row * 2 + 1];
+    r[0] = uv[0] - d[0];
+    r[1] = uv[1] - d[1];
     *w = (best_inl && z > 0.05f) ? 1.f : 0.f;
     const float ps[3] = {pc[0], pc[1], z > 0.05f ? z : 1.f};
     dyno::project_jacobian_pose(p.cam, ps, J);
   } else {
     float q[3], H[9], RH[9];
     dyno::se3_apply(T, s, q);
-    const float* d = p.dst + row * 3;
 #pragma unroll
     for (int i = 0; i < 3; ++i) r[i] = q[i] - d[i];
     *w = best_inl ? 1.f : 0.f;
@@ -235,135 +305,179 @@ __device__ __forceinline__ void polish_row(const Problem& p, const SE3& T, const
 }
 
 template <bool REPROJ>
-__global__ void __launch_bounds__(POLISH_THREADS)
+__global__ void __launch_bounds__(POLISH_T)
     ransac_polish_kernel(const __grid_constant__ Problem p, const int* __restrict__ counts, int refine_steps,
-                         int min_inliers, float* __restrict__ R_out, float* __restrict__ t_out,
+                         int min_inliers, int S, float* __restrict__ R_out, float* __restrict__ t_out,
                          uint8_t* __restrict__ inliers, int* __restrict__ n_out, int* __restrict__ status_out) {
-  constexpr int ND = REPROJ ? 2 : 3;
-  __shared__ float red[(POLISH_THREADS / 32 + 1) * 27];
-  __shared__ int best_c[POLISH_THREADS], best_k[POLISH_THREADS];
-  __shared__ float pose[12];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const long long base = (long long)b * p.N;
+  namespace cg = cooperative_groups;
+  constexpr int ND = REPROJ ? 2 : 3, NW = POLISH_T / 32;
+  __shared__ dyno::SumSpace<NW, 27> sums;
+  __shared__ int arg_c[NW], arg_k[NW];
+  // this CTA's rows: src (3 a row) and uv or dst (ND a row) as they lie in
+  // memory, valid, and the best hypothesis's inliers, then the final ones
+  extern __shared__ __align__(16) float rows_sm[];
+  // phase: begin
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C, tid = threadIdx.x, lane = tid & 31;
+  const int nr = max(0, min(S, p.N - rank * S));
+  const long long base = (long long)b * p.N + (long long)rank * S;
+  float* rs = rows_sm;
+  float* rd = rows_sm + 3 * S;
+  uint8_t* valid = reinterpret_cast<uint8_t*>(rows_sm + (3 + ND) * S);
+  uint8_t* inl = valid + S;
+  dyno::Exchange ex;
+  dyno::copy_to_shared(rs, p.src + base * 3, nr * 3);
+  dyno::copy_to_shared(rd, REPROJ ? p.uv + base * 2 : p.dst + base * 3, nr * ND);
+#pragma unroll 4
+  for (int j = tid; j < nr; j += POLISH_T) valid[j] = p.valid[base + j];
 
-  // the first hypothesis of the most inliers
+  // phase: argmax
+  // the first hypothesis of the most inliers, in every CTA
   int bc = -1, bk = 0;
-  for (int k = tid; k < p.K; k += blockDim.x) {
+#pragma unroll 4
+  for (int k = tid; k < p.K; k += POLISH_T) {
     const int c = counts[(long long)b * p.K + k];
     if (c > bc) {
       bc = c;
       bk = k;
     }
   }
-  best_c[tid] = bc;
-  best_k[tid] = bk;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      const int oc = best_c[tid + s], ok = best_k[tid + s];
-      if (oc > best_c[tid] || (oc == best_c[tid] && ok < best_k[tid])) {
-        best_c[tid] = oc;
-        best_k[tid] = ok;
-      }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int oc = __shfl_xor_sync(0xffffffffu, bc, o), ok = __shfl_xor_sync(0xffffffffu, bk, o);
+    if (oc > bc || (oc == bc && ok < bk)) {
+      bc = oc;
+      bk = ok;
     }
-    __syncthreads();
   }
-  const int k_best = best_k[0];
-  __syncthreads();  // best_c and best_k are reused for the final counts
+  if (lane == 0) {
+    arg_c[tid >> 5] = bc;
+    arg_k[tid >> 5] = bk;
+  }
+  __syncthreads();
+  bc = arg_c[0];
+  int k_best = arg_k[0];
+  for (int w = 1; w < NW; ++w)
+    if (arg_c[w] > bc || (arg_c[w] == bc && arg_k[w] < k_best)) {
+      bc = arg_c[w];
+      k_best = arg_k[w];
+    }
+  // phase: best inliers
   bool proper;
   SE3 T = hypothesis<REPROJ>(p, b, k_best, &proper);
-  // its inliers, kept in the output until the final pass overwrites them
-  for (int n = tid; n < p.N; n += blockDim.x) {
-    const long long row = base + n;
-    inliers[row] = (proper && p.valid[row] && score_error<REPROJ>(p, T, row) < p.threshold) ? 1 : 0;
-  }
+  dyno::copy_wait();
+  dyno::cluster_sum_init(sums);   // also the barrier after the rows' loads
+  for (int j = tid; j < nr; j += POLISH_T)
+    inl[j] = (proper && valid[j] && score_error<REPROJ>(p, T, rs + 3 * j, rd + ND * j) < p.threshold) ? 1 : 0;
 
   for (int step = 0; step < refine_steps; ++step) {
+    // phase: GN rows
     const SE3 Tinv = dyno::se3_inverse(T);
     float acc[27];  // A's upper triangle (21, row-major), then g (6)
 #pragma unroll
     for (int i = 0; i < 27; ++i) acc[i] = 0.f;
-    for (int n = tid; n < p.N; n += blockDim.x) {
-      const long long row = base + n;
+    for (int j = tid; j < nr; j += POLISH_T) {
+      if (!inl[j]) continue;   // weight 0: its terms are +0, so leaving them out keeps every bit
       float r[ND], J[ND * 6], w;
-      polish_row<REPROJ>(p, T, Tinv, row, inliers[row] != 0, r, J, &w);
+      polish_row<REPROJ>(p, T, Tinv, rs + 3 * j, rd + ND * j, true, r, J, &w);
 #pragma unroll
-      for (int d = 0; d < ND; ++d) {
+      for (int dd = 0; dd < ND; ++dd) {
         float Jw[6];
 #pragma unroll
-        for (int i = 0; i < 6; ++i) Jw[i] = J[6 * d + i] * w;
+        for (int i = 0; i < 6; ++i) Jw[i] = J[6 * dd + i] * w;
         int o = 0;
 #pragma unroll
         for (int i = 0; i < 6; ++i)
 #pragma unroll
-          for (int j = i; j < 6; ++j) acc[o++] += Jw[i] * J[6 * d + j];
+          for (int jj = i; jj < 6; ++jj) acc[o++] += Jw[i] * J[6 * dd + jj];
 #pragma unroll
-        for (int i = 0; i < 6; ++i) acc[21 + i] += Jw[i] * r[d];
+        for (int i = 0; i < 6; ++i) acc[21 + i] += Jw[i] * r[dd];
       }
     }
-    dyno::block_sum<27>(acc, red);
-    if (tid == 0) {
-      float A[36], Ai[36], xi[6];
-      int o = 0;
-      for (int i = 0; i < 6; ++i)
-        for (int j = i; j < 6; ++j) {
-          A[6 * i + j] = acc[o];
-          A[6 * j + i] = acc[o];
-          ++o;
-        }
-      for (int i = 0; i < 6; ++i) A[7 * i] = A[7 * i] + 1e-6f;
-      dyno::inv_spd6(A, Ai);
-      for (int i = 0; i < 6; ++i) {
-        float s = Ai[6 * i] * acc[21];
-        for (int j = 1; j < 6; ++j) s += Ai[6 * i + j] * acc[21 + j];
-        xi[i] = -s;
+    // phase: GN sum
+    dyno::cluster_sum<27>(acc, sums, ex);
+    // phase: GN solve
+    // every thread, from the same sums
+    float A[36], Ai[36], xi[6];
+    int o = 0;
+    for (int i = 0; i < 6; ++i)
+      for (int jj = i; jj < 6; ++jj) {
+        A[6 * i + jj] = acc[o];
+        A[6 * jj + i] = acc[o];
+        ++o;
       }
-      const SE3 Tn = dyno::se3_retract(T, xi);
-      for (int i = 0; i < 9; ++i) pose[i] = Tn.R[i];
-      for (int i = 0; i < 3; ++i) pose[9 + i] = Tn.t[i];
+    for (int i = 0; i < 6; ++i) A[7 * i] = A[7 * i] + 1e-6f;
+    dyno::inv_spd6(A, Ai);
+    for (int i = 0; i < 6; ++i) {
+      float s = Ai[6 * i] * acc[21];
+      for (int jj = 1; jj < 6; ++jj) s += Ai[6 * i + jj] * acc[21 + jj];
+      xi[i] = -s;
     }
-    __syncthreads();
-    T = dyno::se3_load(pose);
-    __syncthreads();
+    T = dyno::se3_retract(T, xi);
   }
 
+  // phase: final
   // final inliers, counts, status and pose
   const SE3 Tinv = dyno::se3_inverse(T);
-  int n_fin = 0, n_val = 0;
-  for (int n = tid; n < p.N; n += blockDim.x) {
-    const long long row = base + n;
-    const bool v = p.valid[row] != 0;
-    const bool in = v && final_error<REPROJ>(p, Tinv, T, row) < p.threshold;
-    inliers[row] = in ? 1 : 0;
-    n_fin += in ? 1 : 0;
-    n_val += v ? 1 : 0;
+  float cnt[2] = {0.f, 0.f};   // final inliers, valid rows (exact integers in float32)
+  for (int j = tid; j < nr; j += POLISH_T) {
+    const bool v = valid[j] != 0;
+    const bool in = v && final_error<REPROJ>(p, Tinv, T, rs + 3 * j, rd + ND * j) < p.threshold;
+    inl[j] = in ? 1 : 0;
+    cnt[0] += in ? 1.f : 0.f;
+    cnt[1] += v ? 1.f : 0.f;
   }
-  n_fin = __reduce_add_sync(0xffffffffu, n_fin);
-  n_val = __reduce_add_sync(0xffffffffu, n_val);
-  if ((tid & 31) == 0) {
-    best_c[tid >> 5] = n_fin;
-    best_k[tid >> 5] = n_val;
-  }
-  __syncthreads();
-  int tot_fin = 0, tot_val = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-    tot_fin += best_c[w];
-    tot_val += best_k[w];
-  }
+  dyno::cluster_sum<2>(cnt, sums, ex);
+  const int tot_fin = (int)cnt[0], tot_val = (int)cnt[1];
   const int status = tot_val < 5 ? 1 : (tot_fin >= min_inliers ? 0 : 2);
   const bool ok = status == 0;
-  if (!ok)
-    for (int n = tid; n < p.N; n += blockDim.x) inliers[base + n] = 0;
-  if (tid == 0) {
+  for (int j = tid; j < nr; j += POLISH_T) inliers[base + j] = ok ? inl[j] : 0;
+  if (rank == 0 && tid == 0) {
     const SE3 out = ok ? T : dyno::se3_identity();
     for (int i = 0; i < 9; ++i) R_out[b * 9 + i] = out.R[i];
     for (int i = 0; i < 3; ++i) t_out[b * 3 + i] = out.t[i];
     n_out[b] = tot_fin;
     status_out[b] = status;
   }
+  // phase: end
+  cluster.sync();   // no CTA leaves while another may still write into it
+}
+
+// the launch shape for B problems of N rows and K hypotheses: scoring
+// blocks, threads a block and warps a hypothesis; polish cluster size,
+// CTAs, threads a CTA and dynamic shared memory (bytes)
+cudaError_t launch_shape(int B, int N, int K, bool reproj, int* out) {
+  static int limit_cache[2][16] = {{-1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1},
+                                   {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1}};
+  int limit = 0;
+  cudaError_t e = reproj ? dyno::dynamic_smem_limit((const void*)ransac_polish_kernel<true>, limit_cache[1], &limit)
+                         : dyno::dynamic_smem_limit((const void*)ransac_polish_kernel<false>, limit_cache[0], &limit);
+  if (e != cudaSuccess) return e;
+  // G: the power of two <= 8 that leaves a lane about SCORE_ROWS rows of a tile
+  const int tile_rows = std::min(N, TILE);
+  int G = 1;
+  while (G < SCORE_T / 32 && 32 * SCORE_ROWS * G < tile_rows) G *= 2;
+  const int per_block = SCORE_T / 32 / G;
+  const int C = N <= 0 ? 1 : std::min(dyno::MAX_CLUSTER_SIZE, (N + POLISH_T - 1) / POLISH_T);
+  const int S = N <= 0 ? 0 : (N + C - 1) / C;
+  out[0] = B * ((K + per_block - 1) / per_block);
+  out[1] = SCORE_T;
+  out[2] = G;
+  out[3] = C;
+  out[4] = B * C;
+  out[5] = POLISH_T;
+  out[6] = S * polish_row_bytes(reproj);
+  return out[6] > limit ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 }  // namespace
+
+// out: scoring blocks, threads a scoring block, warps a hypothesis; polish
+// cluster size, CTAs, threads a CTA, dynamic shared memory a CTA (bytes).
+extern "C" int dyno_ransac_launch_shape(int B, int N, int K, int reproj, int* out) {
+  return (int)launch_shape(B, N, K, reproj != 0, out);
+}
 
 // uv == 0 selects 3d3d.  counts: (B, K) int32 scratch.
 extern "C" int dyno_ransac(const float* src, const float* dst, const float* uv, const uint8_t* valid,
@@ -372,17 +486,25 @@ extern "C" int dyno_ransac(const float* src, const float* dst, const float* uv, 
                            float* t_out, uint8_t* inliers, int* n_out, int* status_out, void* stream) {
   Problem p{src, dst, uv, valid, idx, B, N, K, Cam{fx, fy, cx, cy}, threshold};
   if (B <= 0) return 0;
+  if (K <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int warps = 4;
-  const int blocks = (B * K + warps - 1) / warps;
-  if (uv != nullptr) {
-    if (K > 0) ransac_score_kernel<true><<<blocks, 32 * warps, 0, s>>>(p, counts);
-    ransac_polish_kernel<true><<<B, POLISH_THREADS, 0, s>>>(p, counts, refine_steps, min_inliers, R_out, t_out,
-                                                            inliers, n_out, status_out);
+  const bool reproj = uv != nullptr;
+  int shape[7];
+  cudaError_t e = launch_shape(B, N, K, reproj, shape);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 score_grid(shape[0] / B, B);
+  const int S = shape[6] / polish_row_bytes(reproj);
+  if (reproj) {
+    ransac_score_kernel<true><<<score_grid, shape[1], 0, s>>>(p, shape[2], counts);
+    e = dyno::launch_clusters(ransac_polish_kernel<true>, shape[4], shape[3], shape[5], (size_t)shape[6], s, p,
+                              (const int*)counts, refine_steps, min_inliers, S, R_out, t_out, inliers, n_out,
+                              status_out);
   } else {
-    if (K > 0) ransac_score_kernel<false><<<blocks, 32 * warps, 0, s>>>(p, counts);
-    ransac_polish_kernel<false><<<B, POLISH_THREADS, 0, s>>>(p, counts, refine_steps, min_inliers, R_out, t_out,
-                                                             inliers, n_out, status_out);
+    ransac_score_kernel<false><<<score_grid, shape[1], 0, s>>>(p, shape[2], counts);
+    e = dyno::launch_clusters(ransac_polish_kernel<false>, shape[4], shape[3], shape[5], (size_t)shape[6], s, p,
+                              (const int*)counts, refine_steps, min_inliers, S, R_out, t_out, inliers, n_out,
+                              status_out);
   }
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

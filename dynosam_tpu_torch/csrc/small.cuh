@@ -1,21 +1,30 @@
 // Small fixed-size float32 algebra for the port's solver kernels (K5
 // `refine.cu`, K6 `ransac.cu`): SE(3) on 3x3 row-major rotations, the
 // pinhole projection and its Jacobians, the closed-form small inverses and
-// the robust kernels.
+// the robust kernels; the fixed-order sums over a thread block cluster
+// and the cluster launch that K5 and K6 share.
 //
 // Each function repeats the operation order of its PyTorch counterpart
 // (`core/lie.py`, `core/camera.py`, `ops/linalg.py`, `ops/robust.py`,
-// `backend/solver.py:robust_loss`): a 3-term sum is ((a + b) + c), a
-// product of a Python constant and two tensors is ((k * x) * y), a division
-// stays a division.  The sources that include this header are compiled
+// `backend/solver.py:robust_loss`) as it runs on the card: a 3-term sum is
+// ((a + b) + c), a product of a Python constant and two tensors is
+// ((k * x) * y), a division stays a division but for a tensor divided by
+// a Python number, which PyTorch on the card multiplies by the number's
+// reciprocal, and the small `torch.sum`s that K5's per-row elimination
+// feeds to an inverse add their terms in PyTorch's order (`sum_outer`,
+// `sum_inner`), since the inverse of a nearly singular block magnifies a
+// last-bit difference.  The sources that include this header are compiled
 // with `-fmad=false`, so no multiply-add is contracted and every product
 // and sum rounds as the separate PyTorch operations do.  Sums over rows
 // and the transcendental functions still differ from PyTorch's in the last
 // bits; the kernels' tolerances say by how much.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
 
 namespace dyno {
 
@@ -118,9 +127,10 @@ __device__ __forceinline__ void so3_exp_and_left_jacobian(const float* w, float*
   so3_hat(w, W);
   mm3(W, W, W2);
   const float s = sinf(th), c = cosf(th);
-  const float a = small ? 1.f - sq / 6.f : s / th;
-  const float b = small ? 0.5f - sq / 24.f : (1.f - c) / sq_safe;
-  const float cc = small ? (1.f / 6.f) - sq / 120.f : (th - s) / (sq_safe * th);
+  // `sq / 6.0` on the card: sq times the reciprocal (taken in double)
+  const float a = small ? 1.f - sq * (float)(1.0 / 6.0) : s / th;
+  const float b = small ? 0.5f - sq * (float)(1.0 / 24.0) : (1.f - c) / sq_safe;
+  const float cc = small ? (1.f / 6.f) - sq * (float)(1.0 / 120.0) : (th - s) / (sq_safe * th);
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
     const float e = (i % 4 == 0) ? 1.f : 0.f;
@@ -185,6 +195,39 @@ __device__ __forceinline__ void project_jacobian_point(const Cam& c, const float
   J[5] = (-c.fy * y) * iz2;
 }
 
+// `torch.sum` over a few terms, in the order PyTorch's reduction takes on
+// the card, so a sum that an ill-conditioned inverse follows rounds as the
+// plain version's does.  Over an axis that is not the innermost: four
+// accumulators, term i into accumulator i % 4, then ((a0 + a1) + a2) + a3.
+template <int N, class F>
+__device__ __forceinline__ float sum_outer(F term) {
+  float a[4];
+#pragma unroll
+  for (int i = 0; i < 4 && i < N; ++i) a[i] = term(i);
+#pragma unroll
+  for (int i = 4; i < N; ++i) a[i - 4] = a[i - 4] + term(i);
+  float s = a[0];
+#pragma unroll
+  for (int i = 1; i < 4 && i < N; ++i) s = s + a[i];
+  return s;
+}
+
+// ... over the innermost axis (and `vector_norm`'s squares): a pairwise
+// tree over the terms padded with zeros to a power of two, halves first:
+// three terms are (t0 + t2) + t1
+template <int N, class F>
+__device__ __forceinline__ float sum_inner(F term) {
+  constexpr int P = N <= 1 ? 1 : N <= 2 ? 2 : N <= 4 ? 4 : 8;
+  float v[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) v[i] = i < N ? term(i) : 0.f;
+#pragma unroll
+  for (int off = P / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < off; ++i) v[i] = v[i] + v[i + off];
+  return v[0];
+}
+
 // `inv2`, `inv3` and `inv_spd` (ops/linalg.py), row-major
 __device__ __forceinline__ void inv2(const float* M, float* out) {
   const float a = M[0], b = M[1], c = M[2], d = M[3];
@@ -229,7 +272,7 @@ __device__ __forceinline__ void inv_spd6(const float* M, float* out) {
       C[3 * i + j] = M[6 * (3 + i) + 3 + j];
     }
   transpose3(B, Bt);
-  float Ai[9], AiB[9], BtAiB[9], S[9], Si[9], P[9], AiBt[9], Q[9];
+  float Ai[9], AiB[9], BtAiB[9], S[9], Si[9], P[9], Q[9];
   inv3(A, Ai);
   mm3(Ai, B, AiB);
   mm3(Bt, AiB, BtAiB);
@@ -237,8 +280,13 @@ __device__ __forceinline__ void inv_spd6(const float* M, float* out) {
   for (int i = 0; i < 9; ++i) S[i] = C[i] - BtAiB[i];
   inv3(S, Si);
   mm3(AiB, Si, P);
-  transpose3(AiB, AiBt);
-  mm3(P, AiBt, Q);
+  // `_mm(P, AiB^T)`: the transposed view puts the reduced axis innermost,
+  // so PyTorch adds its three terms as (t0 + t2) + t1
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      Q[3 * i + j] = (P[3 * i] * AiB[3 * j] + P[3 * i + 2] * AiB[3 * j + 2]) + P[3 * i + 1] * AiB[3 * j + 1];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -251,10 +299,10 @@ __device__ __forceinline__ void inv_spd6(const float* M, float* out) {
 }
 
 // `ops/robust.py:robust_sqrt_weights` for Huber on a whitened residual of
-// norm `norm`
+// norm `norm` (`k / safe` is `safe.reciprocal() * k` in PyTorch)
 __device__ __forceinline__ float huber_sqrt_weight(float norm, float k) {
   const float safe = clamp_min(norm, 1e-30f);
-  return sqrtf(norm <= k ? 1.f : k / safe);
+  return sqrtf(norm <= k ? 1.f : (1.f / safe) * k);
 }
 
 // `backend/solver.py:robust_loss` from the squared norm; `half_k2` is
@@ -264,34 +312,213 @@ __device__ __forceinline__ float huber_loss(float sq, float k, float half_k2) {
   return norm <= k ? 0.5f * sq : k * norm - half_k2;
 }
 
-// Deterministic block sum of `n` per-thread values: a butterfly within
-// each warp, then the warps' partials in warp order by threads 0..n-1.
-// `scratch` holds (blockDim.x / 32 + 1) * n floats; every thread receives the
-// totals in `v`.  Ends with a barrier.
+// ---- sums over the rows of a problem spread over a thread block cluster
+//
+// `cluster_sum<NV>` adds NV per-thread values over every thread of every
+// CTA of the cluster in a fixed order, so every thread of every CTA
+// receives the same bits on every run (fault F4 came from atomics):
+//   1. within each warp, a reduce-scatter butterfly (NV > 8: five halving
+//      exchanges leave lane l the warp's sums of entries Q l .. Q l + Q - 1,
+//      Q = ceil(NV / 32), about NV shuffles a warp; NV <= 8: a butterfly
+//      per entry), stored to `warp`; one barrier;
+//   2. threads 0..NV-1 add the warps' partials in warp order and store the
+//      CTA's partial into slot `recv[parity][rank]` of every CTA of the
+//      cluster (`st.async` over distributed shared memory, which counts the
+//      bytes on that CTA's mbarrier `bar[parity]`);
+//   3. every thread waits on its CTA's `bar[parity]` until all C partials
+//      have arrived, then threads 0..NV-1 add them in rank order 0..C-1
+//      into `tot`; one barrier; every thread reads the totals.
+// Every CTA forms the same totals in the same order, so the decisions
+// taken from them agree across the cluster with no broadcast.  No cluster
+// barrier is needed, which on the card cost more than the rest of an
+// exchange (`testing/kernel_phases.py`: K5 FlowPose's five three-value
+// exchanges took 4.9 us with one, 3.4 us this way).  The slots and
+// barriers are double-buffered by the parity of the exchange: a CTA sends
+// into parity p again two exchanges later, only after it has received
+// every CTA's partial of the exchange between, which each CTA sends after
+// it has read its slots of parity p.  `Exchange` carries the parity and
+// the barriers' phases; `cluster_sum_init` sets the barriers up before the
+// first exchange, and a kernel ends with `cluster.sync()`, so that no CTA
+// leaves while another may still write into it.
+constexpr int MAX_CLUSTER_SIZE = 8;   // the portable cluster size, which K5 and K6 keep to
+
+template <int NW, int CAP>
+struct SumSpace {
+  float warp[NW][CAP];
+  float recv[2][MAX_CLUSTER_SIZE][CAP];
+  float tot[CAP];
+  unsigned long long bar[2];
+};
+
+struct Exchange {
+  int parity = 0;
+  unsigned phases = 0;   // bit p: the phase bar[p] completes next
+};
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the address of a shared variable of this CTA in CTA `rank` of the cluster
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+template <int NW, int CAP>
+__device__ __forceinline__ void cluster_sum_init(SumSpace<NW, CAP>& s) {
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(shared_addr(&s.bar[0])));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(shared_addr(&s.bar[1])));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cooperative_groups::this_cluster().sync();
+}
+
+// one halving exchange of the reduce-scatter (lanes `off` apart), then
+// the next: lane bit `off` set keeps the upper half of its entries
+template <int P, int LEV>
+__device__ __forceinline__ void scatter_level(float* w, int lane) {
+  if constexpr (LEV < 5) {
+    constexpr int off = 16 >> LEV, h = P >> (LEV + 1);
+    const bool up = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? w[i] : w[i + h];
+      const float keep = up ? w[i + h] : w[i];
+      w[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    scatter_level<P, LEV + 1>(w, lane);
+  }
+}
+
+// the warp's sums of NV per-lane values into out[0..NV-1]
 template <int NV>
-__device__ __forceinline__ void block_sum(float* v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+__device__ __forceinline__ void warp_partial(const float* v, float* out) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (NV <= 8) {
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float x = v[i];
+    for (int i = 0; i < NV; ++i) {
+      float x = v[i];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    v[i] = x;
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+      if (lane == 0) out[i] = x;
+    }
+  } else {
+    constexpr int Q = (NV + 31) / 32, P = 32 * Q;
+    float w[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) w[i] = i < NV ? v[i] : 0.f;
+    scatter_level<P, 0>(w, lane);   // lane l now holds entries Q l .. Q l + Q - 1
+#pragma unroll
+    for (int i = 0; i < Q; ++i)
+      if (Q * lane + i < NV) out[Q * lane + i] = w[i];
   }
-  if (lane == 0)
-#pragma unroll
-    for (int i = 0; i < NV; ++i) scratch[warp * NV + i] = v[i];
+}
+
+template <int NV, int NW, int CAP>
+__device__ __forceinline__ void cluster_sum(float* v, SumSpace<NW, CAP>& s, Exchange& x) {
+  static_assert(NV <= CAP, "SumSpace too small");
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank(), p = x.parity;
+  warp_partial<NV>(v, s.warp[threadIdx.x >> 5]);
   __syncthreads();
-  float* tot = scratch + nw * NV;
-  for (int i = threadIdx.x; i < NV; i += blockDim.x) {
-    float s = scratch[i];
-    for (int w = 1; w < nw; ++w) s += scratch[w * NV + i];
-    tot[i] = s;
+  const unsigned bar = shared_addr(&s.bar[p]);
+  if (threadIdx.x == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(C * NV * 4) : "memory");
+  if (threadIdx.x < NV) {
+    float a = s.warp[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) a = a + s.warp[w][threadIdx.x];
+    const unsigned slot = shared_addr(&s.recv[p][rank][threadIdx.x]);
+    for (int r = 0; r < C; ++r)
+      asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+                   ::"r"(cluster_addr(slot, r)), "r"(__float_as_uint(a)), "r"(cluster_addr(bar, r)) : "memory");
+  }
+  asm volatile("{\n .reg .pred done;\n WAIT%=:\n"
+               " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+               " @!done bra WAIT%=;\n}" ::"r"(bar), "r"((x.phases >> p) & 1u) : "memory");
+  x.phases ^= 1u << p;
+  if (threadIdx.x < NV) {
+    float a = s.recv[p][0][threadIdx.x];
+    for (int r = 1; r < C; ++r) a = a + s.recv[p][r][threadIdx.x];
+    s.tot[threadIdx.x] = a;
   }
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = tot[i];
-  __syncthreads();
+  for (int i = 0; i < NV; ++i) v[i] = s.tot[i];
+  x.parity ^= 1;
+}
+
+// The most dynamic shared memory `kernel` may take on the current device;
+// the first call for a kernel and device raises the kernel's limit to it
+// (above 48 KB a kernel must ask).  `cache` holds one entry per device,
+// -1 until set.
+inline cudaError_t dynamic_smem_limit(const void* kernel, int* cache, int* limit) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16) return cudaErrorInvalidDevice;
+  if (cache[dev] < 0) {
+    int optin = 0;
+    cudaFuncAttributes fa;
+    if ((e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess) return e;
+    if ((e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return e;
+    const int lim = optin - (int)fa.sharedSizeBytes;
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lim)) != cudaSuccess)
+      return e;
+    cache[dev] = lim;
+  }
+  *limit = cache[dev];
+  return cudaSuccess;
+}
+
+// Asynchronous copies from global to shared memory (`cp.async`): the
+// issuing thread goes on without waiting for the data, so a block's
+// staging overlaps the loads and arithmetic that follow; `copy_wait` and a
+// barrier end them.
+__device__ __forceinline__ void copy4_async(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(shared_addr(smem)),
+               "l"(__cvta_generic_to_global(gmem)) : "memory");
+}
+
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(shared_addr(smem)),
+               "l"(__cvta_generic_to_global(gmem)) : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// n floats from global to shared memory by the block's threads (16-byte
+// copies where both ends are aligned)
+__device__ __forceinline__ void copy_to_shared(float* dst, const float* __restrict__ src, int n) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    done = 4 * (n / 4);
+    for (int i = 4 * threadIdx.x; i < done; i += 4 * blockDim.x) copy16_async(dst + i, src + i);
+  }
+  for (int i = done + threadIdx.x; i < n; i += blockDim.x) copy4_async(dst + i, src + i);
+}
+
+// Launch `kernel` on a grid of `ctas` blocks of `threads` in clusters of
+// `cluster` blocks with `smem` bytes of dynamic shared memory.
+template <class... Args>
+inline cudaError_t launch_clusters(void (*kernel)(Args...), int ctas, int cluster, int threads, size_t smem,
+                                   cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace dyno

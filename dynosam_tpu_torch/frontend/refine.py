@@ -297,9 +297,11 @@ def pack(kind, P: dict, R0: dict):
         start = torch.cat([R0["carried"]["mp"], R0["carried"]["mc"]], dim=-1)
         glob0 = _pose12(P["H_init"].R, P["H_init"].t)
         shared = _pose12(P["Xs_R"].reshape(2, 3, 3), P["Xs_t"].reshape(2, 3)).reshape(24)
+    # the sigmas' reciprocals last: a tensor divided by a Python number is, on
+    # the card, a product with the reciprocal taken in double
     fparams = (cam.fx, cam.fy, cam.cx, cam.cy, s0, s1, kind.k_huber, 0.5 * kind.k_huber * kind.k_huber,
                kind.chi2_gate, lm.initial_lambda, lm.lambda_factor, lm.max_lambda, lm.min_lambda,
-               lm.rel_error_tol, lm.abs_error_tol, lm.diag_floor)
+               lm.rel_error_tol, lm.abs_error_tol, lm.diag_floor, 1.0 / s0, 1.0 / s1)
     iparams = (kind.max_iterations, kind.outlier_rounds)
     return kid, fparams, iparams, (rows.contiguous(), start.contiguous(), glob0, shared, R0["active"].contiguous())
 

@@ -38,8 +38,10 @@ _SIGNATURES = {
     "dyno_shi_tomasi": (_P, _I, _I, _P, _P),
     "dyno_orb_sample": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
     "dyno_ransac": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "dyno_ransac_launch_shape": (_I, _I, _I, _I, _P),
     # (kind, float settings, int settings, pointers, stream): see csrc/refine.cu
     "dyno_refine_rounds": (_I, _P, _P, _P, _P),
+    "dyno_refine_launch_shape": (_I, _I, _I, _P),
 }
 
 
@@ -48,6 +50,7 @@ class _Library:
 
     lib = None
     functions: dict = {}
+    logs: dict = {}    # source name: nvcc's output (ptxas' resource usage) of this process's build
 
 
 def _nvcc() -> str:
@@ -88,6 +91,7 @@ def build(verbose: bool = False) -> Path:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+            _Library.logs[name] = log
             if verbose:
                 print(f"[nvcc {name}]\n{log}", flush=True)
             objs.append(str(obj))
@@ -112,6 +116,26 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _Library.lib = lib
     return _Library.lib
+
+
+def resource_usage(source: str) -> dict:
+    """ptxas' report (`-Xptxas -v`) on each kernel of `source` from this
+    process's build: {mangled kernel name: {"registers", "spill_stores",
+    "spill_loads", "smem"} in registers and bytes}; empty where the library
+    was not built in this process."""
+    out, name = {}, None
+    for line in _Library.logs.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif name is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[name].update(spill_stores=nums[1], spill_loads=nums[2])
+        elif name is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            out[name]["registers"] = int(words[words.index("registers") - 1])
+            out[name]["smem"] = int(words[words.index("smem") - 2]) if "smem" in words else 0
+    return out
 
 
 def function(name: str):

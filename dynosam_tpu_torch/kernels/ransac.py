@@ -20,20 +20,34 @@ other; there is no fallback.  Each call counts one launch (the score and
 polish kernels back to back).  The hypotheses' rows must lie in [0, N), as
 `sample_valid_indices` draws them; the kernel does not check them.
 
-Bound on the card: the polish's latency -- five dependent block
-reductions and 6x6 solves a problem; the scoring's ~0.1 GFLOP at the main
-path's shapes is 1.5 us of the card's float32 rate.  One warp scores a
-hypothesis (integer counts, exact in any order), one block polishes a
-problem with fixed-order sums, so a result repeats bit for bit.
+Bound on the card: the polish's latency -- five dependent sums over the
+rows and 6x6 solves a problem; the scoring's ~0.1 GFLOP at the main
+path's shapes is 1.5 us of the card's float32 rate.  A block stages a
+problem's rows in shared memory and its warps score a few hypotheses,
+each over a share of the rows (integer counts, exact in any order); a
+cluster of up to 8 CTAs polishes a problem with fixed-order sums, so a
+result repeats bit for bit.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import build
 
 launches = 0   # calls of `ransac` that launched the kernels
+
+
+def launch_shape(bsz: int, n: int, k: int, reproj: bool) -> dict:
+    """How K6 launches for `bsz` problems of `n` rows and `k` hypotheses on
+    the current CUDA device: scoring blocks, threads a block and warps a
+    hypothesis; the polish's cluster size, CTAs, threads a CTA and dynamic
+    shared memory a CTA (bytes)."""
+    out = (ctypes.c_int * 7)()
+    build.check(build.function("dyno_ransac_launch_shape")(bsz, n, k, int(reproj), out), "ransac launch shape")
+    return dict(zip(("score_blocks", "score_threads", "score_warps", "cluster", "ctas", "threads", "smem"), out))
 
 
 def pack(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor, idx: torch.Tensor, uv):

@@ -1038,6 +1038,166 @@ def test_k5_k6_match_their_plain_versions_at_the_main_path_shapes(cuda):
     assert np.isfinite(k5["max_abs_err"]) and np.isfinite(k6["max_abs_err"])
 
 
+@pytest.fixture(scope="module")
+def main_path_solver_calls():
+    """The K5 and K6 calls of eager steps of the main path's frames 0-2
+    (1280x384, `kitti_config`), recorded once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    import chip_smoke as cs
+
+    return cs.record_solver_calls(torch, torch.device("cuda", 0), n_main=3, n_golden=0, n_3d3d=0)
+
+
+def _take(tree, bsz, n, problems=None, rows=None):
+    """`tree` with its problems (the B axis) and rows (the N axis after it)
+    taken at the given indices; tensors without a (B, N) pair keep theirs
+    but for a leading B axis."""
+    def f(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        for d in range(x.dim() - 1):
+            if tuple(x.shape[d:d + 2]) == (bsz, n):
+                if problems is not None:
+                    x = x.index_select(d, problems)
+                if rows is not None:
+                    x = x.index_select(d + 1, rows)
+                return x.contiguous()
+        if problems is not None and x.dim() >= 1 and x.shape[0] == bsz:
+            return x.index_select(0, problems).contiguous()
+        return x
+
+    return torch.utils._pytree.tree_map(f, tree)
+
+
+K5_CASES = ("n_below_one_cta", "n_not_a_multiple_of_the_cluster", "one_problem", "a_problem_with_no_valid_row",
+            "the_largest_n")
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+@pytest.mark.parametrize("name", ["FlowPose", "MotionOnly"])
+def test_k5_at_the_shapes_a_cluster_makes_risky(cuda, main_path_solver_calls, name, case):
+    """K5 on a main-path call cut or grown to a shape where a cluster could
+    go wrong: fewer rows than one CTA's threads, rows that do not fill the
+    cluster's last CTA, one problem, a problem whose rows are all
+    invalid, and the most rows the wrapper takes (a problem's rows
+    repeated).  Each problem is held to its plain version within its own
+    spread, as `chip_smoke.check_refine_rounds` holds the main path's, and
+    two launches on the same inputs are equal bit for bit
+    (`chip_smoke.hold_refine_rounds` raises otherwise)."""
+    import chip_smoke as cs
+    from dynosam_tpu_torch.frontend import refine
+    from dynosam_tpu_torch.kernels import refine as k5
+
+    label, kind, P, R0 = [c for c in main_path_solver_calls["K5"] if type(c[1]).__name__ == name][-1]
+    bsz, n = R0["active"].shape
+    kid = k5.FLOW_POSE if name == "FlowPose" else k5.MOTION_ONLY
+    threads = k5.launch_shape(kid, bsz, n)["threads"]
+    busiest = torch.argmax(R0["active"].sum(-1)).reshape(1)
+    problems, rows, invalid = None, None, None
+    if case == "n_below_one_cta":
+        rows = torch.arange(threads // 2 + 1, device=cuda)
+    elif case == "n_not_a_multiple_of_the_cluster":
+        rows = torch.arange(min(n, 3 * threads) - 84, device=cuda)
+    elif case == "one_problem":
+        problems = busiest
+    elif case == "a_problem_with_no_valid_row":
+        invalid = (bsz - 1) if int(busiest) == 0 else 0
+    else:
+        problems = busiest
+        rows = torch.arange(k5.launch_shape(kid, 1, n)["max_rows"], device=cuda) % n
+    P2 = _take(P, bsz, n, problems, rows)
+    active = _take(R0["active"], bsz, n, problems, rows).clone()
+    if invalid is not None:
+        active[invalid] = False
+    R2 = refine.rounds_start(kind, active, _take(R0["carried"], bsz, n, problems, rows))
+    shape = k5.launch_shape(kid, *active.shape)
+    n2 = active.shape[1]
+    assert shape["cluster"] == min(8, -(-n2 // threads)) and n2 <= shape["max_rows"]
+    if case == "n_not_a_multiple_of_the_cluster":
+        assert n2 % (shape["cluster"] * threads) != 0
+    kernels.reset_launch_counts()
+    worst, _ = cs.hold_refine_rounds(torch, [(f"{label}, {case}", kind, P2, R2)])
+    assert kernels.launch_counts()["refine"] == 2 and np.isfinite(worst)
+    if case == "the_largest_n":
+        rows = torch.arange(shape["max_rows"] + 1, device=cuda) % n
+        too_many = refine.rounds_start(kind, _take(R0["active"], bsz, n, problems, rows),
+                                       _take(R0["carried"], bsz, n, problems, rows))
+        with pytest.raises(ValueError, match="at most"):
+            refine.run_rounds(kind, _take(P, bsz, n, problems, rows), too_many)
+
+
+K6_CASES = ("n_below_one_cta", "n_not_a_multiple_of_the_cluster", "one_problem", "a_problem_with_no_valid_row",
+            "one_hypothesis", "rows_over_several_tiles")
+
+
+@pytest.mark.parametrize("case", K6_CASES)
+def test_k6_at_the_shapes_a_cluster_makes_risky(cuda, main_path_solver_calls, case):
+    """K6 on a main-path call (the ego 3d2d problem, or the objects') cut
+    or grown: fewer rows than one polish CTA's threads and rows that do
+    not fill the cluster's last CTA (the hypotheses drawn again from the
+    rows kept), one problem, a problem whose rows are all invalid, one
+    hypothesis, and rows repeated over several of the scoring kernel's
+    shared-memory tiles.  Held to the plain version as
+    `chip_smoke.check_ransac` holds the main path's, and two launches on
+    the same inputs are equal bit for bit (`chip_smoke.hold_ransac` raises
+    otherwise)."""
+    import chip_smoke as cs
+    from dynosam_tpu_torch.kernels import ransac as k6
+    from dynosam_tpu_torch.ops import ransac as ops_ransac
+
+    calls = [c for c in main_path_solver_calls["K6"] if c[0] != "main path frame 0"]
+    ego = [c for c in calls if c[1][0].shape[0] == 1][-1]
+    objects = [c for c in calls if c[1][0].shape[0] > 1][-1]
+    label, args, _ = objects if case in ("one_problem", "a_problem_with_no_valid_row") else ego
+    src, dst, valid, idx, uv, cam, thr, steps, min_inl = args
+    bsz, n = valid.shape
+    threads = k6.launch_shape(bsz, n, idx.shape[1], uv is not None)["threads"]
+    problems, rows, redraw = None, None, False
+    if case == "n_below_one_cta":
+        rows, redraw = torch.arange(threads // 2 + 9, device=cuda), True
+    elif case == "n_not_a_multiple_of_the_cluster":
+        rows, redraw = torch.arange(1000, device=cuda), True
+    elif case == "one_problem":
+        problems = torch.argmax(valid.sum(-1)).reshape(1)
+    elif case == "rows_over_several_tiles":
+        rows = torch.arange(4000, device=cuda) % n
+    take = lambda x: None if x is None else _take(x, bsz, n, problems, rows)  # noqa: E731
+    src, dst, valid, uv = take(src), take(dst), take(valid).clone(), take(uv)
+    if problems is not None:
+        idx = idx.index_select(0, problems)
+    if case == "a_problem_with_no_valid_row":
+        valid[int(torch.argmax(args[2].sum(-1)))] = False
+    if redraw:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        idx = ops_ransac.sample_valid_indices(valid, idx.shape[1], 3, gen)
+    if case == "one_hypothesis":
+        idx = idx[:, :1].contiguous()
+    b2, n2 = valid.shape
+    shape = k6.launch_shape(b2, n2, idx.shape[1], uv is not None)
+    assert shape["cluster"] == min(8, -(-n2 // threads))
+    if case == "n_not_a_multiple_of_the_cluster":
+        assert n2 % (shape["cluster"] * threads) != 0
+    kernels.reset_launch_counts()
+    worst = cs.hold_ransac(torch, [(f"{label}, {case}", (src, dst, valid, idx, uv, cam, thr, steps, min_inl), {})])
+    assert kernels.launch_counts()["ransac"] == 2 and np.isfinite(worst)
+
+
+def test_k5_k6_spread_each_problem_over_a_cluster(cuda):
+    """At the main path's shapes each K5 problem and each K6 polish runs on
+    a cluster of several CTAs, and K5 keeps a problem's rows in the shared
+    memory of its cluster (no global scratch)."""
+    from dynosam_tpu_torch.kernels import ransac as k6, refine as k5
+
+    fp, mo = k5.launch_shape(k5.FLOW_POSE, 9, 2048), k5.launch_shape(k5.MOTION_ONLY, 8, 512)
+    assert (fp["cluster"], fp["ctas"], fp["threads"]) == (8, 72, 256)
+    assert (mo["cluster"], mo["ctas"], mo["threads"]) == (4, 32, 128)
+    assert fp["max_rows"] >= 2048 and mo["max_rows"] >= 512
+    ego, obj = k6.launch_shape(1, 1536, 500, True), k6.launch_shape(8, 512, 500, True)
+    assert (ego["cluster"], ego["ctas"]) == (8, 8) and (obj["cluster"], obj["ctas"]) == (4, 32)
+    assert ego["score_blocks"] >= torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def test_k5_k6_raise_on_what_they_do_not_take(cuda):
     """On the card there is no fallback: the wrappers of K6 and K5 refuse
     float64 tensors (their plain versions take any dtype on the CPU), K6
