@@ -5,6 +5,8 @@ against the JAX package on the same simulator packets.
 Map updates, slices, compaction indices and masks are bit-exact; initial
 values match to 1e-6 and each residual family to 1e-5 of its max-abs."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,8 @@ from dynosam_tpu_torch.core.lie import SE3
 from dynosam_tpu_torch.ops import factors as tfactors
 from dynosam_tpu_torch.testing import simulator as tsim
 from dynosam_tpu_torch.utils.config import BackendConfig
+
+from test_torch_schur import _window, port_map, scenario_packets, to_jax
 
 torch.set_num_threads(2)
 
@@ -129,7 +133,7 @@ def test_compact_window_matches_jax(maps, case):
         jw = _random_window(int(case[-1]))
         tw = convert.window_data_from_numpy(np_tree(jw), device="cpu")
         caps = (25, 30, 3)
-    j_out = jmap.compact_window(jw, *caps)
+    j_out = jax.jit(jmap.compact_window, static_argnums=(1, 2, 3))(jw, *caps)
     t_out = tmap.compact_window(tw, *caps)
     for a, b in zip(j_out[1:], t_out[1:]):
         assert np.array_equal(np.asarray(a), b.numpy())
@@ -200,7 +204,7 @@ def test_world_motion_residuals_match(window):
           if isinstance(v, jlie.SE3) else torch.as_tensor(np.array(v)) for k, v in jv.items()}
     names = tfm.world_motion_families(tc).names
     assert names == jfm.world_motion_families(jc).names
-    jr = jfm.world_motion_residuals(jv, jw, jmk, jc, jw.X_init[0])
+    jr = jax.jit(jfm.world_motion_residuals, static_argnums=(3,))(jv, jw, jmk, jc, jw.X_init[0])
     tr = tfm.world_motion_residuals(tv, tw, tmk, tc, tw.X_init[0])
     for name, a, b in zip(names, jr, tr):
         a = np.asarray(a)
@@ -220,12 +224,86 @@ def test_backend_factor_residuals_match():
     pts = rng.normal(0, 5, (64, 3)).astype(np.float32)
     z = rng.normal(0, 5, (64, 3)).astype(np.float32)
     cases = [
-        (jfactors.pose_to_point_residual(ja, jnp.asarray(pts), jnp.asarray(z)),
+        (jax.jit(jfactors.pose_to_point_residual)(ja, jnp.asarray(pts), jnp.asarray(z)),
          tfactors.pose_to_point_residual(ta, torch.as_tensor(pts), torch.as_tensor(z))),
-        (jfactors.between_residual(ja, jb, jz), tfactors.between_residual(ta, tb, tz)),
-        (jfactors.prior_residual(ja, jb), tfactors.prior_residual(ta, tb)),
-        (jfactors.motion_smoothing_residual(ja, jb), tfactors.motion_smoothing_residual(ta, tb)),
+        (jax.jit(jfactors.between_residual)(ja, jb, jz), tfactors.between_residual(ta, tb, tz)),
+        (jax.jit(jfactors.prior_residual)(ja, jb), tfactors.prior_residual(ta, tb)),
+        (jax.jit(jfactors.motion_smoothing_residual)(ja, jb), tfactors.motion_smoothing_residual(ta, tb)),
     ]
     for a, b in cases:
         a = np.asarray(a)
         assert np.abs(a - b.numpy()).max() <= 1e-5 * np.abs(a).max()
+
+
+# Every scenario whose map, window and masks the port's test fixtures build
+# through the port (`test_torch_schur._window`, `port_map`) in place of the
+# JAX package: (scenario, backend config fields, window start, frames).
+_F8 = dict(n_frames=8, n_static=30, n_objects=2, pts_per_object=10, ns=40, nd=32, no=4)
+PORT_BUILT = {
+    "window10": (dict(n_frames=10), {}, 0, 10),
+    "window10_kinematic": (dict(n_frames=10), dict(use_object_kinematic_factor=True), 0, 10),
+    "full_batch8": (dict(n_frames=8), dict(use_full_batch_opt=True, use_schur=False, lm_max_iterations=30), 0, 8),
+    "varpro8": (dict(_F8, point_noise=0.0, odom_rot_noise=0.0, odom_trans_noise=0.0), {}, 0, 8),
+    "varpro8_noise": (dict(_F8, point_noise=0.02, odom_rot_noise=0.0, odom_trans_noise=0.0), {}, 0, 8),
+    "f64_check8": (dict(_F8, point_noise=0.02), dict(motion_ternary_factor_noise_sigma=0.05), 0, 8),
+    "fixed_lag14_sub7": (dict(n_frames=14, n_static=60, n_objects=2, pts_per_object=14, ns=80, nd=48, no=4,
+                              point_noise=0.02),
+                         dict(window_max_static=48, window_max_dynamic=32, window_max_objects=3), 0, 7),
+    "fixed_lag6": (dict(n_frames=6, n_static=30, n_objects=1, pts_per_object=10, ns=40, nd=16, no=2), {}, 0, 6),
+    "fixed_lag5": (dict(n_frames=5, n_static=24, n_objects=1, pts_per_object=8, ns=30, nd=12, no=2,
+                        point_noise=0.01), {}, 0, 5),
+    "graph6": (dict(n_frames=6, n_static=30, n_objects=1, pts_per_object=10, ns=40, nd=32, no=4), {}, 0, 6),
+    "dist8": (dict(n_frames=8, n_static=40, n_objects=2, pts_per_object=12, ns=64, nd=32, no=4), {}, 0, 8),
+    "seq16": (dict(n_frames=16), {}, 0, 16),
+    "seq20": (dict(n_frames=20), {}, 0, 20),
+    "graph4": (dict(n_frames=4, n_static=10, n_objects=1, pts_per_object=5, ns=16, nd=16, no=2), {}, 0, 4),
+}
+
+
+@functools.partial(jax.jit, static_argnames=("capacity", "start", "window", "cfg"))
+def _jax_built(packets, capacity, start, window, cfg):
+    """JAX's map of the packets (stacked on a leading frame axis), its
+    window and the window's masks, as the fixtures built them before
+    (`update_map` per packet, `slice_window`, `build_masks`); scatters,
+    slices and boolean logic, so one jitted call gives the eager calls'
+    bits."""
+    n = jax.tree.leaves(packets)[0].shape[0]
+    m, _ = jax.lax.scan(lambda m, kp: (jmap.update_map(m, kp[1], kp[0]), None),
+                        jmap.MeasurementMap.create(*capacity), (jnp.arange(n, dtype=jnp.int32), packets))
+    w = jmap.slice_window(m, start, window)
+    return m, w, jfm.build_masks(w, cfg)
+
+
+def _assert_same_jax_tree(got, want):
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.weak_type == b.weak_type
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("case", sorted(PORT_BUILT))
+def test_port_built_windows_equal_jax_bits(case):
+    """The map, window and masks the fixtures now build through the port
+    from the JAX simulator's packets, handed to the JAX side as
+    `jnp.asarray` of the port's arrays, equal JAX's own bit for bit: same
+    NamedTuples, dtypes, shapes and weak types."""
+    sc_kw, cfg_kw, start, window = PORT_BUILT[case]
+    scfg = ScenarioConfig(**sc_kw)
+    jc, tc = JBackendConfig(**cfg_kw), BackendConfig(**cfg_kw)
+    packets = jax.tree.map(lambda *x: np.stack(x), *scenario_packets(scfg))
+    jm, jw, jmk = _jax_built(packets, (scfg.n_frames, scfg.ns, scfg.nd, scfg.no), start, window, jc)
+    tm = port_map(scfg)
+    _assert_same_jax_tree(to_jax(tm), jm)
+    empty = (scfg.n_frames, scfg.ns, scfg.nd, scfg.no)     # the rows no packet has reached yet
+    _assert_same_jax_tree(to_jax(tmap.MeasurementMap.create(*empty, device="cpu")),
+                          jax.jit(jmap.MeasurementMap.create, static_argnums=(0, 1, 2, 3))(*empty))
+    tw = tmap.slice_window(tm, start, window)
+    _assert_same_jax_tree(to_jax(tw), jw)
+    _assert_same_jax_tree(to_jax(tfm.build_masks(tw, tc)), jmk)
+    if start == 0 and window == scfg.n_frames:
+        got = _window(scfg, cfg_kw)
+        _assert_same_jax_tree(got[0], jw)
+        _assert_same_jax_tree(got[4], jmk)
+        assert_tuple_equal(got[0], got[1])
+        assert_tuple_equal(got[4], got[5])
+

@@ -30,7 +30,7 @@ import torch
 from dynosam_tpu import pipeline as jpipe
 from dynosam_tpu.backend import backend as jbe
 from dynosam_tpu.core import lie as jlie
-from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+from dynosam_tpu.testing.simulator import ScenarioConfig
 from dynosam_tpu.utils import config as jcfg
 from dynosam_tpu.utils import serialization as jser
 from dynosam_tpu_torch import convert
@@ -39,6 +39,8 @@ from dynosam_tpu_torch.backend import backend as tbe
 from dynosam_tpu_torch.core.lie import SE3
 from dynosam_tpu_torch.utils import config as tcfg
 from dynosam_tpu_torch.utils import serialization as tser
+
+from test_torch_schur import jax_packets, port_packets
 
 torch.set_num_threads(2)
 
@@ -59,10 +61,6 @@ def _cfg(mod, scfg, **backend):
                                     max_objects=scfg.no, max_frames=scfg.n_frames))
 
 
-def _port_packets(packets):
-    return [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu") for p in packets]
-
-
 RUNS = {
     # windows 5/2 over 10 frames: [0, 5), [3, 8) and the final [6, 10)
     "sliding": (ScenarioConfig(n_frames=10), dict(opt_window_size=5, opt_window_overlap=2, lm_max_iterations=8)),
@@ -74,9 +72,8 @@ RUNS = {
 @pytest.fixture(scope="module", params=sorted(RUNS))
 def replay(request):
     scfg, kw = RUNS[request.param]
-    packets = Scenario(scfg).frontend_outputs()
-    jb = jpipe.run_from_packets(packets, _cfg(jcfg, scfg, **kw))
-    tb = tpipe.run_from_packets(_port_packets(packets), _cfg(tcfg, scfg, **kw), device="cpu")
+    jb = jpipe.run_from_packets(jax_packets(scfg), _cfg(jcfg, scfg, **kw))
+    tb = tpipe.run_from_packets(port_packets(scfg), _cfg(tcfg, scfg, **kw), device="cpu")
     return request.param, jb, tb
 
 
@@ -122,7 +119,7 @@ def _motions_with_gaps(F=24, O=4, seed=2):
 
 def test_propagate_object_poses_matches_jax():
     H, hvalid, cen, cvalid = _motions_with_gaps()
-    jL, jv = jbe.propagate_object_poses(H, jnp.asarray(hvalid), jnp.asarray(cen), jnp.asarray(cvalid))
+    jL, jv = jax.jit(jbe.propagate_object_poses)(H, jnp.asarray(hvalid), jnp.asarray(cen), jnp.asarray(cvalid))
     tL, tv = tbe.propagate_object_poses(SE3(torch.as_tensor(np.array(H.R)), torch.as_tensor(np.array(H.t))),
                                         torch.as_tensor(hvalid), torch.as_tensor(cen), torch.as_tensor(cvalid))
     assert np.array_equal(np.asarray(jv), tv.numpy())
@@ -174,8 +171,7 @@ def _leaves_equal(a, b):
 def test_packet_round_trips(tmp_path):
     """Port save -> port load, JAX save -> port load and port save -> JAX
     load all give the packets back exactly (one leaf order)."""
-    packets = Scenario(_small()).frontend_outputs()
-    tp = _port_packets(packets)
+    packets, tp = jax_packets(_small()), port_packets(_small())
     tser.save_packets(str(tmp_path / "port.npz"), tp)
     jser.save_packets(str(tmp_path / "jax.npz"), packets)
     for path in ("port.npz", "jax.npz"):
@@ -190,7 +186,7 @@ def test_packet_round_trips(tmp_path):
 def test_offline_replay_matches_online(tmp_path):
     """Saved packets replayed through the backend give the same solve."""
     scfg = _small()
-    packets = _port_packets(Scenario(scfg).frontend_outputs())
+    packets = port_packets(scfg)
     tser.save_packets(str(tmp_path / "pk.npz"), packets)
     cfg = _cfg(tcfg, scfg, use_full_batch_opt=True, lm_max_iterations=8)
     b1 = tpipe.run_from_packets(packets, cfg, output_path=str(tmp_path / "out"), device="cpu")
@@ -204,7 +200,7 @@ def test_backend_checkpoint_resume(tmp_path):
     a fresh backend, and the last 4 frames (the port's
     `tests/test_checkpoint.py`)."""
     scfg = _small()
-    packets = _port_packets(Scenario(scfg).frontend_outputs())
+    packets = port_packets(scfg)
     cfg = _cfg(tcfg, scfg, opt_window_size=5, opt_window_overlap=2, lm_max_iterations=8)
     ba = tpipe.run_from_packets(packets, cfg, device="cpu")
     bb = tbe.RGBDBackend(cfg.backend, cfg.capacity, device="cpu")
@@ -248,7 +244,7 @@ def test_host_reads_per_spin(monkeypatch):
 
         monkeypatch.setattr(torch.Tensor, name, counted)
     for name, (scfg, kw) in sorted(RUNS.items()):
-        packets = _port_packets(Scenario(scfg).frontend_outputs())
+        packets = port_packets(scfg)
         cfg = _cfg(tcfg, scfg, **kw)
         be = tbe.RGBDBackend(cfg.backend, cfg.capacity, device="cpu")
         per_spin = []

@@ -21,9 +21,8 @@ import torch
 
 from dynosam_tpu import throughput as jtp
 from dynosam_tpu.backend import batch_windows as jbw
-from dynosam_tpu.backend import map as jmap
 from dynosam_tpu.backend.solver import LMConfig as JLMConfig
-from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+from dynosam_tpu.testing.simulator import ScenarioConfig
 from dynosam_tpu.utils import config as jcfg
 from dynosam_tpu_torch import convert
 from dynosam_tpu_torch import throughput as ttp
@@ -32,6 +31,7 @@ from dynosam_tpu_torch.backend import batch_windows as tbw
 from dynosam_tpu_torch.backend.solver import LMConfig
 from dynosam_tpu_torch.utils import config as tcfg
 
+from test_torch_schur import port_map, port_packets, to_jax
 from test_torch_world_pose_solve import _jiggle
 
 torch.set_num_threads(2)
@@ -47,13 +47,12 @@ def test_window_starts_match_jax(n, size, overlap):
     assert starts[0] == 0 and starts[-1] + size >= n
 
 
-def _scenario(n=16):
-    scfg = ScenarioConfig(n_frames=n)
-    packets = Scenario(scfg).frontend_outputs()
-    m = jmap.MeasurementMap.create(n, scfg.ns, scfg.nd, scfg.no)
-    for k, p in enumerate(packets):
-        m = jmap.update_map(m, p, k)
-    return scfg, packets, m
+def _scenario():
+    """(config, the JAX map) of the 16-frame scenario: the JAX simulator's
+    packets in the map, built once per process through the port
+    (`test_torch_schur.port_map`, JAX's bits)."""
+    scfg = ScenarioConfig(n_frames=16)
+    return scfg, to_jax(port_map(scfg))
 
 
 def _port_map(jm):
@@ -68,8 +67,7 @@ def _floors(jax_solve, port_solve, jm):
     for draw in range(DRAWS + 1):
         m = jm
         if draw:
-            w = _jiggle(jmap.slice_window(jm, 0, jm.frame_valid.shape[0]), rng)
-            m = jm._replace(static_xyz=w.static_xyz, dyn_xyz=w.dyn_xyz)
+            m = _jiggle(jm, rng)                 # the map's measurements, as a whole-map window's
         jruns.append(jax_solve(m))
         truns.append(port_solve(_port_map(m)))
 
@@ -85,7 +83,7 @@ def _floors(jax_solve, port_solve, jm):
 def test_solve_all_windows_matches_jax():
     """Every window of 16 frames (windows 10/4 at 0 and 6, uncompacted, 7
     LM iterations) in one batched solve, stitched."""
-    scfg, _, jm = _scenario()
+    scfg, jm = _scenario()
     jc = jcfg.BackendConfig(lm_max_iterations=7)
     tc = tcfg.BackendConfig(lm_max_iterations=7)
     out = {}
@@ -117,7 +115,7 @@ def test_grouped_dispatch_matches_jax(updater):
     store, compacted (caps 128/96/3), 7 LM iterations: the port's
     `solve_windows` against JAX's `_solve_windows_batched`, store masks
     equal, errors and camera translations within the measured floor."""
-    scfg, _, jm = _scenario()
+    scfg, jm = _scenario()
     kw = dict(window_max_static=128, window_max_dynamic=96, window_max_objects=3, lm_max_iterations=7,
               opt_windows_per_dispatch=2, backend_updater_enum=updater)
     jc = jcfg.DynoConfig(backend=jcfg.BackendConfig(**kw))
@@ -161,8 +159,8 @@ def test_runner_groups_windows_and_falls_back():
     window completes (28 frames: windows 0, 6 | 12, 18); a wpd that does
     not divide the 3 segments of 22 frames falls back to 1 (each window as
     it completes, equal to the runner without the option)."""
-    scfg, packets, _ = _scenario(28)
-    tp = [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu") for p in packets]
+    scfg = ScenarioConfig(n_frames=28)
+    tp = port_packets(scfg)
     runner = ttp.make_offline_runner(None, _runner_cfg(scfg, opt_windows_per_dispatch=2), 28, device="cpu")
     assert runner.wpd == 2
     due = []

@@ -26,13 +26,17 @@ def _run(dtype, rng):
     jd = jnp.float64 if dtype == np.float64 else jnp.float32
     pj = jcam.CameraParams.create(dtype=jd, **K)
     pose_j = jlie.se3_exp(jnp.asarray(xi, jd))
-    outs_j = [
-        jcam.backproject(pj, jnp.asarray(uv, jd), jnp.asarray(depth, jd)),
-        jcam.project_local(pj, jnp.asarray(pts, jd))[0],
-        jcam.project(pj, pose_j, jnp.asarray(pts, jd))[0],
-        jcam.project_jacobian_point(pj, jnp.asarray(pts, jd)),
-        jcam.project_jacobian_pose(pj, jnp.asarray(pts, jd)),
-    ]
+
+    def jax_outs(uv, depth, pts, pose):        # under one `jax.jit`
+        return [
+            jcam.backproject(pj, uv, depth),
+            jcam.project_local(pj, pts)[0],
+            jcam.project(pj, pose, pts)[0],
+            jcam.project_jacobian_point(pj, pts),
+            jcam.project_jacobian_pose(pj, pts),
+        ]
+
+    outs_j = jax.jit(jax_outs)(jnp.asarray(uv, jd), jnp.asarray(depth, jd), jnp.asarray(pts, jd), pose_j)
     outs_j = [np.asarray(o) for o in outs_j]
     pt = tcam.CameraParams.create(**K)
     T = lambda a: torch.as_tensor(np.asarray(a, dtype))

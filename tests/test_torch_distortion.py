@@ -13,6 +13,7 @@ radtan [-0.15, 0.03, 0, 0], here 96x128) the rectified interior recovers
 the undistorted frame and a constant rectified motion.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,11 +47,11 @@ def _dists(model, coeffs=None):
 def test_point_models_match_jax(model):
     t, j = _dists(model)
     uv = np.random.default_rng(0).uniform([10, 8], [W - 10, H - 8], (300, 2)).astype(np.float32)
-    dj = np.array(jd.distort_points(jnp.asarray(uv), JCAM, j))
+    dj = np.array(jax.jit(lambda x: jd.distort_points(x, JCAM, j))(jnp.asarray(uv)))
     dt = td.distort_points(torch.as_tensor(uv), CAM, t).numpy()
     np.testing.assert_allclose(dt, dj, atol=1e-4)
     for iters in (8, 12):
-        uj = np.asarray(jd.undistort_points(jnp.asarray(dj), JCAM, j, iters=iters))
+        uj = np.asarray(jax.jit(lambda x: jd.undistort_points(x, JCAM, j, iters=iters))(jnp.asarray(dj)))
         ut = td.undistort_points(torch.as_tensor(dj), CAM, t, iters=iters).numpy()
         np.testing.assert_allclose(ut, uj, atol=1e-4)
     np.testing.assert_allclose(ut, uv, atol=0.1)
@@ -58,13 +59,13 @@ def test_point_models_match_jax(model):
 
 def test_map_and_remap_match_jax():
     t, j = _dists("radtan", (-0.1, 0.01, 0.0, 0.0))
-    mj = np.array(jd.undistort_rectify_map(JCAM, j))
+    mj = np.array(jax.jit(lambda: jd.undistort_rectify_map(JCAM, j))())
     mt = td.undistort_rectify_map(CAM, t, "cpu")
     assert mt.dtype == torch.float32 and mt.shape == (H, W, 2)
     np.testing.assert_allclose(mt.numpy(), mj, atol=1e-4)
     img = np.random.default_rng(1).uniform(0, 255, (H, W)).astype(np.float32)
     np.testing.assert_allclose(td.remap_bilinear(torch.as_tensor(img), torch.as_tensor(mj)).numpy(),
-                               np.asarray(jd.remap_bilinear(jnp.asarray(img), jnp.asarray(mj))), atol=1e-3)
+                               np.asarray(jax.jit(jd.remap_bilinear)(jnp.asarray(img), jnp.asarray(mj))), atol=1e-3)
 
 
 def test_distortion_from_yaml_matches_jax(tmp_path):
@@ -106,7 +107,7 @@ def distorted():
 def test_rectifier_matches_jax(distorted):
     f = distorted["frame_d"]
     got = make_rectifier(CAM, distorted["t"], device="cpu")(f)
-    want = j_make_rectifier(JCAM, distorted["j"])(JFrameImages(*(jnp.asarray(x.numpy()) for x in f)))
+    want = jax.jit(j_make_rectifier(JCAM, distorted["j"]))(JFrameImages(*(jnp.asarray(x.numpy()) for x in f)))
     assert got.mask.dtype == torch.int32 and got.flow.shape == (H, W, 2)
     np.testing.assert_allclose(got.gray.numpy(), np.asarray(want.gray), atol=1e-3)
     np.testing.assert_allclose(got.flow.numpy(), np.asarray(want.flow), atol=1e-3)

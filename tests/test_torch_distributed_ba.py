@@ -119,15 +119,29 @@ def dba_rank(rank, world, tracks, updater, x64, probes_file=None):
             "initial_error": float(r.initial_error), "iterations": r.iterations}
 
 
+@pytest.fixture(scope="module")
+def single_refs():
+    """For each updater, the single-process problem and its 6-iteration
+    LM-PCG, shared by both mesh shapes."""
+    from dynosam_tpu_torch.backend.solver import LMConfig, lm_optimize
+
+    out = {}
+    for updater in (0, 1):
+        s = single(port_problem(torch.float64), updater)
+        out[updater] = s, lm_optimize(s["residual_fn"], s["specs"], s["values"],
+                                      LMConfig(max_iterations=6, cg_max_iterations=60), normal_fn=s["normal_fn"],
+                                      gn_diag_fn=None)
+    return out
+
+
 @pytest.mark.parametrize("updater", [0, 1])
 @pytest.mark.parametrize("world,tracks", [(2, 1), (4, 2)], ids=["2x1", "2x2"])
-def test_distributed_lm_pcg_matches_single_process_f64(world, tracks, updater):
-    from dynosam_tpu_torch.backend.solver import LMConfig, hutchinson_diag, lm_optimize, sqrt_weights, total_error
-    from dynosam_tpu_torch.backend.solver import zero_delta
+def test_distributed_lm_pcg_matches_single_process_f64(single_refs, world, tracks, updater):
+    from dynosam_tpu_torch.backend.solver import hutchinson_diag, sqrt_weights, total_error, zero_delta
 
     out = run_ranks("test_torch_distributed_ba:dba_rank", world, dict(tracks=tracks, updater=updater, x64=True),
                     TIMEOUT, PYPATH)
-    s = single(port_problem(torch.float64), updater)
+    s, ref = single_refs[updater]
     res = s["residual_fn"](s["values"])
     sw = sqrt_weights(res, s["specs"])
     mv, g = s["normal_fn"](s["values"], sw, res)
@@ -144,8 +158,6 @@ def test_distributed_lm_pcg_matches_single_process_f64(world, tracks, updater):
             for k in want[key]:
                 assert rel(got[key][k], want[key][k]) < 1e-12, (key, k)
 
-    ref = lm_optimize(s["residual_fn"], s["specs"], s["values"], LMConfig(max_iterations=6, cg_max_iterations=60),
-                      normal_fn=s["normal_fn"], gn_diag_fn=None)
     pk = "H" if updater == 0 else "L"
     for o in out:
         assert o["iterations"] == ref.iterations
@@ -160,20 +172,19 @@ def test_distributed_lm_pcg_matches_jax_f32(tmp_path):
     both ranks given JAX's Hutchinson probes."""
     import jax
 
-    from dynosam_tpu.backend.map import MeasurementMap, update_map
     from dynosam_tpu.backend.solver import LMConfig as JLMConfig
     from dynosam_tpu.parallel.distributed_ba import distributed_optimize as jdo
     from dynosam_tpu.parallel.mesh import make_mesh as jmake_mesh
-    from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu.testing.simulator import ScenarioConfig
     from dynosam_tpu.utils.config import BackendConfig as JBackendConfig
     from dynosam_tpu_torch.backend.solver import zero_delta
 
+    from test_torch_schur import port_map, to_jax
     from test_torch_solver import jax_probes
 
-    sc = Scenario(ScenarioConfig(n_frames=8, n_static=40, n_objects=2, pts_per_object=12, ns=64, nd=32, no=4))
-    m = MeasurementMap.create(8, 64, 32, 4)
-    for k, pkt in enumerate(sc.frontend_outputs()):
-        m = update_map(m, pkt, k)
+    # the JAX simulator's map, built through the port (JAX's bits)
+    m = to_jax(port_map(ScenarioConfig(n_frames=8, n_static=40, n_objects=2, pts_per_object=12, ns=64, nd=32,
+                                       no=4)))
     lm = JLMConfig(max_iterations=6, cg_max_iterations=60)
     jres = jdo(jax.tree.map(np.asarray, m), 8, JBackendConfig(), mesh=jmake_mesh(2, tracks=1), lm_cfg=lm)
     template = {k: jax.numpy.zeros(v.shape, jax.numpy.float32)

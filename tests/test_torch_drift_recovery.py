@@ -66,15 +66,45 @@ def _ate(R, t, valid, gt):
 
 
 def _jiggled(packets, rng, module):
+    """The packets with their static and dynamic measurements scaled by
+    (1 + 1e-7 N(0, 1)): `module` torch for the port's, `_Np` for JAX's (the
+    product in numpy float32, then one `jnp.asarray`) or `_Jnp` (the `jnp`
+    form `test_jiggled_jax_packets_in_numpy_equal_jnp` holds `_Np` to)."""
     def j(x):
-        return x * (1 + 1e-7 * module.as_tensor(rng.standard_normal(tuple(x.shape)).astype(np.float32)))
+        return module.scale(x, rng.standard_normal(tuple(x.shape)).astype(np.float32))
 
     return [p._replace(static_obs=p.static_obs._replace(xyz=j(p.static_obs.xyz)),
                        dynamic_obs=p.dynamic_obs._replace(xyz=j(p.dynamic_obs.xyz))) for p in packets]
 
 
+class _Torch:
+    @staticmethod
+    def scale(x, z):
+        return x * (1 + 1e-7 * torch.as_tensor(z))
+
+
 class _Jnp:
-    as_tensor = staticmethod(jnp.asarray)
+    @staticmethod
+    def scale(x, z):
+        return x * (1 + 1e-7 * jnp.asarray(z))
+
+
+class _Np:
+    @staticmethod
+    def scale(x, z):
+        return jnp.asarray(np.asarray(x) * (np.float32(1) + np.float32(1e-7) * z))
+
+
+def test_jiggled_jax_packets_in_numpy_equal_jnp(corrupted):
+    """`_jiggled` of JAX's packets in numpy float32 has the bits of the
+    `jnp` form it replaces, over the `DRAWS` draws the floor takes."""
+    jp = corrupted[1]
+    rng, ref = np.random.default_rng(0), np.random.default_rng(0)
+    for _ in range(DRAWS):
+        for a, b in zip(_jiggled(jp, rng, _Np), _jiggled(jp, ref, _Jnp)):
+            for x, y in ((a.static_obs.xyz, b.static_obs.xyz), (a.dynamic_obs.xyz, b.dynamic_obs.xyz)):
+                assert x.dtype == y.dtype == jnp.float32
+                assert np.array_equal(np.asarray(x), np.asarray(y))
 
 
 @pytest.mark.parametrize("updater", [0, 1])
@@ -104,9 +134,9 @@ def test_drift_recovery_capped_matches_jax(corrupted, updater):
         return float(b.last_result.error), _ate(X.R.numpy(), X.t.numpy(), xv.numpy(), gt)
 
     rng = np.random.default_rng(0)
-    jruns = [jax_solve(jp)] + [jax_solve(_jiggled(jp, rng, _Jnp)) for _ in range(DRAWS)]
+    jruns = [jax_solve(jp)] + [jax_solve(_jiggled(jp, rng, _Np)) for _ in range(DRAWS)]
     rng = np.random.default_rng(0)
-    truns = [port_solve(tp)] + [port_solve(_jiggled(tp, rng, torch)) for _ in range(DRAWS)]
+    truns = [port_solve(tp)] + [port_solve(_jiggled(tp, rng, _Torch)) for _ in range(DRAWS)]
 
     def spread(runs, i):
         v0 = runs[0][i]

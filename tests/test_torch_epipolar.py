@@ -55,11 +55,14 @@ def _pair(seed, **kw):
 def test_essential_and_sampson_match_jax_in_f64():
     jcam, rel, uv1, uv2, _ = _pair(0)
     idx = np.stack([np.random.default_rng(5 + k).permutation(120)[:8] for k in range(16)])   # distinct points
-    with jax.enable_x64():
-        pj, qj = jep.normalize_points(jcam, _f64(uv1)), jep.normalize_points(jcam, _f64(uv2))
+
+    def jax_side(uv1, uv2):
+        pj, qj = jep.normalize_points(jcam, uv1), jep.normalize_points(jcam, uv2)
         Ej = jep.essential_from_points(pj, qj)
-        Ebj = jep.essential_from_points(pj[idx], qj[idx])
-        ej = jep.sampson_error(Ej, pj, qj)
+        return pj, qj, Ej, jep.essential_from_points(pj[idx], qj[idx]), jep.sampson_error(Ej, pj, qj)
+
+    with jax.enable_x64():
+        pj, qj, Ej, Ebj, ej = jax.jit(jax_side)(_f64(uv1), _f64(uv2))
     p, q = tep.normalize_points(CAM, _t(uv1)), tep.normalize_points(CAM, _t(uv2))
     np.testing.assert_allclose(p.numpy(), np.asarray(pj), rtol=1e-15, atol=1e-15)
     Et = tep.essential_from_points(p, q)
@@ -74,12 +77,16 @@ def test_essential_and_sampson_match_jax_in_f64():
 def test_decompose_and_triangulate_match_jax_in_f64():
     jcam, rel, uv1, uv2, _ = _pair(1)
     valid = np.ones(120, bool)
-    with jax.enable_x64():
-        pj, qj = jep.normalize_points(jcam, _f64(uv1)), jep.normalize_points(jcam, _f64(uv2))
+
+    def jax_side(uv1, uv2, relj):
+        pj, qj = jep.normalize_points(jcam, uv1), jep.normalize_points(jcam, uv2)
         Ej = jep.essential_from_points(pj, qj)
         Rj = jep.decompose_essential(Ej, pj, qj, jnp.asarray(valid))
+        return pj, qj, Ej, Rj, jep.triangulate_depth_ref(relj, pj, qj)
+
+    with jax.enable_x64():
         relj = jlie.SE3(_f64(rel.R), _f64(rel.t))
-        lam_j = jep.triangulate_depth_ref(relj, pj, qj)
+        pj, qj, Ej, Rj, lam_j = jax.jit(jax_side)(_f64(uv1), _f64(uv2), relj)
     p, q = _t(pj), _t(qj)
     Rt = tep.decompose_essential(_t(Ej), p, q, torch.as_tensor(valid))
     np.testing.assert_allclose(Rt.R.numpy(), np.asarray(Rj.R), atol=1e-8)
@@ -88,16 +95,22 @@ def test_decompose_and_triangulate_match_jax_in_f64():
     np.testing.assert_allclose(lam_t.numpy(), np.asarray(lam_j), rtol=1e-9)
 
 
+# JAX's hypothesis draw under one `jax.jit` (called eagerly, each primitive
+# compiles on its own; its integer draws are the same either way)
+_sample = jax.jit(j_sample, static_argnums=(2, 3))
+
+
 def _ransac_both(solver, jcam, rel, uv1, uv2, valid, key, dtype, iters):
     n_min = 8 if solver == "essential" else 2
-    idx = _t(j_sample(key, jnp.asarray(valid), iters, n_min))
+    idx = _t(_sample(key, jnp.asarray(valid), iters, n_min))
     kw = dict(iters=iters, threshold=2e-6)
     if solver == "essential":
-        j = jep.ransac_essential(key, dtype(uv1), dtype(uv2), jnp.asarray(valid), jcam, **kw)
+        j = jax.jit(lambda *a: jep.ransac_essential(*a, jcam, **kw))(key, dtype(uv1), dtype(uv2), jnp.asarray(valid))
         t = tep.ransac_essential(_t(dtype(uv1)), _t(dtype(uv2)), torch.as_tensor(valid), CAM, idx=idx, **kw)
     else:
         R = dtype(rel.R)
-        j = jep.ransac_translation_given_rot(key, dtype(uv1), dtype(uv2), jnp.asarray(valid), jcam, R, **kw)
+        j = jax.jit(lambda *a: jep.ransac_translation_given_rot(*a, jcam, R, **kw))(
+            key, dtype(uv1), dtype(uv2), jnp.asarray(valid))
         t = tep.ransac_translation_given_rot(_t(dtype(uv1)), _t(dtype(uv2)), torch.as_tensor(valid), CAM, _t(R),
                                              idx=idx, **kw)
     return j, t
@@ -153,7 +166,7 @@ def test_scale_from_depth_matches_jax(n_good):
     depth = np.asarray(jep.triangulate_depth_ref(rel, pj, qj)) * rng.uniform(0.95, 1.05, 12).astype(np.float32)
     valid = np.zeros(12, bool)
     valid[:n_good] = True
-    sj, okj = jep.scale_from_depth(unit, pj, qj, jnp.asarray(depth), jnp.asarray(valid))
+    sj, okj = jax.jit(jep.scale_from_depth)(unit, pj, qj, jnp.asarray(depth), jnp.asarray(valid))
     st, okt = tep.scale_from_depth(SE3(_t(unit.R), _t(unit.t)), _t(pj), _t(qj), torch.as_tensor(depth),
                                    torch.as_tensor(valid))
     assert bool(okt) == bool(okj) == (n_good >= 5)

@@ -30,10 +30,8 @@ from torch.func import jacfwd
 
 from dynosam_tpu.backend import fixed_lag as jfl
 from dynosam_tpu.backend import formulation as jfm
-from dynosam_tpu.backend import map as jmap
-from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+from dynosam_tpu.testing.simulator import ScenarioConfig
 from dynosam_tpu.utils import config as jcfg
-from dynosam_tpu_torch import convert
 from dynosam_tpu_torch import pipeline as tpipe
 from dynosam_tpu_torch.backend import fixed_lag as tfl
 from dynosam_tpu_torch.backend import formulation as tfm
@@ -42,17 +40,17 @@ from dynosam_tpu_torch.backend import schur as tschur
 from dynosam_tpu_torch.backend.solver import retract_tree, sqrt_weights, zero_delta
 from dynosam_tpu_torch.utils import config as tcfg
 
-from test_torch_schur import to_port
+from test_torch_schur import port_map, port_packets, scenario, to_jax, to_port
 
 torch.set_num_threads(2)
 
 
 def _maps(scfg):
-    sc = Scenario(scfg)
-    m = jmap.MeasurementMap.create(scfg.n_frames, scfg.ns, scfg.nd, scfg.no)
-    for k, pkt in enumerate(sc.frontend_outputs()):
-        m = jmap.update_map(m, pkt, k)
-    return sc, m, convert.measurement_map_from_numpy(jax.tree.map(np.asarray, m), device="cpu")
+    """(the JAX scenario, the JAX map, the port's map) of `scfg`: the map
+    built once per process through the port (`test_torch_schur.port_map`),
+    the JAX map its arrays."""
+    tm = port_map(scfg)
+    return scenario(scfg)[0], to_jax(tm), tm
 
 
 SMALL = ScenarioConfig(n_frames=6, n_static=30, n_objects=1, pts_per_object=10, ns=40, nd=16, no=2)
@@ -102,9 +100,10 @@ def test_boundary_prior_matches_jax(updater):
     kw = dict(window_max_static=48, window_max_dynamic=32, window_max_objects=3, backend_updater_enum=updater)
     jc, tc = jcfg.BackendConfig(**kw), tcfg.BackendConfig(**kw)
     n_sub = 7
-    jw = jmap.slice_window(jm, 0, n_sub)
+    tw = tmap.slice_window(tm, 0, n_sub)
+    jw = to_jax(tw)
     init = jfm.init_values if updater == 0 else jfm.init_values_world_pose
-    jv = _est_values(jw, jfm.build_masks(jw, jc), jc, updater, init)
+    jv = _est_values(jw, to_jax(tfm.build_masks(tw, tc)), jc, updater, init)
     rng = np.random.default_rng(5)
     from dynosam_tpu.core import lie as jlie
 
@@ -203,9 +202,8 @@ def test_fixed_lag_e2e_accuracy(updater):
     fresh-rebuild run's a0."""
     scfg = ScenarioConfig(n_frames=14, n_static=60, n_objects=2, pts_per_object=14, ns=80, nd=48, no=4,
                           point_noise=0.02)
-    sc = Scenario(scfg)
-    packets = [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
-               for p in sc.frontend_outputs()]
+    sc = scenario(scfg)[0]
+    packets = port_packets(scfg)
     cfg = tcfg.DynoConfig(backend=tcfg.BackendConfig(opt_window_size=6, opt_window_overlap=2,
                                                      backend_updater_enum=updater),
                           capacity=tcfg.CapacityConfig(max_static_tracks=80, max_dynamic_tracks=48, max_objects=4,

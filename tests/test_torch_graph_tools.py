@@ -4,7 +4,6 @@ outlier masks, `DebugInfo` and `SparsityStats` equal, and the graph file
 and the Graphviz dot byte for byte equal on the same masks and values.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,18 +11,13 @@ import torch
 
 from dynosam_tpu.backend import formulation as jfm
 from dynosam_tpu.backend import graph_tools as jgt
-from dynosam_tpu.backend import map as jmap
 from dynosam_tpu.backend.solver import RobustSpec as JRobustSpec
-from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+from dynosam_tpu.testing.simulator import ScenarioConfig
 from dynosam_tpu.utils.config import BackendConfig as JBackendConfig
-from dynosam_tpu_torch import convert
-from dynosam_tpu_torch.backend import formulation as tfm
 from dynosam_tpu_torch.backend import graph_tools as tgt
-from dynosam_tpu_torch.backend import map as tmap
 from dynosam_tpu_torch.backend.solver import RobustSpec
-from dynosam_tpu_torch.utils.config import BackendConfig
 
-from test_torch_schur import to_port
+from test_torch_schur import _window, to_port
 
 
 def test_factor_outliers_match_jax():
@@ -43,19 +37,9 @@ def test_factor_outliers_match_jax():
     assert any(b.any() for b in t) and not t[1].any()
 
 
-def _window(scfg, F):
-    sc = Scenario(scfg)
-    m = jmap.MeasurementMap.create(F, scfg.ns, scfg.nd, scfg.no)
-    for k, pkt in enumerate(sc.frontend_outputs()):
-        m = jmap.update_map(m, pkt, k)
-    tm = convert.measurement_map_from_numpy(jax.tree.map(np.asarray, m), device="cpu")
-    jw, tw = jmap.slice_window(m, 0, F), tmap.slice_window(tm, 0, F)
-    return jw, tw, jfm.build_masks(jw, JBackendConfig()), tfm.build_masks(tw, BackendConfig())
-
-
 def test_debug_info_and_sparsity_match_jax():
     scfg = ScenarioConfig(n_frames=6, n_static=30, n_objects=1, pts_per_object=10, ns=40, nd=32, no=4)
-    _, _, jmk, tmk = _window(scfg, 6)
+    _, _, _, _, jmk, tmk = _window(scfg)
     info = tgt.DebugInfo.from_masks(tmk)
     assert info == tgt.DebugInfo(**vars(jgt.DebugInfo.from_masks(jmk)))
     assert (info.num_poses, info.num_static_points, info.num_static_factors, info.num_motion_factors,
@@ -71,7 +55,7 @@ def test_graph_file_and_dot_equal_jax_bytes(tmp_path, updater):
     value sets, the values handed over as the port's tensors) are byte for
     byte the JAX package's."""
     scfg = ScenarioConfig(n_frames=4, n_static=10, n_objects=1, pts_per_object=5, ns=16, nd=16, no=2)
-    jw, tw, jmk, tmk = _window(scfg, 4)
+    jw, tw, _, _, jmk, tmk = _window(scfg)
     jc = JBackendConfig()
     jv = (jfm.init_values if updater == 0 else jfm.init_values_world_pose)(jw, jmk, jc)
     key = "hl"[updater]

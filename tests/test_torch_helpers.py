@@ -81,7 +81,7 @@ def test_se3_helpers_match_jax_f64(name):
     with jax.enable_x64():
         (ja, ta), (jb, tb) = _pair(xa), _pair(xb)
         mats = np.array(jlie.se3_matrix(jb))
-        want = jfn(ja, jb, pts, xi, mats)
+        want = jax.jit(jfn)(ja, jb, pts, xi, mats)
     got = tfn(ta, tb, pts, xi, mats)
     _close(got, want)
     if name == "SE3 @ points":
@@ -104,7 +104,7 @@ def test_backproject_to_world_matches_jax_f64():
     xi = _xi(rng, 50)
     with jax.enable_x64():
         jpose, tpose = _pair(xi)
-        want = jcam.backproject_to_world(JCAM, jnp.asarray(uv), jnp.asarray(depth), jpose)
+        want = jax.jit(lambda *a: jcam.backproject_to_world(JCAM, *a))(jnp.asarray(uv), jnp.asarray(depth), jpose)
     got = tcam.backproject_to_world(TCAM, torch.as_tensor(uv), torch.as_tensor(depth), tpose)
     _close(got, want)
 
@@ -118,7 +118,7 @@ def test_in_image_matches_jax_exactly(border):
     edges = np.array([border, w - border, h - border, border - 1e-3, w - border - 1e-3, h - border - 1e-3, 0.0, -1.0])
     uv = np.concatenate([rng.uniform(-20, w + 20, (200, 2)), np.stack(np.meshgrid(edges, edges), -1).reshape(-1, 2)])
     uv = uv.astype(np.float32)
-    want = np.asarray(jcam.in_image(JCAM, jnp.asarray(uv), border))
+    want = np.asarray(jax.jit(lambda x: jcam.in_image(JCAM, x, border))(jnp.asarray(uv)))
     got = tcam.in_image(TCAM, torch.as_tensor(uv), border)
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
@@ -133,7 +133,7 @@ def test_disparity_to_depth_matches_jax_f64(scale):
     disp = rng.uniform(-5, 80, (24, 30)) * scale
     disp[::5, ::3] = 0.0
     with jax.enable_x64():
-        want = jcam.disparity_to_depth(jnp.asarray(disp), 387.5744, scale)
+        want = jax.jit(lambda d: jcam.disparity_to_depth(d, 387.5744, scale))(jnp.asarray(disp))
     got = tcam.disparity_to_depth(torch.as_tensor(disp), 387.5744, scale)
     _close(got, want)
     assert (got[torch.as_tensor(disp) <= 0] == 0).all()
@@ -149,23 +149,24 @@ def test_whiten_matches_jax_f64():
     with jax.enable_x64():
         for s in (0.05, sigma):
             _close(trobust.whiten(torch.as_tensor(r), s if np.isscalar(s) else torch.as_tensor(s)),
-                   jrobust.whiten(jnp.asarray(r), s if np.isscalar(s) else jnp.asarray(s)))
+                   jax.jit(jrobust.whiten)(jnp.asarray(r), s if np.isscalar(s) else jnp.asarray(s)))
 
 
 def test_stack_outputs_matches_jax_exactly():
     """Four simulator packets stacked by either package: every leaf equal,
     leaves in JAX's pytree order, with a new leading axis."""
     from dynosam_tpu.core.types import stack_outputs as jstack
-    from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu.testing.simulator import ScenarioConfig
     from dynosam_tpu_torch.convert import frontend_output_from_numpy
     from dynosam_tpu_torch.core.types import FrontendOutput, stack_outputs
     from dynosam_tpu_torch.utils.serialization import _leaves
 
-    jp = Scenario(ScenarioConfig(n_frames=4, n_static=20, n_objects=2, pts_per_object=12, ns=24, nd=32,
-                                 no=4)).frontend_outputs()
+    from test_torch_schur import jax_packets
+
+    jp = jax_packets(ScenarioConfig(n_frames=4, n_static=20, n_objects=2, pts_per_object=12, ns=24, nd=32, no=4))
     tp = [frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu") for p in jp]
     got = stack_outputs(tp)
-    want = jax.tree.leaves(jstack(jp))
+    want = jax.tree.leaves(jax.jit(jstack)(jp))
     assert isinstance(got, FrontendOutput) and isinstance(got.X_world, tlie.SE3)
     assert got.frame_id.shape == (4,) and got.X_world.R.shape == (4, 3, 3)
     assert len(_leaves(got)) == len(want)
@@ -257,8 +258,9 @@ def test_dense_normal_solve_matches_jax_and_the_eliminated_step_f64():
 
     jres, jinit, tres, tinit, tjac = _small_problem(np.random.default_rng(17))
     with jax.enable_x64():
-        jvals, jJ = jsolver.dense_normal_solve(jres, [jsolver.RobustSpec()] * 2, jinit)
-        jvals_d, _ = jsolver.dense_normal_solve(jres, [jsolver.RobustSpec()] * 2, jinit, lam=1e-2)
+        jsolve = jax.jit(lambda v, lam: jsolver.dense_normal_solve(jres, [jsolver.RobustSpec()] * 2, v, lam=lam))
+        jvals, jJ = jsolve(jinit, 0.0)
+        jvals_d, _ = jsolve(jinit, 1e-2)
     specs = [tsolver.RobustSpec()] * 2
     tvals, tJ = tsolver.dense_normal_solve(tres, specs, tinit)
     tvals_d, _ = tsolver.dense_normal_solve(tres, specs, tinit, lam=1e-2)

@@ -7,6 +7,7 @@ interpret mode, and the XLA forms `klt_track` / `bilinear_sample` /
 `nearest_at`.  Tolerances are stated per test.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +25,16 @@ from dynosam_tpu_torch.ops import klt as tklt
 torch.set_num_threads(2)
 
 T = lambda a, dt=np.float32: torch.as_tensor(np.array(np.asarray(a), dt))
+
+# The JAX references, each under one `jax.jit` as the JAX frontend runs them
+# (called eagerly, every primitive compiles on its own)
+_point_sample = jax.jit(j_point_sample, static_argnums=(2,), static_argnames=("interpret",))
+_bilinear_sample = jax.jit(jklt.bilinear_sample)
+_nearest_at = jax.jit(jklt.nearest_at)
+_flow_at = jax.jit(jklt.flow_at)
+_build_pyramid = jax.jit(jklt.build_pyramid, static_argnums=(1,))
+_klt_track = jax.jit(jklt.klt_track, static_argnames=("win", "levels", "iters"))
+_klt_track_pallas = jax.jit(klt_track_pallas, static_argnames=("win", "levels", "iters", "eps", "interpret"))
 
 
 @pytest.fixture(scope="module")
@@ -53,8 +64,8 @@ def test_point_sample_plain_matches_pallas_interpret(rng):
     valid = rng.uniform(size=uv.shape[0]) > 0.3
     stack = np.stack([img, mask.astype(np.float32), flow[..., 0], flow[..., 1]])
     modes = ("bilinear", "nearest", "bilinear", "bilinear")
-    want = np.asarray(j_point_sample(jnp.asarray(stack), jnp.asarray(uv), modes,
-                                     valid=jnp.asarray(valid), interpret=True))
+    want = np.asarray(_point_sample(jnp.asarray(stack), jnp.asarray(uv), modes,
+                                    valid=jnp.asarray(valid), interpret=True))
     got = point_sample_plain(T(stack), T(uv), modes, T(valid, bool)).numpy()
     np.testing.assert_allclose(got[:, [0, 2, 3]], want[:, [0, 2, 3]], rtol=1e-5, atol=1e-3)
     np.testing.assert_array_equal(got[:, 1], want[:, 1])
@@ -90,8 +101,8 @@ def test_point_sample_plain_reads_channels_as_they_are(rng, case):
     assert got.dtype == torch.float32 and got.shape == (uv.shape[0], len(modes))
     stacked = torch.stack([ch.float() for ch in chans])
     assert torch.equal(got, point_sample_plain(stacked, T(uv), modes, tv))
-    want = np.asarray(j_point_sample(jnp.asarray(stacked.numpy()), jnp.asarray(uv), modes,
-                                     valid=jnp.asarray(valid), interpret=True))
+    want = np.asarray(_point_sample(jnp.asarray(stacked.numpy()), jnp.asarray(uv), modes,
+                                    valid=jnp.asarray(valid), interpret=True))
     for c, m in enumerate(modes):
         if m == "nearest":
             np.testing.assert_array_equal(got[:, c].numpy(), want[:, c])
@@ -105,18 +116,18 @@ def test_point_queries_match_xla(rng):
     the port == the JAX package's XLA forms (rtol 1e-5 / exact labels)."""
     img, mask, flow, uv = _sample_inputs(rng)
     valid = rng.uniform(size=uv.shape[0]) > 0.4
-    jb = np.asarray(jklt.bilinear_sample(jnp.asarray(img), jnp.asarray(uv), jnp.asarray(valid)))
+    jb = np.asarray(_bilinear_sample(jnp.asarray(img), jnp.asarray(uv), jnp.asarray(valid)))
     tb = tklt.bilinear_sample(T(img), T(uv), T(valid, bool)).numpy()
     np.testing.assert_allclose(tb, jb, rtol=1e-5, atol=1e-3)
-    jn = np.asarray(jklt.nearest_at(jnp.asarray(mask), jnp.asarray(uv)))
+    jn = np.asarray(_nearest_at(jnp.asarray(mask), jnp.asarray(uv)))
     tn = tklt.nearest_at(T(mask, np.int32), T(uv)).numpy()
     np.testing.assert_array_equal(tn, jn)
     assert tn.dtype == np.int32
-    jf = np.asarray(jklt.flow_at(jnp.asarray(flow), jnp.asarray(uv), jnp.asarray(valid)))
+    jf = np.asarray(_flow_at(jnp.asarray(flow), jnp.asarray(uv), jnp.asarray(valid)))
     tf = tklt.flow_at(T(flow), T(uv), T(valid, bool)).numpy()
     np.testing.assert_allclose(tf, jf, rtol=1e-5, atol=1e-4)
     d, lab = tklt.sample_channels((T(img), T(mask, np.int32)), ("bilinear", "nearest"), T(uv))
-    np.testing.assert_allclose(d.numpy(), np.asarray(jklt.bilinear_sample(jnp.asarray(img), jnp.asarray(uv))),
+    np.testing.assert_allclose(d.numpy(), np.asarray(_bilinear_sample(jnp.asarray(img), jnp.asarray(uv))),
                                rtol=1e-5, atol=1e-3)
     np.testing.assert_array_equal(lab.numpy(), jn)
 
@@ -125,7 +136,7 @@ def test_pyramid_matches_xla(rng):
     """Zero-padded 5x5 binomial blur and the 3-level pyramid (atol 1e-3 on
     [0, 255] values: 25-tap sums in another order)."""
     img = rng.uniform(0, 255, (64, 96)).astype(np.float32)
-    jp = jklt.build_pyramid(jnp.asarray(img), 3)
+    jp = _build_pyramid(jnp.asarray(img), 3)
     tp = tklt.build_pyramid(T(img), 3)
     for a, b in zip(jp, tp):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-3)
@@ -138,7 +149,7 @@ def test_klt_track_matches_xla(frames, rng):
     f0, f1 = frames
     uv = rng.uniform([5, 5], [250, 186], (64, 2)).astype(np.float32)
     valid = np.ones(64, bool)
-    ref = jklt.klt_track(f0.gray, f1.gray, jnp.asarray(uv), jnp.asarray(valid), win=21, levels=3, iters=30)
+    ref = _klt_track(f0.gray, f1.gray, jnp.asarray(uv), jnp.asarray(valid), win=21, levels=3, iters=30)
     got = tklt.klt_track(T(f0.gray), T(f1.gray), T(uv), T(valid, bool), win=21, levels=3, iters=30)
     both = np.asarray(ref.ok) & got.ok.numpy()
     assert both.sum() >= 40
@@ -164,7 +175,7 @@ def test_lk_plain_matches_pallas_interpret(frames, rng, case):
         valid = np.ones(n, bool)
         g0 = None
         kw = dict(levels=3, iters=30, eps=0.01)
-    ref = klt_track_pallas(
+    ref = _klt_track_pallas(
         f0.gray, f1.gray, jnp.asarray(uv), jnp.asarray(valid), win=21,
         g0=None if g0 is None else jnp.asarray(g0), interpret=True, **kw,
     )

@@ -28,13 +28,14 @@ def _tangents(rng, n, scale):
 
 
 def _both(fn_j, fn_t, *arrays, dtype):
-    """Run fn on JAX and torch with the same arrays; return numpy pairs."""
+    """Run fn on JAX (under one `jax.jit`) and torch with the same arrays;
+    return numpy pairs."""
     if dtype == np.float64:
         with jax.enable_x64():
-            out_j = fn_j(*(jnp.asarray(a, jnp.float64) for a in arrays))
+            out_j = jax.jit(fn_j)(*(jnp.asarray(a, jnp.float64) for a in arrays))
             out_j = jax.tree.map(np.asarray, out_j)
     else:
-        out_j = jax.tree.map(np.asarray, fn_j(*(jnp.asarray(a, jnp.float32) for a in arrays)))
+        out_j = jax.tree.map(np.asarray, jax.jit(fn_j)(*(jnp.asarray(a, jnp.float32) for a in arrays)))
     out_t = fn_t(*(torch.as_tensor(np.asarray(a, dtype)) for a in arrays))
     if isinstance(out_t, tuple):
         out_t = tuple(o.numpy() for o in out_t)

@@ -40,6 +40,17 @@ torch.set_num_threads(2)
 
 T = lambda a, dt=np.float32: torch.as_tensor(np.array(np.asarray(a), dt))
 
+# The JAX references, each under one `jax.jit` as the JAX frontend runs them
+# (called eagerly, every primitive compiles on its own)
+_cell_max = jax.jit(jorb._cell_max, static_argnums=(1,))
+_blur7 = jax.jit(jorb._gaussian_blur7)
+_resize = jax.jit(jax.image.resize, static_argnames=("shape", "method"))
+_orientations = jax.jit(jorb._orientations)
+_descriptors = jax.jit(jorb._descriptors)
+_k4_pallas = jax.jit(jk4.orb_orientation_descriptors, static_argnames=("interpret",))
+_orb_detections = jax.jit(jorb.orb_detections)
+_match_descriptors = jax.jit(jorb.match_descriptors, static_argnames=("max_hamming", "ratio", "cross_check"))
+
 ANGLE_TOL = 1e-3     # rad: JAX's own band between its Pallas and XLA forms
 BITS_MIN = 0.995     # descriptor-bit agreement, the same band
 
@@ -80,7 +91,7 @@ def test_level_quotas_and_cell_max_match_jax(rng):
     resp = np.where(rng.uniform(size=(61, 83)) < 0.05, rng.uniform(0, 90, (61, 83)), 0.0).astype(np.float32)
     for cell in (35, 16, 4):
         np.testing.assert_array_equal(torb._cell_max(T(resp), cell).numpy(),
-                                      np.asarray(jorb._cell_max(jnp.asarray(resp), cell)))
+                                      np.asarray(_cell_max(jnp.asarray(resp), cell)))
 
 
 def test_blur7_and_pyramid_resize_match_jax(rng):
@@ -89,10 +100,10 @@ def test_blur7_and_pyramid_resize_match_jax(rng):
     `jax.image.resize`) within 1e-2 grey levels at all 7 KITTI scales."""
     g = rng.uniform(0, 255, (384, 1280)).astype(np.float32)
     np.testing.assert_allclose(torb._gaussian_blur7(T(g)).numpy(),
-                               np.asarray(jorb._gaussian_blur7(jnp.asarray(g))), atol=1e-4)
+                               np.asarray(_blur7(jnp.asarray(g))), atol=1e-4)
     for lvl in range(1, 8):
         nh, nw = round(384 / 1.2 ** lvl), round(1280 / 1.2 ** lvl)
-        want = np.asarray(jax.image.resize(jnp.asarray(g), (nh, nw), method="bilinear"))
+        want = np.asarray(_resize(jnp.asarray(g), shape=(nh, nw), method="bilinear"))
         got = torch.nn.functional.interpolate(T(g)[None, None], size=(nh, nw), mode="bilinear",
                                               antialias=True, align_corners=False)[0, 0].numpy()
         assert np.abs(got - want).max() <= 1e-2, lvl
@@ -114,12 +125,12 @@ def test_k4_plain_on_a_canvas_matches_jax_xla_and_pallas(frames, rng):
     canvas_blur = np.concatenate([np.pad(x, ((0, 0), (0, 256 - x.shape[1]))) for x in blurs])
     uv_canvas = np.concatenate([uvs[0], uvs[1] + np.float32([0, 192])])
 
-    ang_x = np.concatenate([np.asarray(jorb._orientations(jnp.asarray(x), jnp.asarray(u)))
+    ang_x = np.concatenate([np.asarray(_orientations(jnp.asarray(x), jnp.asarray(u)))
                             for x, u in zip(levels, uvs)])
-    desc_x = np.concatenate([np.asarray(jorb._descriptors(jnp.asarray(b), jnp.asarray(u), jnp.asarray(a)))
+    desc_x = np.concatenate([np.asarray(_descriptors(jnp.asarray(b), jnp.asarray(u), jnp.asarray(a)))
                              for b, u, a in zip(blurs, uvs, np.split(ang_x, 2))])
-    ang_p, desc_p = jk4.orb_orientation_descriptors(jnp.asarray(canvas), jnp.asarray(canvas_blur),
-                                                    jnp.asarray(uv_canvas), interpret=True)
+    ang_p, desc_p = _k4_pallas(jnp.asarray(canvas), jnp.asarray(canvas_blur), jnp.asarray(uv_canvas),
+                               interpret=True)
     tk4.launches = 0
     ang_t, desc_t = tk4.orb_orientation_descriptors(T(canvas), T(canvas_blur), T(uv_canvas))
     assert tk4.launches == 0          # a CPU tensor runs the plain version
@@ -167,10 +178,9 @@ def test_k4_plain_at_counts_that_fill_no_block(frames, n):
     g = np.asarray(frames[1].gray)
     blur = np.asarray(jorb._gaussian_blur7(jnp.asarray(g)))
     uv = np.random.default_rng(n).uniform([19, 19], [236, 172], (n, 2)).astype(np.float32)
-    ang_x = np.asarray(jorb._orientations(jnp.asarray(g), jnp.asarray(uv)))
-    desc_x = np.asarray(jorb._descriptors(jnp.asarray(blur), jnp.asarray(uv), jnp.asarray(ang_x)))
-    ang_p, desc_p = jk4.orb_orientation_descriptors(jnp.asarray(g), jnp.asarray(blur), jnp.asarray(uv),
-                                                    interpret=True)
+    ang_x = np.asarray(_orientations(jnp.asarray(g), jnp.asarray(uv)))
+    desc_x = np.asarray(_descriptors(jnp.asarray(blur), jnp.asarray(uv), jnp.asarray(ang_x)))
+    ang_p, desc_p = _k4_pallas(jnp.asarray(g), jnp.asarray(blur), jnp.asarray(uv), interpret=True)
     ang_t, desc_t = tk4.orb_orientation_descriptors(T(g), T(blur), T(uv))
     assert ang_t.shape == (n,) and desc_t.shape == (n, 256)
     for ang, desc in ((ang_x, desc_x), (np.asarray(ang_p), np.asarray(desc_p))):
@@ -199,7 +209,7 @@ def test_extract_orb_matches_jax(extracted):
 def test_orb_detections_order_matches_jax(extracted):
     """The response-sorted candidate list: the same order (stable ties)."""
     fj, ft = extracted
-    dj, dt = jorb.orb_detections(fj), torb.orb_detections(ft)
+    dj, dt = _orb_detections(fj), torb.orb_detections(ft)
     np.testing.assert_array_equal(dt.valid.numpy(), np.asarray(dj.valid))
     v = np.asarray(dj.valid)
     np.testing.assert_array_equal(dt.uv.numpy()[v], np.asarray(dj.uv)[v])
@@ -218,7 +228,7 @@ def test_match_descriptors_matches_jax(rng, kw):
     db[12:20] = np.where(rng.uniform(size=(8, 256)) < 0.1, -da[12:20], da[12:20])
     db[20] = db[0]                        # a tie: argmin takes the first
     va, vb = rng.uniform(size=60) > 0.1, rng.uniform(size=70) > 0.1
-    want = jorb.match_descriptors(jnp.asarray(da), jnp.asarray(va), jnp.asarray(db), jnp.asarray(vb), **kw)
+    want = _match_descriptors(jnp.asarray(da), jnp.asarray(va), jnp.asarray(db), jnp.asarray(vb), **kw)
     got = torb.match_descriptors(T(da, np.int8), T(va, bool), T(db, np.int8), T(vb, bool), **kw)
     np.testing.assert_array_equal(got.index.numpy(), np.asarray(want.index))
     np.testing.assert_array_equal(got.distance.numpy(), np.asarray(want.distance))

@@ -14,6 +14,7 @@ in float64 to 1e-10 relative (elimination order only); against JAX's
 2e-4.  Shapes, placements and frame ranges exactly.
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -161,6 +162,19 @@ def test_frame_ranges_and_layouts_match_jax(ranks):
         assert torch.equal(o["gathered"], full[:, t * n:(t + 1) * n])
 
 
+@functools.lru_cache(maxsize=None)
+def jax_spike_chain_solver(world):
+    """JAX's `make_spike_chain_solver` on `make_mesh(world)` under one
+    `jax.jit`, as the JAX package's window solve runs it (called eagerly,
+    its shard_map compiles every primitive anew on each call)."""
+    import jax
+
+    from dynosam_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from dynosam_tpu.parallel.schur_dist import make_spike_chain_solver
+
+    return jax.jit(make_spike_chain_solver(jmake_mesh(world)))
+
+
 def test_spike_chain_solve_matches_thomas_and_jax(ranks):
     """The frame-split SPIKE solve, assembled from every rank's block,
     equals the port's block-Thomas `chain_solve` in float64 (1e-10
@@ -168,8 +182,6 @@ def test_spike_chain_solve_matches_thomas_and_jax(ranks):
     float32 (2e-4)."""
     import jax.numpy as jnp
 
-    from dynosam_tpu.parallel.mesh import make_mesh as jmake_mesh
-    from dynosam_tpu.parallel.schur_dist import make_spike_chain_solver
     from dynosam_tpu_torch.backend.schur import chain_solve
 
     world, out = ranks
@@ -180,8 +192,7 @@ def test_spike_chain_solve_matches_thomas_and_jax(ranks):
     assert float((got - want).abs().max() / want.abs().max()) < 1e-10
 
     A32, B32, rhs32 = chain_problem(np.float32)
-    jgot = np.asarray(make_spike_chain_solver(jmake_mesh(world))(jnp.asarray(A32), jnp.asarray(B32),
-                                                                  jnp.asarray(rhs32)))
+    jgot = np.asarray(jax_spike_chain_solver(world)(jnp.asarray(A32), jnp.asarray(B32), jnp.asarray(rhs32)))
     np.testing.assert_allclose(_assemble(out, "x32", F, T).numpy(), jgot, rtol=2e-4, atol=2e-4)
 
 

@@ -317,14 +317,14 @@ def test_world_pose_backend_logs_match_jax(tmp_path, monkeypatch):
     from dynosam_tpu.core.camera import CameraParams as JCameraParams
     from dynosam_tpu.data.base import GroundTruthFrame as JGT
     from dynosam_tpu.eval.evaluator import evaluate_all as jevaluate_all
-    from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu.testing.simulator import ScenarioConfig
     from dynosam_tpu.utils import config as jcfg
     from dynosam_tpu_torch.pipeline import PipelineResult
 
+    from test_torch_schur import jax_packets, port_packets, scenario
+
     scfg = ScenarioConfig(n_frames=10)
-    sc = Scenario(scfg)
-    packets = sc.frontend_outputs()
-    tp = [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu") for p in packets]
+    sc, packets, tp = scenario(scfg)[0], jax_packets(scfg), port_packets(scfg)
     kw = dict(backend_updater_enum=1, opt_window_size=5, opt_window_overlap=2, lm_max_iterations=8)
 
     def cfg(mod):

@@ -28,6 +28,18 @@ torch.set_num_threads(2)
 
 T = lambda a, dt=np.float32: torch.as_tensor(np.array(np.asarray(a), dt))  # noqa: E731
 
+# The JAX references, each under one `jax.jit` as the JAX package's
+# frontend runs them (called eagerly, every primitive compiles on its own).
+_inv3 = jax.jit(jlin.inv3)
+_inv_spd = jax.jit(jlin.inv_spd)
+_homography_from_points = jax.jit(jhom.homography_from_points, static_argnames=("method",))
+_transfer_error = jax.jit(jhom.transfer_error)
+_ransac_homography = jax.jit(jhom.ransac_homography, static_argnames=("iters", "threshold"))
+_sample_valid_indices = jax.jit(jran.sample_valid_indices, static_argnums=(2, 3))
+_procrustes = jax.jit(jran.procrustes)
+_rigid_from_minimal = jax.jit(jran.rigid_from_minimal)
+_ransac_rigid = jax.jit(jran.ransac_rigid, static_argnames=("iters", "threshold"))
+
 
 def _rot(rng, scale):
     w = rng.normal(0, scale, 3)
@@ -55,12 +67,12 @@ def test_linalg_inverses_match(rng):
     """Closed-form 3x3 and SPD inverses against the JAX package (f32,
     rtol 1e-4: adjugate and block-Schur forms, summed in another order)."""
     A = rng.normal(size=(20, 3, 3)).astype(np.float32) + 3 * np.eye(3, dtype=np.float32)
-    np.testing.assert_allclose(tlin.inv3(T(A)).numpy(), np.asarray(jlin.inv3(jnp.asarray(A))),
+    np.testing.assert_allclose(tlin.inv3(T(A)).numpy(), np.asarray(_inv3(jnp.asarray(A))),
                                rtol=1e-4, atol=1e-5)
     for d in (2, 3, 6, 8):
         M = rng.normal(size=(10, d, d))
         S = (M @ M.transpose(0, 2, 1) + d * np.eye(d)).astype(np.float32)
-        np.testing.assert_allclose(tlin.inv_spd(T(S)).numpy(), np.asarray(jlin.inv_spd(jnp.asarray(S))),
+        np.testing.assert_allclose(tlin.inv_spd(T(S)).numpy(), np.asarray(_inv_spd(jnp.asarray(S))),
                                    rtol=1e-4, atol=1e-5)
 
 
@@ -70,10 +82,10 @@ def test_homography_fit_and_transfer_match(rng):
     p, q, valid = _plane_homography_pairs(rng, outlier_frac=0.0)
     w = valid.astype(np.float32)
     for method in ("eigh", "solve"):
-        Hj = np.asarray(jhom.homography_from_points(jnp.asarray(p), jnp.asarray(q), jnp.asarray(w), method=method))
+        Hj = np.asarray(_homography_from_points(jnp.asarray(p), jnp.asarray(q), jnp.asarray(w), method=method))
         Ht = thom.homography_from_points(T(p), T(q), T(w), method=method).numpy()
         np.testing.assert_allclose(Ht, Hj, rtol=1e-3, atol=1e-6)
-    ej = np.asarray(jhom.transfer_error(jnp.asarray(Hj), jnp.asarray(p), jnp.asarray(q)))
+    ej = np.asarray(_transfer_error(jnp.asarray(Hj), jnp.asarray(p), jnp.asarray(q)))
     et = thom.transfer_error(T(Hj), T(p), T(q)).numpy()
     np.testing.assert_allclose(et, ej, rtol=1e-4, atol=1e-4)
 
@@ -83,8 +95,8 @@ def test_ransac_homography_with_jax_indices(rng):
     same H to 1e-3 relative."""
     p, q, valid = _plane_homography_pairs(rng)
     key = jax.random.PRNGKey(3)
-    ref = jhom.ransac_homography(key, jnp.asarray(p), jnp.asarray(q), jnp.asarray(valid), iters=128, threshold=3.0)
-    idx = np.asarray(jran.sample_valid_indices(key, jnp.asarray(valid), 128, 4))
+    ref = _ransac_homography(key, jnp.asarray(p), jnp.asarray(q), jnp.asarray(valid), iters=128, threshold=3.0)
+    idx = np.asarray(_sample_valid_indices(key, jnp.asarray(valid), 128, 4))
     got = thom.ransac_homography(T(p), T(q), T(valid, bool), iters=128, threshold=3.0, idx=T(idx, np.int64))
     np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(ref.inliers))
     assert int(got.n_inliers) == int(ref.n_inliers)
@@ -112,14 +124,14 @@ def test_procrustes_and_minimal_match(rng):
     src = rng.normal(0, 2, (30, 3))
     dst = src @ R.T + t + rng.normal(0, 0.01, (30, 3))
     w = rng.random(30)
-    Tj = jran.procrustes(jnp.asarray(src, jnp.float32), jnp.asarray(dst, jnp.float32), jnp.asarray(w, jnp.float32))
+    Tj = _procrustes(jnp.asarray(src, jnp.float32), jnp.asarray(dst, jnp.float32), jnp.asarray(w, jnp.float32))
     Tt = tran.procrustes(T(src), T(dst), T(w))
     np.testing.assert_allclose(Tt.R.numpy(), np.asarray(Tj.R), atol=1e-4)
     np.testing.assert_allclose(Tt.t.numpy(), np.asarray(Tj.t), atol=1e-4)
     s3 = rng.normal(0, 2, (16, 3, 3))
     s3[0, 2] = s3[0, 0] + 2.0 * (s3[0, 1] - s3[0, 0])          # collinear set
     d3 = s3 @ R.T + t
-    Hj, okj = jran.rigid_from_minimal(jnp.asarray(s3, jnp.float32), jnp.asarray(d3, jnp.float32))
+    Hj, okj = _rigid_from_minimal(jnp.asarray(s3, jnp.float32), jnp.asarray(d3, jnp.float32))
     Ht, okt = tran.rigid_from_minimal(T(s3), T(d3))
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
     ok = np.asarray(okj)
@@ -152,14 +164,14 @@ def test_ransac_pose_3d2d_with_jax_indices(rng, score_cap):
     indices address the compacted valid rows on both sides."""
     cam, _, p_w, uv, p_cam, valid = _pnp_problem(rng)
     key = jax.random.PRNGKey(11)
-    ref = jran.ransac_pose_3d2d(key, jnp.asarray(p_w), jnp.asarray(uv), jnp.asarray(p_cam),
-                                jnp.asarray(valid), cam, iters=200, threshold_px=2.0,
-                                min_inliers=10, score_cap=score_cap)
+    ref = jax.jit(lambda *a: jran.ransac_pose_3d2d(*a, cam, iters=200, threshold_px=2.0, min_inliers=10,
+                                                   score_cap=score_cap))(
+        key, jnp.asarray(p_w), jnp.asarray(uv), jnp.asarray(p_cam), jnp.asarray(valid))
     v = valid
     if score_cap is not None:
         order = np.argsort(~valid, kind="stable")[:score_cap]
         v = valid[order]
-    idx = np.asarray(jran.sample_valid_indices(key, jnp.asarray(v), 200, 3))
+    idx = np.asarray(_sample_valid_indices(key, jnp.asarray(v), 200, 3))
     got = tran.ransac_pose_3d2d(T(p_w)[None], T(uv)[None], T(p_cam)[None], T(valid, bool)[None],
                                 convert.camera_from_numpy(cam._asdict()), iters=200,
                                 threshold_px=2.0, min_inliers=10, score_cap=score_cap,
@@ -183,9 +195,9 @@ def test_ransac_rigid_3d3d_batched_with_jax_indices(rng):
         dst[rng.random(90) < 0.3] += rng.normal(0, 2, 3)
         valid = np.ones(90, bool) if b == 0 else np.arange(90) < 4
         key = jax.random.PRNGKey(20 + b)
-        refs.append(jran.ransac_rigid(key, jnp.asarray(src, jnp.float32), jnp.asarray(dst, jnp.float32),
-                                      jnp.asarray(valid), iters=150, threshold=0.1))
-        idxs.append(np.asarray(jran.sample_valid_indices(key, jnp.asarray(valid), 150, 3)))
+        refs.append(_ransac_rigid(key, jnp.asarray(src, jnp.float32), jnp.asarray(dst, jnp.float32),
+                                  jnp.asarray(valid), iters=150, threshold=0.1))
+        idxs.append(np.asarray(_sample_valid_indices(key, jnp.asarray(valid), 150, 3)))
         probs.append((src, dst, valid))
     src, dst, valid = (np.stack(x) for x in zip(*probs))
     got = tran.ransac_rigid(T(src), T(dst), T(valid, bool), iters=150, threshold=0.1,
@@ -294,7 +306,7 @@ def test_polish_jacobian_matches_jax_jacfwd(rng):
     X = jlie.se3_exp(jnp.asarray(rng.normal(0, 0.1, 6), jnp.float32))
     res_fn = lambda xi: j_project_local(  # noqa: E731
         cam, jlie.se3_apply(jlie.se3_inverse(jlie.se3_retract(X, xi)), jnp.asarray(p_w)))[0]
-    want = np.asarray(jax.jacfwd(res_fn)(jnp.zeros(6, jnp.float32)))       # (N, 2, 6)
+    want = np.asarray(jax.jit(jax.jacfwd(res_fn))(jnp.zeros(6, jnp.float32)))       # (N, 2, 6)
     p_cam = np.asarray(jlie.se3_apply(jlie.se3_inverse(X), jnp.asarray(p_w)))
     got = project_jacobian_pose(convert.camera_from_numpy(cam._asdict()), T(p_cam)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())

@@ -8,6 +8,7 @@ against one JAX call per problem.  The JAX solver takes its Jacobians from
 `jax.linearize`; the port from closed forms.  Same inputs from a numpy seed.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -88,8 +89,8 @@ def test_optimize_flow_and_pose_batched_matches_jax(rng):
     inlier set, pose within 2e-4 (rotation) / 2e-3 m, flows within 1e-2 px
     (f32 LM over ~10 iterations with another Jacobian route)."""
     probs = [_ego_problem(rng) for _ in range(2)]
-    refs = [jref.optimize_flow_and_pose(JCAM, X0, Xp, jnp.asarray(kp), jnp.asarray(d), jnp.asarray(f),
-                                        jnp.asarray(v), max_iterations=10, outlier_rounds=4)
+    jsolve = jax.jit(lambda *a: jref.optimize_flow_and_pose(JCAM, *a, max_iterations=10, outlier_rounds=4))
+    refs = [jsolve(X0, Xp, jnp.asarray(kp), jnp.asarray(d), jnp.asarray(f), jnp.asarray(v))
             for X0, Xp, kp, d, f, v in probs]
     X_prev = probs[0][1]
     assert all(np.array_equal(np.asarray(p[1].R), np.asarray(X_prev.R)) for p in probs)
@@ -133,8 +134,8 @@ def test_optimize_motion_only_batched_matches_jax(rng):
     sits close to some rows)."""
     probs = [_motion_problem(rng) for _ in range(2)]
     X_prev, X_cur = probs[0][1], probs[0][2]
-    refs = [jref.optimize_motion_only(JCAM, H0, X_prev, X_cur, jnp.asarray(m), jnp.asarray(up),
-                                      jnp.asarray(uc), jnp.asarray(v), max_iterations=10, outlier_rounds=4)
+    jsolve = jax.jit(lambda *a: jref.optimize_motion_only(JCAM, *a, max_iterations=10, outlier_rounds=4))
+    refs = [jsolve(H0, X_prev, X_cur, jnp.asarray(m), jnp.asarray(up), jnp.asarray(uc), jnp.asarray(v))
             for H0, _, _, m, up, uc, v in probs]
     got = tref.optimize_motion_only(
         TCAM, _tse3_stack([p[0] for p in probs]), tlie.SE3(T(X_prev.R), T(X_prev.t)),
@@ -166,8 +167,9 @@ def test_lm_optimize_eliminated_matches_jax(rng):
         return [(v["p"] - obs_p) / s1, (jlie.se3_apply(v["T"], v["p"]) - obs_q) / s2]
 
     jspecs = [jsol.RobustSpec(), jsol.RobustSpec("huber", 1.0)]
-    ref = jss.lm_optimize_eliminated(jres, jspecs, {"p": jnp.asarray(p0), "T": T_init},
-                                     jsol.LMConfig(max_iterations=15), block_keys=("p",), glob_keys=("T",))
+    ref = jax.jit(lambda v: jss.lm_optimize_eliminated(jres, jspecs, v, jsol.LMConfig(max_iterations=15),
+                                                       block_keys=("p",), glob_keys=("T",)))(
+        {"p": jnp.asarray(p0), "T": T_init})
 
     tobs_p, tobs_q = T(obs_p)[None], T(obs_q)[None]
 

@@ -22,6 +22,9 @@ Tolerances (float32 unless stated):
   equations to 3e-6 (`tests/f64_check.py` item 2 does this for JAX).
 """
 
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,32 +66,122 @@ def rel_err(a, b):
     return float(np.abs(a - b.numpy()).max() / max(np.abs(a).max(), 1e-30))
 
 
+def clone(tree):
+    """A port tree (NamedTuples, SE3, tensors) with every tensor copied."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone(x) for x in tree))
+    return tree
+
+
+_JAX_TYPES = {"SE3": jlie.SE3, "MeasurementMap": jmap.MeasurementMap, "WindowData": jmap.WindowData,
+              "WindowMasks": jfm.WindowMasks}
+
+
+def to_jax(tree):
+    """A port map, window or mask tree as the JAX package's same NamedTuple,
+    every leaf a JAX copy of the port's array (`jnp.asarray` would share a
+    CPU tensor's memory, which the port's `update_map` writes in place), a
+    window's Python `start` as the int32 scalar JAX's `slice_window` makes."""
+    if isinstance(tree, torch.Tensor):
+        return jnp.array(tree.numpy())
+    if isinstance(tree, int):
+        return jnp.asarray(tree, jnp.int32)
+    return _JAX_TYPES[type(tree).__name__](*(to_jax(x) for x in tree))
+
+
+@functools.lru_cache(maxsize=None)
+def _scenario(key):
+    sc = Scenario(ScenarioConfig(*key))
+    return sc, tuple(jax.tree.map(np.asarray, p) for p in sc.frontend_outputs())
+
+
+def scenario(scfg):
+    """The JAX `Scenario` of `scfg` and its packets as numpy trees (read-only
+    arrays), built once per process.  Read the scenario's ground truth
+    only: its packets are drawn (`frontend_outputs` draws the noise from
+    the scenario's generator, so a second call would give other packets)."""
+    return _scenario(dataclasses.astuple(scfg))
+
+
+def scenario_packets(scfg):
+    """The JAX simulator's packets of `scfg` as numpy trees (`scenario`)."""
+    return scenario(scfg)[1]
+
+
+def jax_packets(scfg):
+    """`scenario_packets(scfg)` as JAX packets."""
+    return [jax.tree.map(jnp.asarray, p) for p in scenario_packets(scfg)]
+
+
+def port_packets(scfg):
+    """`scenario_packets(scfg)` as the port's CPU packets."""
+    return [convert.frontend_output_from_numpy(p, device="cpu") for p in scenario_packets(scfg)]
+
+
+@functools.lru_cache(maxsize=None)
+def _port_map(key):
+    scfg = ScenarioConfig(*key)
+    tm = tmap.MeasurementMap.create(scfg.n_frames, scfg.ns, scfg.nd, scfg.no, device="cpu")
+    for k, p in enumerate(_scenario(key)[1]):
+        tmap.update_map(tm, convert.frontend_output_from_numpy(p, device="cpu"), k)
+    return tm
+
+
+def port_map(scfg):
+    """The JAX simulator's packets of `scfg` in the port's map (a copy of
+    one built once per process).  The port's `update_map` gives the JAX
+    map's bits (`tests/test_torch_backend_map.py`), so `to_jax` of it is
+    the map JAX's `update_map` builds."""
+    return clone(_port_map(dataclasses.astuple(scfg)))
+
+
+@functools.lru_cache(maxsize=None)
+def _window_cached(key, kw):
+    scfg = ScenarioConfig(*key)
+    tw = tmap.slice_window(_port_map(key), 0, scfg.n_frames)
+    jc, tc = JBackendConfig(**dict(kw)), BackendConfig(**dict(kw))
+    tmk = tfm.build_masks(tw, tc)
+    return to_jax(tw), tw, jc, tc, to_jax(tmk), tmk
+
+
 def _window(scfg, cfg_kw=None):
-    packets = Scenario(scfg).frontend_outputs()
-    n = scfg.n_frames
-    jm = jmap.MeasurementMap.create(n, scfg.ns, scfg.nd, scfg.no)
-    for k, p in enumerate(packets):
-        jm = jmap.update_map(jm, p, k)
-    tm = convert.measurement_map_from_numpy(jax.tree.map(np.asarray, jm), device="cpu")
-    jw, tw = jmap.slice_window(jm, 0, n), tmap.slice_window(tm, 0, n)
-    jc, tc = JBackendConfig(**(cfg_kw or {})), BackendConfig(**(cfg_kw or {}))
-    jmk, tmk = jfm.build_masks(jw, jc), tfm.build_masks(tw, tc)
-    return jw, tw, jc, tc, jmk, tmk
+    """(JAX window, port window, JAX config, port config, JAX masks, port
+    masks) of the whole scenario `scfg`, the backend configs built from
+    `cfg_kw`.  Built once per process and shared by every module that
+    imports this one: the map, window and masks through the port from the
+    JAX simulator's packets (bit-equal to JAX's own,
+    `tests/test_torch_backend_map.py::test_port_built_windows_equal_jax_bits`);
+    the port's tensors are copies for each caller."""
+    jw, tw, jc, tc, jmk, tmk = _window_cached(dataclasses.astuple(scfg), tuple(sorted((cfg_kw or {}).items())))
+    return jw, clone(tw), jc, tc, jmk, clone(tmk)
+
+
+def moved(jv0, jmk, key="H"):
+    """Initial values moved off (X by 1e-2 in the tangent, `key` (H, or
+    WorldPose's L) by 5e-2, dp by 2e-2 m): at the initial values the
+    dynamic residuals are float32 rounding noise, X^-1 (X z) - z, and so
+    are their Huber weights.  H is drawn afresh, L retracted from its
+    initial value.  The dp offset is added in numpy in the points' dtype
+    (`test_moved_dp_in_numpy_equals_jnp` holds it to the `jnp` sum's bits)."""
+    rng = np.random.default_rng(3)
+    W, O = jmk.motion_active.shape
+    dtype = np.asarray(jv0["dp"]).dtype
+    jv = dict(jv0)
+    jv["X"] = jlie.se3_retract(jv0["X"], jnp.asarray(rng.normal(0, 0.01, (W, 6)), dtype))
+    xi = jnp.asarray(rng.normal(0, 0.05, (W, O, 6)), dtype)
+    jv[key] = jlie.se3_exp(xi) if key == "H" else jlie.se3_retract(jv0[key], xi)
+    jv["dp"] = jnp.asarray(np.asarray(jv0["dp"]) + rng.normal(0, 0.02, jv0["dp"].shape).astype(dtype))
+    return jv
 
 
 def build_problem():
     """A window-10 scenario (2 objects, default sigmas) and both packages'
-    normal systems at values moved off the initial ones (at the initial
-    values the dynamic residuals are float32 rounding noise, X^-1 (X z) - z,
-    and so are their Huber weights)."""
+    normal systems at values moved off the initial ones (`moved`)."""
     jw, tw, jc, tc, jmk, tmk = _window(ScenarioConfig(n_frames=10))
     jv0, tv0 = jfm.init_values(jw, jmk, jc), tfm.init_values(tw, tmk, tc)
-    rng = np.random.default_rng(3)
-    W, O = jmk.motion_active.shape
-    jv = dict(jv0)
-    jv["X"] = jlie.se3_retract(jv0["X"], jnp.asarray(rng.normal(0, 0.01, (W, 6)), jnp.float32))
-    jv["H"] = jlie.se3_exp(jnp.asarray(rng.normal(0, 0.05, (W, O, 6)), jnp.float32))
-    jv["dp"] = jv0["dp"] + jnp.asarray(rng.normal(0, 0.02, jv0["dp"].shape), jnp.float32)
+    jv = moved(jv0, jmk)
     tv = to_port(jv)
 
     @jax.jit
@@ -155,7 +248,7 @@ def test_pose_family_jacobians_match_jax_jacfwd():
     for (j0, j1), (t0, t1) in cases:
         assert t0.dtype == torch.float32
         assert rel_err(j0, t0) <= 1e-5 and rel_err(j1, t1) <= 1e-5, (rel_err(j0, t0), rel_err(j1, t1))
-    j_anchor = jax.jacfwd(lambda a: jfactors.prior_residual(jlie.se3_retract(ja[0], a), jz[0]) / 1e-4)(z6)
+    j_anchor = jax.jit(jax.jacfwd(lambda a: jfactors.prior_residual(jlie.se3_retract(ja[0], a), jz[0]) / 1e-4))(z6)
     t_anchor = tschur._right_jacobian_inv(tfactors.prior_residual(ta[0], tz[0])) / 1e-4
     assert rel_err(j_anchor, t_anchor) <= 1e-5
 
@@ -246,3 +339,28 @@ def test_schur_step_equals_dense_solve_float64():
     # dp comes from the chain back-substitution on top of the reduced
     # solve, as in `tests/f64_check.py` (atol 1e-5 there)
     np.testing.assert_allclose(got["dp"].numpy() * ok, want["dp"].numpy() * ok, rtol=0, atol=1e-5)
+
+
+def assert_moved_dp_equals_jnp(jv0, jmk, got):
+    """`moved(jv0, jmk, ...)["dp"]` (`got`) has the bits of the `jnp` sum
+    it replaces, `jv0["dp"] + jnp.asarray(draw, dtype)`."""
+    rng = np.random.default_rng(3)
+    W, O = jmk.motion_active.shape
+    rng.normal(0, 0.01, (W, 6)), rng.normal(0, 0.05, (W, O, 6))
+    dtype = jv0["dp"].dtype
+    want = jv0["dp"] + jnp.asarray(rng.normal(0, 0.02, jv0["dp"].shape), dtype)
+    assert got.dtype == want.dtype == dtype
+    assert np.array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("formulation", ["motion", "pose"])
+def test_moved_dp_in_numpy_equals_jnp(formulation):
+    """`moved` adds its dp offset in numpy: on the values the fixtures move
+    (WorldMotion's and WorldPose's initial values of the window-10
+    scenario), the sum has the bits of the `jnp` sum it replaces
+    (`test_torch_world_pose.py::test_schur_step_pose_float64_matches_jax`
+    checks WorldPose's float64 values too)."""
+    jw, _, jc, _, jmk, _ = _window(ScenarioConfig(n_frames=10))
+    jv0 = (jfm.init_values if formulation == "motion" else jfm.init_values_world_pose)(jw, jmk, jc)
+    assert_moved_dp_equals_jnp(jv0, jmk, moved(jv0, jmk, "H" if formulation == "motion" else "L")["dp"])
+

@@ -131,18 +131,25 @@ def worker_problem():
     return port_problem(torch.float64)
 
 
+@pytest.fixture(scope="module")
+def single_refs(worker_problem):
+    """The single-process solve of the worker problem for each updater,
+    shared by both mesh shapes."""
+    from dynosam_tpu_torch.backend.solver import LMConfig
+
+    return {u: single_solve(worker_problem, 8, u, LMConfig(max_iterations=4)) for u in (0, 1)}
+
+
 @pytest.mark.parametrize("updater", [0, 1])
 @pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
-def test_distributed_schur_matches_single_process_f64(worker_problem, mesh_shape, updater):
+def test_distributed_schur_matches_single_process_f64(single_refs, mesh_shape, updater):
     """Float64: the distributed solve equals the single-process solve to
     mp_worker's bar, with 7 collectives per LM iteration, and refuses a
     window or a track pool that does not split."""
-    from dynosam_tpu_torch.backend.solver import LMConfig
-
     F, T = mesh_shape
     out = run_ranks("test_torch_schur_dist:solve_rank", F * T,
                     dict(tracks=T, updater=updater, x64=True, problem="worker"), TIMEOUT, PYPATH)
-    ref = single_solve(worker_problem, 8, updater, LMConfig(max_iterations=4))
+    ref = single_refs[updater]
     tol = 1e-6 if updater == 0 else 2e-5
     pk = "H" if updater == 0 else "L"
     for o in out:
@@ -164,16 +171,16 @@ def test_distributed_schur_matches_single_process_f64(worker_problem, mesh_shape
 
 @pytest.fixture(scope="module")
 def jax_problem():
+    """The JAX simulator's map of the scenario as numpy leaves, built
+    through the port (`test_torch_schur.port_map`, JAX's bits)."""
     import jax
 
-    from dynosam_tpu.backend.map import MeasurementMap, update_map
-    from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+    from dynosam_tpu.testing.simulator import ScenarioConfig
 
-    sc = Scenario(ScenarioConfig(n_frames=8, n_static=40, n_objects=2, pts_per_object=12, ns=64, nd=32, no=4))
-    m = MeasurementMap.create(8, 64, 32, 4)
-    for k, pkt in enumerate(sc.frontend_outputs()):
-        m = update_map(m, pkt, k)
-    return jax.tree.map(np.asarray, m)
+    from test_torch_schur import port_map, to_jax
+
+    scfg = ScenarioConfig(n_frames=8, n_static=40, n_objects=2, pts_per_object=12, ns=64, nd=32, no=4)
+    return jax.tree.map(np.asarray, to_jax(port_map(scfg)))
 
 
 @pytest.mark.parametrize("updater", [0, 1])

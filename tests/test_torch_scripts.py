@@ -40,9 +40,8 @@ import torch
 
 from dynosam_tpu.core import lie as jlie
 from dynosam_tpu.data.kitti import KittiDataset as JKittiDataset
-from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+from dynosam_tpu.testing.simulator import ScenarioConfig
 from dynosam_tpu.utils import config as jcfg
-from dynosam_tpu_torch import convert
 from dynosam_tpu_torch.core.lie import SE3
 from dynosam_tpu_torch.data.kitti import KittiDataset
 from dynosam_tpu_torch.scripts import (
@@ -54,6 +53,8 @@ from dynosam_tpu_torch.scripts import (
     sliding_vs_batch,
 )
 from dynosam_tpu_torch.utils import config as tcfg
+
+from test_torch_schur import jax_packets, port_packets, scenario
 
 torch.set_num_threads(2)
 
@@ -84,8 +85,9 @@ def test_parse_value_sweep_and_base_match_jax():
 def test_sliding_vs_batch_curves_match_jax():
     jsvb = jax_script("sliding_vs_batch")
     scfg = ScenarioConfig(n_frames=16)
-    sc = Scenario(scfg)
-    packets = sc.frontend_outputs()
+    sc = scenario(scfg)[0]
+    packets = jax_packets(scfg)
+    se3_local = jax.jit(jlie.se3_local)
     jcap = jcfg.CapacityConfig(max_static_tracks=scfg.ns, max_dynamic_tracks=scfg.nd, max_objects=scfg.no,
                                max_frames=scfg.n_frames)
     jcurves = {}
@@ -101,11 +103,11 @@ def test_sliding_vs_batch_curves_match_jax():
             if not xv[k]:
                 errs.append(np.nan)
                 continue
-            e = np.asarray(jlie.se3_local(sc.X_gt[k], jax.tree.map(lambda a: a[k], X)))
+            e = np.asarray(se3_local(sc.X_gt[k], jax.tree.map(lambda a: a[k], X)))
             errs.append(float(np.linalg.norm(e[3:])))
         jcurves[name] = np.asarray(errs)
 
-    tpackets = [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu") for p in packets]
+    tpackets = port_packets(scfg)
     tcap = tcfg.CapacityConfig(max_static_tracks=scfg.ns, max_dynamic_tracks=scfg.nd, max_objects=scfg.no,
                                max_frames=scfg.n_frames)
     gt = SE3(torch.as_tensor(np.array(sc.X_gt.R)), torch.as_tensor(np.array(sc.X_gt.t)))

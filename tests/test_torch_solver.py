@@ -37,6 +37,7 @@ Tolerances (float32):
 """
 
 import contextlib
+import functools
 import time
 
 import jax
@@ -47,7 +48,6 @@ import torch
 
 from dynosam_tpu.backend import formulation as jfm
 from dynosam_tpu.backend import solver as jsolver
-from dynosam_tpu.core import lie as jlie
 from dynosam_tpu.ops.robust import robust_sqrt_weights
 from dynosam_tpu.testing.simulator import ScenarioConfig
 from dynosam_tpu_torch import convert
@@ -56,7 +56,7 @@ from dynosam_tpu_torch.backend import schur as tschur
 from dynosam_tpu_torch.backend import solver as tsolver
 from dynosam_tpu_torch.backend.backend import lm_config
 
-from test_torch_schur import _window, rel_err, to_port
+from test_torch_schur import _window, moved, rel_err, to_port
 
 torch.set_num_threads(2)
 
@@ -84,25 +84,12 @@ def test_pcg_matches_jax(max_iters, tol):
     assert int(fi) == int(ti) and torch.equal(fx, tx["a"])
 
 
-def _moved(jw, jmk, jc):
-    """Initial values moved off (X by 1e-2, H by 5e-2 in the tangent, dp by
-    2e-2 m) as `test_torch_schur.build_problem` moves them."""
-    jv0 = jfm.init_values(jw, jmk, jc)
-    rng = np.random.default_rng(3)
-    W, O = jmk.motion_active.shape
-    jv = dict(jv0)
-    jv["X"] = jlie.se3_retract(jv0["X"], jnp.asarray(rng.normal(0, 0.01, (W, 6)), jnp.float32))
-    jv["H"] = jlie.se3_exp(jnp.asarray(rng.normal(0, 0.05, (W, O, 6)), jnp.float32))
-    jv["dp"] = jv0["dp"] + jnp.asarray(rng.normal(0, 0.02, jv0["dp"].shape), jnp.float32)
-    return jv
-
-
 @pytest.fixture(scope="module")
 def linearised():
     """The window-10 scenario at moved values: both packages' diagonal,
     product on a random tangent, and gradient."""
     jw, tw, jc, tc, jmk, tmk = _window(ScenarioConfig(n_frames=10))
-    jv = _moved(jw, jmk, jc)
+    jv = moved(jfm.init_values(jw, jmk, jc), jmk)
     tv = to_port(jv)
     specs = jfm.world_motion_families(jc).robust
     rng = np.random.default_rng(8)
@@ -191,18 +178,45 @@ def test_full_batch_lm_pcg_matches_jax(full_batch):
     np.testing.assert_allclose(tres.values["X"].t.numpy(), np.asarray(jres.values["X"].t), rtol=0, atol=1e-4)
 
 
+@functools.partial(jax.jit, static_argnames=("n",))
+def _probe_draws(template, seed, it, n):
+    """`hutchinson_diag`'s draws: `n` Rademacher tangents shaped like
+    `template`, split from `fold_in(PRNGKey(seed), it)`."""
+    leaves, treedef = jax.tree.flatten(template)
+    out = []
+    for k in jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), it), n):
+        ks = jax.random.split(k, len(leaves))
+        out.append(jax.tree.unflatten(treedef, [jax.random.rademacher(ki, leaf.shape, dtype=leaf.dtype)
+                                                for ki, leaf in zip(ks, leaves)]))
+    return out
+
+
 def jax_probes(template: dict, it: int, seed: int = 0, n: int = 8) -> list:
     """The Rademacher probes JAX's `lm_optimize` draws at LM iteration `it`
     (`hutchinson_diag` with `fold_in(PRNGKey(seed), it)`), as the port's
-    tangent dicts: leaves in JAX's tree order (sorted keys)."""
-    key = jax.random.fold_in(jax.random.PRNGKey(seed), it)
-    leaves, treedef = jax.tree.flatten(template)
-    out = []
-    for k in jax.random.split(key, n):
-        ks = jax.random.split(k, len(leaves))
-        z = [jax.random.rademacher(ki, leaf.shape, dtype=leaf.dtype) for ki, leaf in zip(ks, leaves)]
-        out.append({name: torch.as_tensor(np.array(v)) for name, v in jax.tree.unflatten(treedef, z).items()})
-    return out
+    tangent dicts: leaves in JAX's tree order (sorted keys).  One jitted
+    call per template shape; the seed and iteration are traced."""
+    return [{name: torch.as_tensor(np.array(v)) for name, v in z.items()}
+            for z in _probe_draws(template, jnp.uint32(seed), jnp.uint32(it), n)]
+
+
+def test_jitted_probes_equal_the_eager_draws():
+    """`jax_probes` draws under one `jax.jit`; the threefry draws are
+    integer arithmetic, so they equal the eager `jax.random` calls bit for
+    bit (a two-leaf template, iterations 0 and 3)."""
+    template = {k: jnp.zeros(sh, jnp.float32) for k, sh in {"b": (4, 3), "a": (3, 6)}.items()}
+    for it in (0, 3):
+        key = jax.random.fold_in(jax.random.PRNGKey(0), it)
+        leaves, treedef = jax.tree.flatten(template)
+        got = jax_probes(template, it)
+        assert len(got) == 8
+        for k, z in zip(jax.random.split(key, 8), got):
+            ks = jax.random.split(k, len(leaves))
+            want = jax.tree.unflatten(treedef, [jax.random.rademacher(ki, leaf.shape, dtype=leaf.dtype)
+                                                for ki, leaf in zip(ks, leaves)])
+            for name in template:
+                assert z[name].dtype == torch.float32
+                assert np.array_equal(z[name].numpy(), np.asarray(want[name])), (it, name)
 
 
 def test_hutchinson_diag_matches_jax_with_its_probes():
@@ -270,11 +284,10 @@ def test_lm_optimize_without_the_analytic_diagonal_matches_jax():
             normal_fn=lambda x, sw, r: tschur.world_motion_normal_product(x, sw, r, w, tmk, tc, anchor),
             probes=lambda it: jax_probes(template, it))
 
-    jres, tres = jax_solve(jw), port_solve(tw)
+    (je, jt), (te, tt), (de, dt), (jres, tres) = _floor_and_diff(jax_solve, port_solve, jw, tw)
     assert tres.iterations == int(jres.iterations) == 1
     assert float(tres.lam) == float(jres.lam)
     assert float(tres.error) < 0.5 * float(tres.initial_error)
-    (je, jt), (te, tt), (de, dt) = _floor_and_diff(jax_solve, port_solve, jw, tw)
     assert de <= 2 * (je + te), (de, je, te)
     assert dt <= 2 * (jt + tt), (dt, jt, tt)
 

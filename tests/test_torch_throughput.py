@@ -40,14 +40,37 @@ import torch
 from dynosam_tpu import throughput as jtp
 from dynosam_tpu.backend import formulation as jfm
 from dynosam_tpu.backend import map as jmap
-from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+from dynosam_tpu.testing.simulator import ScenarioConfig
 from dynosam_tpu.utils import config as jcfg
 from dynosam_tpu_torch import convert
 from dynosam_tpu_torch import throughput as ttp
 from dynosam_tpu_torch.backend import backend as tbe
+from dynosam_tpu_torch.backend import map as tmap
 from dynosam_tpu_torch.utils import config as tcfg
 
+from test_torch_schur import port_map, port_packets, scenario_packets, to_jax
+
 torch.set_num_threads(2)
+
+
+# JAX's window solve, one jit for the module (its static configs key the
+# compiles)
+_solve_window = jax.jit(jtp._solve_window, static_argnames=("window", "cfg", "lm_cfg", "pose_key", "updater"))
+
+
+class _JaxMap:
+    """The map JAX's `update_map` builds from numpy packets, built through
+    the port's `update_map` (JAX's bits, `tests/test_torch_backend_map.py`)
+    and read as JAX arrays where a JAX solve takes it."""
+
+    def __init__(self, scfg):
+        self.tm = tmap.MeasurementMap.create(scfg.n_frames, scfg.ns, scfg.nd, scfg.no, device="cpu")
+
+    def update(self, pkt, k):
+        tmap.update_map(self.tm, convert.frontend_output_from_numpy(pkt, device="cpu"), k)
+
+    def jax(self):
+        return to_jax(self.tm)
 
 
 def _loop_cfg(mod, scfg):
@@ -61,22 +84,22 @@ def _loop_cfg(mod, scfg):
 
 def test_segment_loop_matches_jax_after_each_window():
     scfg = ScenarioConfig(n_frames=16)
-    packets = Scenario(scfg).frontend_outputs()
+    packets = scenario_packets(scfg)
     jc, tc = _loop_cfg(jcfg, scfg), _loop_cfg(tcfg, scfg)
-    solve = jax.jit(jtp._solve_window, static_argnames=("window", "cfg", "lm_cfg", "pose_key", "updater"))
     lm_cfg = jtp._lm_cfg(jc.backend)
-    m = jmap.MeasurementMap.create(16, scfg.ns, scfg.nd, scfg.no)
+    m = _JaxMap(scfg)
     est = jtp.EstStore.create(16, scfg.ns, scfg.nd, scfg.no)
     runner = ttp.make_offline_runner(None, tc, 16, device="cpu")
     starts = []
     for k, pkt in enumerate(packets):
-        m = jmap.update_map(m, pkt, k)
-        runner.add_packet(convert.frontend_output_from_numpy(jax.tree.map(np.asarray, pkt), device="cpu"))
+        m.update(pkt, k)
+        runner.add_packet(convert.frontend_output_from_numpy(pkt, device="cpu"))
         start = runner.window_due()
         if start is None:
             continue
         starts.append(start)
-        est, jres = solve(est, m, jnp.int32(start), window=10, cfg=jc, lm_cfg=lm_cfg, pose_key="H", updater=0)
+        est, jres = _solve_window(est, m.jax(), jnp.int32(start), window=10, cfg=jc, lm_cfg=lm_cfg, pose_key="H",
+                                  updater=0)
         win = runner.solve(start)
         assert win.solve_ms() is None                   # no CUDA events on the CPU
         assert float(win.result.error) < float(win.result.initial_error)
@@ -123,14 +146,33 @@ def test_options_outside_the_slice_raise(option):
             ttp.make_offline_runner(None, cfg, 28, device="cpu")
 
 
-def _jiggled(packets, rng):
+def _jiggled(packets, rng, module=np):
     """The packets with their static and dynamic measurements scaled by
-    (1 + 1e-7 N(0, 1))."""
+    (1 + 1e-7 N(0, 1)): numpy packets in numpy float32 (the default), JAX
+    packets with `module=jnp` (the form
+    `test_jiggled_packets_in_numpy_equal_jnp` holds the numpy one to)."""
     def j(x):
+        if module is np:
+            return x * (np.float32(1) + np.float32(1e-7) * rng.standard_normal(x.shape).astype(np.float32))
         return x * (1 + 1e-7 * jnp.asarray(rng.standard_normal(x.shape), jnp.float32))
 
     return [p._replace(static_obs=p.static_obs._replace(xyz=j(p.static_obs.xyz)),
                        dynamic_obs=p.dynamic_obs._replace(xyz=j(p.dynamic_obs.xyz))) for p in packets]
+
+
+def test_jiggled_packets_in_numpy_equal_jnp():
+    """`_jiggled`'s numpy float32 product has the bits of the `jnp` form it
+    replaces on the 16-frame scenario's packets, over the 2 draws the
+    floor takes."""
+    packets = scenario_packets(ScenarioConfig(n_frames=16))
+    rng, ref = np.random.default_rng(0), np.random.default_rng(0)
+    for _ in range(2):
+        got = _jiggled(packets, rng)
+        want = _jiggled([jax.tree.map(jnp.asarray, p) for p in packets], ref, jnp)
+        for a, b in zip(got, want):
+            for x, y in ((a.static_obs.xyz, b.static_obs.xyz), (a.dynamic_obs.xyz, b.dynamic_obs.xyz)):
+                assert x.dtype == y.dtype == np.float32
+                assert np.array_equal(x, np.asarray(y))
 
 
 def test_segment_loop_world_pose_matches_jax():
@@ -142,20 +184,20 @@ def test_segment_loop_world_pose_matches_jax():
     the static and dynamic measurements move by one part in 1e7, 2
     draws)."""
     scfg = ScenarioConfig(n_frames=16)
-    packets = Scenario(scfg).frontend_outputs()
+    packets = scenario_packets(scfg)
     jc, tc = _loop_cfg(jcfg, scfg), _loop_cfg(tcfg, scfg)
     jc = dataclasses.replace(jc, backend=dataclasses.replace(jc.backend, backend_updater_enum=1))
     tc = dataclasses.replace(tc, backend=dataclasses.replace(tc.backend, backend_updater_enum=1))
-    solve = jax.jit(jtp._solve_window, static_argnames=("window", "cfg", "lm_cfg", "pose_key", "updater"))
     lm_cfg = jtp._lm_cfg(jc.backend)
 
     def jax_loop(pk, check=None):
-        m = jmap.MeasurementMap.create(16, scfg.ns, scfg.nd, scfg.no)
+        m = _JaxMap(scfg)
         est = jtp.EstStore.create(16, scfg.ns, scfg.nd, scfg.no)
         for k, p in enumerate(pk):
-            m = jmap.update_map(m, p, k)
+            m.update(p, k)
             if k >= 9 and (k - 9) % 6 == 0:
-                est, _ = solve(est, m, jnp.int32(k - 9), window=10, cfg=jc, lm_cfg=lm_cfg, pose_key="L", updater=1)
+                est, _ = _solve_window(est, m.jax(), jnp.int32(k - 9), window=10, cfg=jc, lm_cfg=lm_cfg,
+                                       pose_key="L", updater=1)
                 if check is not None:
                     check.append(jax.tree.map(np.asarray, est))
         return np.asarray(est.X.t)
@@ -163,7 +205,7 @@ def test_segment_loop_world_pose_matches_jax():
     def port_loop(pk, check=None):
         runner = ttp.make_offline_runner(None, tc, 16, device="cpu")
         for p in pk:
-            runner.add_packet(convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu"))
+            runner.add_packet(convert.frontend_output_from_numpy(p, device="cpu"))
             for s in runner.windows_due():
                 runner.solve(s)
                 if check is not None:
@@ -177,7 +219,7 @@ def test_segment_loop_world_pose_matches_jax():
         b = convert.est_store_from_numpy(a, device="cpu", updater=1)
         for f in ("static_valid", "dyn_valid", "X_valid", "motion_valid"):
             assert np.array_equal(getattr(a, f), getattr(t, f)), f
-        assert torch.equal(b.L.t, torch.as_tensor(a.P.t)) and not b.H.t.any()
+        assert torch.equal(b.L.t, torch.as_tensor(np.array(a.P.t))) and not b.H.t.any()
     assert not tsnaps[-1].H.t.any() and tsnaps[-1].L.t.any()
     rng = np.random.default_rng(0)
     draws = [_jiggled(packets, rng) for _ in range(2)]
@@ -191,8 +233,7 @@ def test_offline_runner_does_not_apply_the_fixed_lag_prior():
     (its `_solve_window` passes no `anchor_prior_L`), leaves the offline
     solves unchanged: the store equals the run without the option."""
     scfg = ScenarioConfig(n_frames=16)
-    packets = [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
-               for p in Scenario(scfg).frontend_outputs()]
+    packets = port_packets(scfg)
     cfg = _loop_cfg(tcfg, scfg)
     runs = []
     for flag in (False, True):
@@ -213,22 +254,22 @@ def test_offline_runner_varpro_windows():
     store's masks equal JAX's runner's on the same packets (the masks do
     not depend on the Hutchinson probes, which differ)."""
     scfg = ScenarioConfig(n_frames=16)
-    packets = Scenario(scfg).frontend_outputs()
+    packets = port_packets(scfg)
     kw = dict(use_varpro=True, lm_max_iterations=2, cg_max_iterations=10)
     jc, tc = _loop_cfg(jcfg, scfg), _loop_cfg(tcfg, scfg)
     tc = dataclasses.replace(tc, backend=dataclasses.replace(tc.backend, **kw))
     runner = ttp.make_offline_runner(None, tc, 16, device="cpu")
     for p in packets:
-        runner.add_packet(convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu"))
+        runner.add_packet(p)
         for s in runner.windows_due():
             r = runner.solve(s).result
             assert float(r.error) < float(r.initial_error)
     assert [w.start for w in runner.windows] == [0, 6]
     assert torch.isfinite(runner.est.X.t).all() and runner.est.X_valid[:16].all()
-    m = jmap.MeasurementMap.create(16, scfg.ns, scfg.nd, scfg.no)
-    for k, p in enumerate(packets):
-        m = jmap.update_map(m, p, k)
-    masks = jfm.build_masks(jmap.slice_window(m, 6, 10), jc.backend)
+    # JAX's masks of the second window, on JAX's map of the packets (built
+    # through the port, `test_torch_schur.port_map`); slices and boolean
+    # logic, so one jitted call gives the eager calls' bits
+    masks = jax.jit(lambda m: jfm.build_masks(jmap.slice_window(m, 6, 10), jc.backend))(to_jax(port_map(scfg)))
     t = convert.frontend_output_to_numpy(runner.est)
     assert np.array_equal(np.asarray(masks.dyn_obs), t.dyn_valid[6:16])
     assert np.array_equal(np.asarray(masks.motion_active), t.motion_valid[6:16])
@@ -239,8 +280,7 @@ def test_offline_runner_solves_grouped_windows():
     windows (`solve_group`), the same solve as `backend.solve_windows` from
     an empty store, every frame covered."""
     scfg = ScenarioConfig(n_frames=16)
-    packets = [convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
-               for p in Scenario(scfg).frontend_outputs()]
+    packets = port_packets(scfg)
     cfg = _loop_cfg(tcfg, scfg)
     cfg = dataclasses.replace(cfg, backend=dataclasses.replace(cfg.backend, opt_windows_per_dispatch=2))
     out = ttp.make_offline_runner(None, cfg, 16, device="cpu")
@@ -270,10 +310,9 @@ def test_lm_pcg_windows_run(option):
     jc, tc = _loop_cfg(jcfg, scfg), _loop_cfg(tcfg, scfg)
     jc = dataclasses.replace(jc, backend=dataclasses.replace(jc.backend, **kw))
     tc = dataclasses.replace(tc, backend=dataclasses.replace(tc.backend, **kw))
-    packets = Scenario(scfg).frontend_outputs()
     runner = ttp.make_offline_runner(None, tc, scfg.n_frames, device="cpu")
-    for pkt in packets:
-        runner.add_packet(convert.frontend_output_from_numpy(jax.tree.map(np.asarray, pkt), device="cpu"))
+    for pkt in port_packets(scfg):
+        runner.add_packet(pkt)
         start = runner.window_due()
         if start is not None:
             r = runner.solve(start).result
@@ -282,12 +321,9 @@ def test_lm_pcg_windows_run(option):
     assert [w.start for w in runner.windows] == ([0, 6] if option == "no_schur" else [0])
     assert runner.est.X_valid[:scfg.n_frames].all()
     if option == "long_window":
-        m = jmap.MeasurementMap.create(20, scfg.ns, scfg.nd, scfg.no)
-        for k, pkt in enumerate(packets):
-            m = jmap.update_map(m, pkt, k)
-        est, _ = jax.jit(jtp._solve_window, static_argnames=("window", "cfg", "lm_cfg", "pose_key", "updater"))(
-            jtp.EstStore.create(20, scfg.ns, scfg.nd, scfg.no), m, jnp.int32(0), window=window, cfg=jc,
-            lm_cfg=jtp._lm_cfg(jc.backend), pose_key="H", updater=0)
+        est, _ = _solve_window(jtp.EstStore.create(20, scfg.ns, scfg.nd, scfg.no), to_jax(port_map(scfg)),
+                               jnp.int32(0), window=window, cfg=jc, lm_cfg=jtp._lm_cfg(jc.backend), pose_key="H",
+                               updater=0)
         a, t = jax.tree.map(np.asarray, est), convert.frontend_output_to_numpy(runner.est)
         for f in ("static_valid", "dyn_valid", "X_valid", "motion_valid"):
             assert np.array_equal(getattr(a, f), getattr(t, f)), f

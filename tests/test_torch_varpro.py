@@ -19,49 +19,60 @@ import pytest
 import torch
 
 from dynosam_tpu.backend import formulation as jfm
-from dynosam_tpu.backend import map as jmap
 from dynosam_tpu.backend import solver as jsolver
 from dynosam_tpu.backend import varpro as jvarpro
 from dynosam_tpu.core.lie import SE3 as JSE3
-from dynosam_tpu.testing.simulator import Scenario, ScenarioConfig
+from dynosam_tpu.testing.simulator import ScenarioConfig
 from dynosam_tpu.utils import config as jcfg
-from dynosam_tpu_torch import convert
 from dynosam_tpu_torch import pipeline as tpipe
 from dynosam_tpu_torch.backend import formulation as tfm
-from dynosam_tpu_torch.backend import map as tmap
 from dynosam_tpu_torch.backend import solver as tsolver
 from dynosam_tpu_torch.backend import varpro as tvarpro
 from dynosam_tpu_torch.backend.backend import lm_config
 from dynosam_tpu_torch.utils import config as tcfg
 
-from test_torch_schur import to_port
+from test_torch_schur import _window, port_packets, scenario, to_port
 from test_torch_solver import jax_probes
 
 torch.set_num_threads(2)
 
 
 def make_problem(point_noise=0.0):
+    """The 8-frame, 2-object scenario: its ground truth, config, both
+    windows and both masks (`test_torch_schur._window`, built once per
+    process)."""
     scfg = ScenarioConfig(n_frames=8, n_static=30, n_objects=2, pts_per_object=10, ns=40, nd=32, no=4,
                           point_noise=point_noise, odom_rot_noise=0.0, odom_trans_noise=0.0)
-    sc = Scenario(scfg)
-    m = jmap.MeasurementMap.create(8, 40, 32, 4)
-    for k, pkt in enumerate(sc.frontend_outputs()):
-        m = jmap.update_map(m, pkt, k)
-    jw = jmap.slice_window(m, 0, 8)
-    tm = convert.measurement_map_from_numpy(jax.tree.map(np.asarray, m), device="cpu")
-    tw = tmap.slice_window(tm, 0, 8)
-    return sc, scfg, jw, tw, jfm.build_masks(jw, jcfg.BackendConfig()), tfm.build_masks(tw, tcfg.BackendConfig())
+    jw, tw, _, _, jmk, tmk = _window(scfg)
+    return scenario(scfg)[0], scfg, jw, tw, jmk, tmk
 
 
 def gt_values(sc, scfg):
-    """True camera poses and constant object motions, padded to 4 slots."""
+    """True camera poses and constant object motions, padded to 4 slots
+    (stacked and tiled in numpy: no arithmetic, so JAX's bits)."""
+    R = np.stack([np.asarray(sc.H_gt[j][1].R) for j in range(scfg.n_objects)])
+    t = np.stack([np.asarray(sc.H_gt[j][1].t) for j in range(scfg.n_objects)])
+    F = scfg.n_frames
+    eye = np.tile(np.eye(3, dtype=np.float32), (F, 2, 1, 1))
+    H = JSE3(jnp.asarray(np.concatenate([np.tile(R[None], (F, 1, 1, 1)), eye], 1)),
+             jnp.asarray(np.concatenate([np.tile(t[None], (F, 1, 1)), np.zeros((F, 2, 3), np.float32)], 1)))
+    return sc.X_gt, H
+
+
+def test_gt_values_in_numpy_equal_jnp():
+    """`gt_values` stacks in numpy what `jnp` stacked: the same dtypes and
+    bits on the scenario the tests use."""
+    sc, scfg = make_problem(0.02)[:2]
     R = jnp.stack([sc.H_gt[j][1].R for j in range(scfg.n_objects)])
     t = jnp.stack([sc.H_gt[j][1].t for j in range(scfg.n_objects)])
     F = scfg.n_frames
     eye = jnp.tile(jnp.eye(3, dtype=jnp.float32), (F, 2, 1, 1))
-    H = JSE3(jnp.concatenate([jnp.tile(R[None], (F, 1, 1, 1)), eye], 1),
-             jnp.concatenate([jnp.tile(t[None], (F, 1, 1)), jnp.zeros((F, 2, 3), jnp.float32)], 1))
-    return sc.X_gt, H
+    want = JSE3(jnp.concatenate([jnp.tile(R[None], (F, 1, 1, 1)), eye], 1),
+                jnp.concatenate([jnp.tile(t[None], (F, 1, 1)), jnp.zeros((F, 2, 3), jnp.float32)], 1))
+    got = gt_values(sc, scfg)[1]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
 @pytest.mark.parametrize("noise", [0.0, 0.02])
@@ -98,8 +109,8 @@ def test_varpro_lm_matches_jax_with_its_probes():
     jc, tc = jcfg.BackendConfig(cg_max_iterations=20), tcfg.BackendConfig(cg_max_iterations=20)
     specs = jfm.world_motion_families(jc).robust
     lm = jsolver.LMConfig(max_iterations=1, cg_max_iterations=20, cg_tol=jc.cg_tol)
-    j0 = jfm.init_values(jw, jmk, jc)
-    template = jsolver.zero_delta({"X": j0["X"], "H": j0["H"]})
+    t0 = tfm.init_values(tw, tmk, tc)          # the probes take the tangent's shapes only
+    template = {k: jnp.zeros(v.shape, jnp.float32) for k, v in tsolver.zero_delta({"X": t0["X"], "H": t0["H"]}).items()}
 
     @jax.jit
     def jax_solve(w):
@@ -115,12 +126,11 @@ def test_varpro_lm_matches_jax_with_its_probes():
                                    normal_fn=tvarpro.linearized_normal_product(resid),
                                    probes=lambda it: jax_probes(template, it))
 
-    jres, tres = jax_solve(jw), port_solve(tw)
+    (je, jt), (te, tt), (de, dt), (jres, tres) = _floor_and_diff(jax_solve, port_solve, jw, tw)
     # the eliminated points carry the chain solve's float32 rounding into
     # residuals whitened by sigma 1e-5: the initial errors agree to 1e-4
     assert float(tres.initial_error) == pytest.approx(float(jres.initial_error), rel=1e-4)
     assert float(tres.lam) == float(jres.lam)
-    (je, jt), (te, tt), (de, dt) = _floor_and_diff(jax_solve, port_solve, jw, tw)
     assert de <= 2 * (je + te), (de, je, te)
     assert dt <= 2 * (jt + tt), (dt, jt, tt)
 
@@ -130,13 +140,11 @@ def test_use_varpro_runs_through_the_online_backend():
     frames, 3 LM iterations, probes from the backend's generator): the
     error drops, and every frame and point written back is finite."""
     scfg = ScenarioConfig(n_frames=8, n_static=30, n_objects=2, pts_per_object=10, ns=40, nd=32, no=4)
-    packets = Scenario(scfg).frontend_outputs()
     kw = dict(use_varpro=True, use_full_batch_opt=True, lm_max_iterations=3, cg_max_iterations=20)
 
     cfg = tcfg.DynoConfig(backend=tcfg.BackendConfig(**kw), capacity=tcfg.CapacityConfig(
         max_static_tracks=40, max_dynamic_tracks=32, max_objects=4, max_frames=8))
-    tb = tpipe.run_from_packets([convert.frontend_output_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
-                                 for p in packets], cfg, device="cpu")
+    tb = tpipe.run_from_packets(port_packets(scfg), cfg, device="cpu")
     (start, window, r, _), = tb.solves
     assert (start, window) == (0, 8)
     assert float(r.error) < float(r.initial_error)

@@ -45,7 +45,7 @@ from dynosam_tpu_torch.backend import solver as tsolver
 from dynosam_tpu_torch.core.lie import SE3
 from dynosam_tpu_torch.utils import config as tcfg
 
-from test_torch_schur import _window, rel_err, to_port
+from test_torch_schur import _window, assert_moved_dp_equals_jnp, moved, rel_err, to_port
 
 torch.set_num_threads(2)
 
@@ -55,16 +55,16 @@ def _jax_sqrt_w(res, specs):
             for r, s in zip(res, specs)]
 
 
-def _moved(jw, jmk, jc, dtype=jnp.float32):
-    """WorldPose initial values moved off (X by 1e-2, L by 5e-2 in the
-    tangent, dp by 2e-2 m): at the initial values the dynamic residuals
-    are float32 rounding noise, and so are their Huber weights."""
-    jv = dict(jfm.init_values_world_pose(jw, jmk, jc))
-    rng = np.random.default_rng(3)
-    W, O = jmk.motion_active.shape
-    jv["X"] = jlie.se3_retract(jv["X"], jnp.asarray(rng.normal(0, 0.01, (W, 6)), dtype))
-    jv["L"] = jlie.se3_retract(jv["L"], jnp.asarray(rng.normal(0, 0.05, (W, O, 6)), dtype))
-    jv["dp"] = jv["dp"] + jnp.asarray(rng.normal(0, 0.02, jv["dp"].shape), dtype)
+def _moved(jw, jmk, jc, check_dp=False):
+    """WorldPose initial values moved off (`test_torch_schur.moved`: X by
+    1e-2, L by 5e-2 in the tangent, dp by 2e-2 m): at the initial values
+    the dynamic residuals are float32 rounding noise, and so are their
+    Huber weights.  `check_dp`: also hold the numpy dp offset to the `jnp`
+    sum's bits."""
+    jv0 = jfm.init_values_world_pose(jw, jmk, jc)
+    jv = moved(jv0, jmk, "L")
+    if check_dp:
+        assert_moved_dp_equals_jnp(jv0, jmk, jv["dp"])
     return jv
 
 
@@ -241,7 +241,7 @@ def test_schur_step_pose_float64_matches_jax(problem):
         cast = lambda t: jax.tree.map(  # noqa: E731
             lambda a: a.astype(jnp.float64) if hasattr(a, "dtype") and jnp.issubdtype(a.dtype, jnp.floating) else a, t)
         jw = cast(p["jw"])
-        jv = _moved(jw, p["jmk"], p["jc"], jnp.float64)
+        jv = _moved(jw, p["jmk"], p["jc"], check_dp=True)
         tw = _f64(p["tw"])
         tsys = _port_system(tw, p["tmk"], p["tc"], to_port(jv))
         assert tsys.Hcc.dtype == torch.float64

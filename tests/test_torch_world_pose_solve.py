@@ -43,11 +43,31 @@ def problem():
 
 def _jiggle(w, rng):
     """The window with its static and dynamic measurements scaled by
-    (1 + 1e-7 N(0, 1))."""
+    (1 + 1e-7 N(0, 1)), in numpy float32 (`test_jiggle_in_numpy_equals_jnp`
+    holds it to the `jnp` form's bits)."""
     def j(x):
-        return x * (1 + 1e-7 * jnp.asarray(rng.standard_normal(x.shape), jnp.float32))
+        x = np.asarray(x)
+        return jnp.asarray(x * (np.float32(1) + np.float32(1e-7) * rng.standard_normal(x.shape).astype(np.float32)))
 
     return w._replace(static_xyz=j(w.static_xyz), dyn_xyz=j(w.dyn_xyz))
+
+
+def test_jiggle_in_numpy_equals_jnp(problem):
+    """`_jiggle`'s numpy float32 product has the bits of the `jnp` form
+    it replaces, `x * (1 + 1e-7 * jnp.asarray(draw, float32))`, on the
+    windows the solves perturb (window 10 and the 8-frame full batch),
+    over `DRAWS` draws."""
+    full = _window(ScenarioConfig(n_frames=8), dict(use_full_batch_opt=True, use_schur=False,
+                                                        lm_max_iterations=15))[0]
+    for jw in (problem["jw"], full):
+        rng, ref = np.random.default_rng(0), np.random.default_rng(0)
+        for _ in range(DRAWS):
+            got = _jiggle(jw, rng)
+            for name in ("static_xyz", "dyn_xyz"):
+                x = getattr(jw, name)
+                want = x * (1 + 1e-7 * jnp.asarray(ref.standard_normal(x.shape), jnp.float32))
+                assert getattr(got, name).dtype == want.dtype == jnp.float32
+                assert np.array_equal(np.asarray(getattr(got, name)), np.asarray(want)), name
 
 
 def _spread(runs):
@@ -59,18 +79,21 @@ def _spread(runs):
 def _floor_and_diff(jax_solve, port_solve, jw, tw):
     """JAX and port solves of the window and of `DRAWS` perturbed copies:
     (JAX spread, port spread, port-vs-JAX difference) of (final error,
-    camera translations)."""
+    camera translations), and (JAX result, port result) of the window
+    itself for the checks that read them."""
     rng = np.random.default_rng(0)
     jruns, truns = [], []
     for draw in range(DRAWS + 1):
         w = _jiggle(jw, rng) if draw else jw
         r = jax_solve(w)
         jruns.append((float(r.error), np.asarray(r.values["X"].t)))
-        r = port_solve(tw._replace(static_xyz=torch.as_tensor(np.array(w.static_xyz)),
+        t = port_solve(tw._replace(static_xyz=torch.as_tensor(np.array(w.static_xyz)),
                                    dyn_xyz=torch.as_tensor(np.array(w.dyn_xyz))))
-        truns.append((float(r.error), r.values["X"].t.numpy()))
+        truns.append((float(t.error), t.values["X"].t.numpy()))
+        if not draw:
+            first = (r, t)
     diff = (abs(truns[0][0] / jruns[0][0] - 1), float(np.abs(truns[0][1] - jruns[0][1]).max()))
-    return _spread(jruns), _spread(truns), diff
+    return _spread(jruns), _spread(truns), diff, first
 
 
 @pytest.mark.parametrize("prior", ["isotropic", "anchor_prior_L"])
@@ -99,11 +122,10 @@ def test_lm_optimize_schur_pose_matches_jax(problem, prior):
                                         tsolver.LMConfig(max_iterations=7), w.X_init[0], formulation=1,
                                         anchor_prior_L=None if L is None else torch.as_tensor(L))
 
-    jres, tres = jax_solve(jw), port_solve(tw)
+    (je, jt), (te, tt), (de, dt), (jres, tres) = _floor_and_diff(jax_solve, port_solve, jw, tw)
     assert float(tres.initial_error) == pytest.approx(float(jres.initial_error), rel=1e-5)
     assert float(tres.error) < float(tres.initial_error)
     assert abs(tres.iterations - int(jres.iterations)) <= 1
-    (je, jt), (te, tt), (de, dt) = _floor_and_diff(jax_solve, port_solve, jw, tw)
     assert de <= 2 * (je + te), (de, je, te)
     assert dt <= 2 * (jt + tt), (dt, jt, tt)
 
@@ -134,9 +156,8 @@ def test_world_pose_full_batch_lm_pcg_matches_jax():
             gn_diag_fn=lambda x, sw: tfm.world_pose_gn_diag(x, sw, w, tmk, tc),
             normal_fn=lambda x, sw, r: tschur.world_pose_normal_product(x, sw, r, w, tmk, tc, anchor))
 
-    tres = port_solve(tw)
+    (je, jt), (te, tt), (de, dt), (_, tres) = _floor_and_diff(jax_solve, port_solve, jw, tw)
     assert float(tres.error) < 1e-3 * float(tres.initial_error)
     assert len(tres.cg_iterations) == tres.iterations
-    (je, jt), (te, tt), (de, dt) = _floor_and_diff(jax_solve, port_solve, jw, tw)
     assert de <= 2 * (je + te), (de, je, te)
     assert dt <= 2 * (jt + tt), (dt, jt, tt)
