@@ -100,6 +100,24 @@ no result line:
              then the window solves' graphs as in the pipeline path, and the
              kernels of one eager reduced-system factorisation at the
              window's size (cuSOLVER, which a capture can hold, or MAGMA);
+             then K7-K9 (`csrc/window.cu`: the WorldMotion window LM's
+             build, Schur reduction and update, the update also at a zero
+             step as the LM head) on the run's first window (no active
+             motion factor, F1) and on the simulator's window-10 scenario
+             (active motion factors), through `testing/window_check.py`:
+             every entry of each kernel's outputs within K_MARGIN times
+             its plain version's float32 spread on the entry's block (a
+             6x6 block of Hcc or the reduced system, a point's vector;
+             the plain version on the CPU and at inputs moved by one or
+             two ulps), at least ULP_FLOOR of the block's scale, each
+             kernel twice bit
+             for bit, K9 rejecting a failed factorisation as its plain
+             version does, each window solved graphed through K7-K9
+             against the ATen pieces (error within 3e-2, camera within
+             2e-3 m, iterations within 2); each kernel timed per call and
+             on the device beside its plain version and a bound from the
+             FLOPs and bytes that window needs, with its launch shape and
+             ptxas' registers and spills;
              then 6 frames of the same configuration, each spin's graph
              replays and host reads by site: fails unless every steady
              spin replays two graphs and reads the host at most 3 times,
@@ -220,6 +238,9 @@ Launch counts are set to 0 just before each path and read just after it.
 Every path that runs the frontend must launch K5 and K6 on every frame
 after the first (the 2d2d ego modes run K6 for the objects only), and
 every graphed steady step must read the host at most twice (the `eigh`).
+The pipeline and online paths must launch K8 once per LM iteration of
+their window solves, K9 once per iteration and once a solve (its head)
+and K7 at least once a solve; the world pose path none of them.
 
 The first line is the card's name and power limit as `nvidia-smi` gives
 them; the line before the last is a JSON object with one entry per kernel,
@@ -394,7 +415,14 @@ PATH_KERNELS = {"shi_tomasi": ("lk", "point_sample", "response", "refine", "rans
                 "evaluation": ("lk", "point_sample", "response", "refine", "ransac")}
 COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
            "shi_tomasi_response": "response", "orb_orientation_descriptors": "orb_sample",
-           "refine_rounds": "refine", "ransac": "ransac"}
+           "refine_rounds": "refine", "ransac": "ransac",
+           "window_build": "window_build", "window_step": "window_step", "window_update": "window_update"}
+# K7-K9 run on the LM iterations of WorldMotion direct-Schur window solves,
+# not on every frame: each path that solves such windows must launch K8
+# once per LM iteration of its solves, K9 once per iteration and once a
+# solve (its head) and K7 at least once a solve (`check_window_launches`);
+# the per-frame checks leave them out
+WINDOW_KERNELS = ("window_build", "window_step", "window_update")
 
 
 class SmokeFailure(RuntimeError):
@@ -1493,8 +1521,9 @@ def run_pipeline_path(torch, device, card) -> dict:
     for k in range(1, n):
         missing = [name for name in PATH_KERNELS["pipeline"] if per_frame[k][name] < 1]
         _require(not missing, f"{label}, frame {k}: kernels {missing} never launched")
-    stray = [name for name, c in totals.items() if name not in PATH_KERNELS["pipeline"] and c > 0]
+    stray = [name for name, c in totals.items() if name not in PATH_KERNELS["pipeline"] + WINDOW_KERNELS and c > 0]
     _require(not stray, f"{label}: kernels {stray} launched off their path")
+    check_window_launches(label, totals, [win.result.iterations for win in out.windows])
     est = out.est
     check_graphed_solves(torch, label, graphs, [win.solve_ms() for win in out.windows], card)
     check_graphed_steps(torch, label, steps, card)
@@ -1775,11 +1804,86 @@ def factorisation_kernels(torch, n: int, device) -> list:
                    and not e.name.startswith(("Activity Buffer", "Memcpy", "Memset"))})
 
 
+def check_window_launches(label, totals, iterations) -> None:
+    """K8 launched once per LM iteration of the path's WorldMotion window
+    solves (`iterations`, one entry a solve), K9 once per iteration and once
+    a solve for its head, K7 once a solve at least (every solve rebuilds on
+    its first iteration) and at most once an iteration; graph replays count
+    the launches they replay."""
+    n_it = sum(iterations)
+    print(f"{label}: K7-K9 launches {[totals[k] for k in WINDOW_KERNELS]} over {len(iterations)} window solves of "
+          f"{n_it} LM iterations", flush=True)
+    _require(totals["window_step"] == n_it and totals["window_update"] == n_it + len(iterations),
+             f"{label}: K8 / K9 launched {totals['window_step']} / {totals['window_update']} times over "
+             f"{len(iterations)} solves of {n_it} iterations")
+    _require(len(iterations) <= totals["window_build"] <= n_it,
+             f"{label}: K7 launched {totals['window_build']} times over {len(iterations)} solves of {n_it} iterations")
+
+
+def check_window_kernels(torch, device, card, kitti_calls) -> list:
+    """K7-K9 (`csrc/window.cu`) against their plain versions
+    (`testing/window_check.py`) on the online phase's first KITTI-width
+    window (no active motion factor, F1) and on the simulator window (active
+    motion factors): each entry of each output within K_MARGIN times its
+    plain version's float32 spread on the entry's block, each kernel twice
+    bit for bit, K9 rejecting a failed
+    factorisation as its plain version does; then each window solved
+    graphed through K7-K9 against the ATen pieces.  Each kernel timed on the
+    KITTI window per call (CUDA events, the wrapper's host work included)
+    and on the device (the profiler), beside its plain version on the card
+    and a bound from the FLOPs and bytes that window's data needs; launch
+    shapes and ptxas' registers and spills printed.  Returns K7-K9's rows."""
+    from dynosam_tpu_torch.kernels import window as kwin
+    from dynosam_tpu_torch.testing import window_check as wc
+
+    def say(line):
+        print(f"{line} on {card}", flush=True)
+
+    windows = [("kitti window", *kitti_calls[0]), ("simulator window", wc.simulator_window(device), {})]
+    errs, reports = {p: 0.0 for p in wc.PIECES}, {}
+    for label, args, kw in windows:
+        lm = wc.window_lm(args, kw)
+        pieces = wc.Pieces(lm)
+        rep = wc.hold_pieces(pieces, label, out=say)
+        for piece, r in rep.items():
+            _require(not r["bad"] and r["repeat"], f"{label}: K{wc.KERNEL_ID[piece]} window_{piece}: "
+                     f"fields {r['bad']} out of tolerance, repeat {r['repeat']}")
+            row = "update" if piece == "head" else piece
+            errs[row] = max(errs[row], r["max_abs_err"])
+        _require(wc.hold_failed_step(pieces, label, out=say), f"{label}: K9 on a failed factorisation")
+        solve = wc.hold_solve(args, kw, label, out=say)
+        _require(solve["ok"], f"{label}: the solve through K7-K9 against the ATen pieces: {solve}")
+        reports[label] = (lm, pieces)
+    lm, pieces = reports["kitti window"]
+    sysf = lm.s["sys"]
+    W, NS, ND, O = sysf.Us.shape[0], sysf.Us.shape[1], sysf.Rc.shape[1], sysf.Dmm.shape[1]
+    print(f"window kernels: launch shape at W {W}, NS {NS}, ND {ND}, O {O}: {kwin.launch_shape(W, NS, ND, O)}; "
+          f"{kernel_resources(torch, 'window.cu', 'window_')}", flush=True)
+    times = wc.time_pieces(pieces)
+    replaces = {"build": "dynosam_tpu/backend/schur.py:611", "step": "dynosam_tpu/backend/schur.py:1072",
+                "update": "dynosam_tpu/backend/schur.py:1463"}
+    device = wc.device_ms(pieces)
+    rows = []
+    for piece, (flop, nbytes) in wc.work(pieces).items():
+        dev_ms = device[piece]
+        b_ms, b_by = bound_ms(nbytes, flop)
+        ms, plain_ms = times[piece]
+        row = dict(name=f"window_{piece}", route="cuda", source="dynosam_tpu_torch/csrc/window.cu",
+                   replaces=replaces[piece], max_abs_err=errs[piece], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, device_ms=dev_ms,
+                   note=f"KITTI window W {W}, NS {NS}, ND {ND}, O {O}; device {dev_ms * 1e3:.1f} us a launch")
+        rows.append(row)
+        print(f"K{7 + wc.PIECES.index(piece)} window_{piece}: {ms * 1e3:.1f} us per call (wrapper), device "
+              f"{dev_ms * 1e3:.1f} us a launch, plain {plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us by {b_by} "
+              f"({flop / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB) on {card}", flush=True)
+    return rows
+
+
 def check_launches(probe, label, required, n_frames) -> None:
     for k in range(1, n_frames):
         missing = [name for name in required if probe.per_frame[k][name] < 1]
         _require(not missing, f"{label}, frame {k}: kernels {missing} never launched")
-    stray = [name for name, c in probe.totals.items() if name not in required and c > 0]
+    stray = [name for name, c in probe.totals.items() if name not in required + WINDOW_KERNELS and c > 0]
     _require(not stray, f"{label}: kernels {stray} launched off their path")
 
 
@@ -1893,6 +1997,7 @@ def run_online_phase(torch, device, card, world_pose: bool = False) -> dict:
         print(f"{label}: frame {k} launches {lf}", flush=True)
     check_launches(probe, label, PATH_KERNELS["world_pose" if world_pose else "online"], n)
     backend = result.backend
+    check_window_launches(label, probe.totals, [] if world_pose else [r.iterations for _, _, r, _ in backend.solves])
     starts = [(s, w_) for s, w_, _, _ in backend.solves]
     _require(starts == [(0, 10), (6, 10), (12, 10), (18, 10)], f"{label}: windows {starts}")
     # a window's reads as counted around `_optimize` exclude its prior build's
@@ -1919,7 +2024,7 @@ def run_online_phase(torch, device, card, world_pose: bool = False) -> dict:
           f"(limit {BACKEND_ATE_LIMIT_M}), backend frames {evals[prefix]['camera']['n_frames']}", flush=True)
     _require(np.isfinite(fe_ate) and fe_ate < ATE_LIMIT_M, f"{label}: frontend ATE {fe_ate} m")
     _require(np.isfinite(be_ate) and be_ate < BACKEND_ATE_LIMIT_M, f"{label}: backend ATE {be_ate} m")
-    return dict(totals=probe.totals)
+    return dict(totals=probe.totals, window_calls=[(args, kw) for args, kw, *_ in graphs.calls])
 
 
 def check_steady_spin_reads(torch, device, card, n: int = 6) -> list:
@@ -2465,7 +2570,7 @@ def run_streaming_phase(torch, device, card, n: int = PIPELINE_FRAMES, size=(384
     for k in range(1, n):
         missing = [name for name in PATH_KERNELS["streaming"] if per_frame[k][name] < 1]
         _require(not missing, f"{label}, frame {k}: kernels {missing} never launched")
-    stray = [name for name, c in totals.items() if name not in PATH_KERNELS["streaming"] and c > 0]
+    stray = [name for name, c in totals.items() if name not in PATH_KERNELS["streaming"] + WINDOW_KERNELS and c > 0]
     _require(not stray, f"{label}: kernels {stray} launched off their path")
     a, b = streamed.est, off.est
     equal = all(bool(torch.equal(getattr(a, f), getattr(b, f))) if not isinstance(getattr(a, f), tuple)
@@ -2992,7 +3097,7 @@ def run_evaluation_phase(torch, device, card) -> dict:
         print(f"{label}: kitti_semantic_to_motion: {EVAL_LAYOUT_FRAMES} motion masks written and read back equal, "
               f"labels kept {sorted(kept)}", flush=True)
     totals = kernels.launch_counts()
-    stray = [n for n, c in totals.items() if n not in PATH_KERNELS["evaluation"] and c > 0]
+    stray = [n for n, c in totals.items() if n not in PATH_KERNELS["evaluation"] + WINDOW_KERNELS and c > 0]
     _require(not stray, f"{label}: kernels {stray} launched off their path")
     return dict(totals=totals, rows=rows)
 
@@ -3067,6 +3172,9 @@ def _run(torch) -> int:
     paths["pipeline"] = run_pipeline_path(torch, device, card)
     paths["golden"] = run_golden_phase(torch, device, card)
     paths["online"] = run_online_phase(torch, device, card)
+    t0 = time.perf_counter()
+    rows += check_window_kernels(torch, device, card, paths["online"]["window_calls"])
+    print(f"window kernels checked in {time.perf_counter() - t0:.1f} s", flush=True)
     check_steady_spin_reads(torch, device, card)
     paths["world_pose"] = run_online_phase(torch, device, card, world_pose=True)
     paths["batched"] = run_batched_phase(torch, device, card)

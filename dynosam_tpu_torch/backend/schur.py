@@ -42,7 +42,12 @@ On the card `lm_optimize_schur` replays each LM iteration as a CUDA
 graph: `_WindowLM` keeps one window shape's LM state in fixed tensors, so
 its head and both iteration variants (with and without the normal-system
 rebuild) are captured once per process and shape and replayed from the
-same host loop, one host read per iteration.
+same host loop, one host read per iteration.  A WorldMotion iteration
+there is three hand-written kernels around cuSOLVER's factorisation
+(`window_iteration`): K7 builds the normal system (`window_build`), K8
+reduces it (`window_step`, the plain version `schur_reduce`), K9 takes the
+back-substitution, the trial and the LM decisions (`window_update`:
+`schur_back` and `_lm_tail`); `csrc/window.cu` states their contract.
 
 `lm_optimize_schur(overrides=...)` runs the same LM schedule over the
 per-rank residual, error, build and step of the distributed solve
@@ -80,6 +85,7 @@ from .formulation import (
     world_pose_families,
     world_pose_residuals,
 )
+from ..kernels import window as window_kernels
 from ..utils import graphs
 from ..utils.graphs import signature, tree_clone, tree_copy_
 from .map import WindowData
@@ -728,7 +734,25 @@ def schur_step(sys: NormalSystem, lam: torch.Tensor, floor: float, formulation: 
     factor; WorldPose: the rotation on the previous side, +/- pose columns
     at frames k-1 and k).  `with_reduced` also returns the assembled
     reduced system (Hred, bred), whose Schur complement is the fixed-lag
-    boundary marginal (`backend/fixed_lag.py`)."""
+    boundary marginal (`backend/fixed_lag.py`).
+
+    The step is `schur_reduce`, one Cholesky of the reduced system and
+    `schur_back`: the plain versions of kernels K8 and K9's first half
+    (`window_step`, `window_update`)."""
+    Hred, bred, back = schur_reduce(sys, lam, floor, formulation)
+    L, info = torch.linalg.cholesky_ex(Hred)
+    sol = torch.cholesky_solve(bred[:, None], L)[:, 0]
+    delta = schur_back(sys, back, sol, info, formulation)
+    return (delta, (Hred, bred)) if with_reduced else delta
+
+
+def schur_reduce(sys: NormalSystem, lam: torch.Tensor, floor: float, formulation: int = 0):
+    """The damped reduced system of `schur_step`: (Hred (n, n), bred (n,),
+    back), n = 6W (1 + O), `back` holding what `schur_back` reads: the
+    static elimination's columns `Yc_s` (NS, 3, 6W) and `yb_s` (NS, 3), the
+    chains' solutions `Z` (W, ND, 3, 2 * 6W + 1) and the damped point
+    diagonal's inverse `inv_c` (W, ND).  The plain version of K8
+    (`window_step`)."""
     W, NS = sys.Us.shape[:2]
     ND = sys.Rc.shape[1]
     dtype, dev = sys.Hcc.dtype, sys.Hcc.device
@@ -823,8 +847,24 @@ def schur_step(sys: NormalSystem, lam: torch.Tensor, floor: float, formulation: 
     Dmm = sys.Dmm + torch.diag_embed(lam * torch.clamp(diag_full, min=floor))
 
     Hred, bred = assemble_reduced(sys, Hcc, Dmm, d_cc_s + d_cc_d, d_bc_s + d_bc_d, d_cm, d_mm, d_bm)
-    L, info = torch.linalg.cholesky_ex(Hred)
-    sol = torch.cholesky_solve(bred[:, None], L)[:, 0]
+    return Hred, bred, dict(Yc_s=Yc_s, yb_s=yb_s, Z=Z, inv_c=inv_c)
+
+
+def schur_back(sys: NormalSystem, back: dict, sol: torch.Tensor, info: torch.Tensor, formulation: int = 0) -> dict:
+    """The back-substitution of `schur_step` from the reduced solution
+    `sol` (n,) and the factorisation's `info` (non-zero: a NaN step), with
+    `back` from `schur_reduce`: the tangent dict {X, P, sp, dp}."""
+    W = sys.Us.shape[0]
+    ND = sys.Rc.shape[1]
+    nc = 6 * W
+    Yc_s, yb_s, Z, inv_c = back["Yc_s"], back["yb_s"], back["Z"], back["inv_c"]
+    Z_U = Z[..., :nc]
+    Nh = Z[..., nc:2 * nc].reshape(W, ND, 3, W, 6)
+    Z_phi = Z[..., -1]
+    oh = sys.onehot
+    s = sys.st_s
+    R = sys.st_R
+    Rt = R.transpose(-1, -2)
     delta_p = torch.where(info == 0, sol, torch.full_like(sol, float("nan")))
     dc = delta_p[:nc]
     dm = delta_p[nc:].reshape(W, -1, 6)
@@ -839,8 +879,7 @@ def schur_step(sys: NormalSystem, lam: torch.Tensor, floor: float, formulation: 
         Atv = s[..., None] * v - _next(s)[..., None] * torch.einsum("kdab,kdb->kda", _next(Rt), _next(v))
     r1 = sys.b_dp - torch.einsum("kdia,ka->kdi", sys.Rc, dc.reshape(W, 6))
     d_dp = (r1 - Atv) * inv_c[..., None]
-    delta = {"X": dc.reshape(W, 6), "P": dm, "sp": d_sp, "dp": d_dp}
-    return (delta, (Hred, bred)) if with_reduced else delta
+    return {"X": dc.reshape(W, 6), "P": dm, "sp": d_sp, "dp": d_dp}
 
 
 # --------------------------------------------------------------------------
@@ -907,12 +946,19 @@ def _lm_iteration(s: dict, rebuild: bool, p: _LMProblem) -> dict:
     scale lambda, the gtsam-style convergence tests, problems already done
     keeping their state.  Returns the next state, with `flags` the
     (2, problems) accept and done flags the host reads."""
-    vals, res, err, lam, lam_min, done = (s[k] for k in ("vals", "res", "err", "lam", "lam_min", "done"))
-    cfg, sys = p.lm_cfg, s.get("sys")
+    sys = s.get("sys")
     if rebuild:
-        new = p.build(vals, res)
+        new = p.build(s["vals"], s["res"])
         sys = new if sys is None or not p.batch_shape else _tree_where(s["accept"], new, sys)
-    d = p.step(sys, lam)
+    return _lm_tail(s, sys, p.step(sys, s["lam"]), p)
+
+
+def _lm_tail(s: dict, sys, d: dict, p: _LMProblem) -> dict:
+    """`_lm_iteration` after the step `d` ({X, P, sp, dp}) of the system
+    `sys`: the retraction, trial residuals and error, and the LM schedule's
+    decisions (the plain version of K9's second half, `window_update`)."""
+    vals, res, err, lam, lam_min, done = (s[k] for k in ("vals", "res", "err", "lam", "lam_min", "done"))
+    cfg = p.lm_cfg
     delta = {"X": d["X"], p.pose_key: d["P"], "sp": d["sp"], "dp": d["dp"]}
     new_vals = p.retract(vals, delta)
     new_res = p.residuals(new_vals)
@@ -978,6 +1024,162 @@ def _lm_loop(values: dict, residuals: Callable, build: Callable, step: Callable,
     return s["vals"], s["err"], s["err_init"], its, s["lam"], done
 
 
+# --------------------------------------------------------------------------
+# K7-K9: the WorldMotion LM iteration on the card
+# --------------------------------------------------------------------------
+
+
+class WindowArgs(NamedTuple):
+    """One window LM's state and inputs as K7-K9 and their plain versions
+    take them: `s` the LM state (`_lm_head`'s and `_lm_iteration`'s keys,
+    with the normal system `sys`), the window, masks, anchor, fixed-lag
+    prior (or None) and the settings.  The kernels read and write the
+    state's tensors in place."""
+
+    s: dict
+    w: WindowData
+    masks: WindowMasks
+    anchor: SE3
+    prior: torch.Tensor | None
+    cfg: BackendConfig
+    lm_cfg: LMConfig
+
+
+def kernel_tensors(a: WindowArgs) -> dict:
+    """The named tensors of `kernels/window.py:POINTERS` of `a`: views of
+    the state, window, masks and anchor (no copies)."""
+    v, res, w, mk = a.s["vals"], a.s["res"], a.w, a.masks
+    names = ("r_anchor", "r_odo", "r_static", "r_dyn", "r_tern", "r_smooth")
+    return dict(
+        XR=v["X"].R, Xt=v["X"].t, HR=v["H"].R, Ht=v["H"].t, sp=v["sp"], dp=v["dp"], **dict(zip(names, res)),
+        static_xyz=w.static_xyz, dyn_xyz=w.dyn_xyz, dyn_obj=w.dyn_obj, XiR=w.X_init.R, Xit=w.X_init.t,
+        static_obs=mk.static_obs, dyn_obs=mk.dyn_obs, ternary=mk.ternary, smoothing=mk.smoothing,
+        odometry=mk.odometry, anchor_R=a.anchor.R, anchor_t=a.anchor.t, prior_L=a.prior, **a.s["sys"]._asdict(),
+        **{k: a.s[k] for k in ("err", "lam", "lam_min", "done", "accept", "flags", "err_init")})
+
+
+def kernel_params(cfg: BackendConfig, lm_cfg: LMConfig) -> dict:
+    """The float settings of `kernels/window.py:PARAMS`, each the number
+    the plain version's float32 arithmetic uses."""
+    rel, tiny = _floor_consts(torch.float32)
+    ks, kd = cfg.huber_k_static, cfg.huber_k_dynamic
+    odo = [cfg.odometry_rotation_sigma] * 3 + [cfg.odometry_translation_sigma] * 3
+    smooth = [cfg.constant_object_motion_rotation_sigma] * 3 + [cfg.constant_object_motion_translation_sigma] * 3
+    return dict(
+        sig_s=cfg.static_point_noise_sigma, sig_d=cfg.dynamic_point_noise_sigma,
+        sig_t=cfg.motion_ternary_factor_noise_sigma, sig_d2=cfg.dynamic_point_noise_sigma ** 2,
+        sig_t2=cfg.motion_ternary_factor_noise_sigma ** 2, prior_sigma=cfg.initial_pose_prior_sigma,
+        k_s=ks, k_d=kd, half_k2_s=0.5 * (ks * ks), half_k2_d=0.5 * (kd * kd),
+        **{f"odo_sig{i}": x for i, x in enumerate(odo)}, **{f"smooth_sig{i}": x for i, x in enumerate(smooth)},
+        floor=lm_cfg.diag_floor, tiny=tiny, rel=rel, lambda_factor=lm_cfg.lambda_factor,
+        max_lambda=lm_cfg.max_lambda, rel_tol=lm_cfg.rel_error_tol, abs_tol=lm_cfg.abs_error_tol,
+        initial_lambda=lm_cfg.initial_lambda, min_lambda=lm_cfg.min_lambda)
+
+
+def _window_problem(a: WindowArgs) -> _LMProblem:
+    specs = world_motion_families(a.cfg).robust
+    return _LMProblem(lambda v: world_motion_residuals(v, a.w, a.masks, a.cfg, a.anchor, a.prior),
+                      None, None, lambda res: total_error(res, specs), retract_tree, pose_key(0), a.lm_cfg, ())
+
+
+def window_head(a: WindowArgs) -> None:
+    """The LM head on the kernel route: K9 at a zero step (residuals and
+    robust error at the state's values, the initial error, lambda and its
+    floor) on CUDA tensors, counted as a launch of K9; on CPU tensors the
+    plain version, `window_head_plain`."""
+    if a.s["err"].device.type == "cpu":
+        return window_head_plain(a)
+    window_kernels.head(kernel_tensors(a), kernel_params(a.cfg, a.lm_cfg))
+
+
+def window_head_plain(a: WindowArgs) -> None:
+    """The head's plain version: `_lm_head` into the state."""
+    tree_copy_(a.s, _lm_head(a.s["vals"], _window_problem(a)))
+
+
+def window_build(a: WindowArgs) -> None:
+    """K7's wrapper: the normal system at the state's values and residuals
+    into the state's `sys`.  On CUDA tensors one launch of K7
+    (`kernels/window.py:build`, which raises if it cannot build or
+    launch); on CPU tensors the plain version, `window_build_plain`."""
+    if a.s["err"].device.type == "cpu":
+        return window_build_plain(a)
+    window_kernels.build(kernel_tensors(a), kernel_params(a.cfg, a.lm_cfg))
+
+
+def window_build_plain(a: WindowArgs) -> None:
+    """K7's plain version: `build_normal_system` with `sqrt_weights`."""
+    v, res = a.s["vals"], a.s["res"]
+    sw = sqrt_weights(res, world_motion_families(a.cfg).robust)
+    tree_copy_(a.s["sys"], build_normal_system(v, sw, a.w, a.masks, a.cfg, a.anchor, res, a.prior))
+
+
+def window_step(a: WindowArgs):
+    """K8's wrapper: (Hred, bred, back) of the state's system at its
+    lambda (`schur_reduce`'s).  On CUDA tensors one launch of K8; on CPU
+    tensors the plain version, `window_step_plain`."""
+    if a.s["err"].device.type == "cpu":
+        return window_step_plain(a)
+    return window_kernels.step(kernel_tensors(a), kernel_params(a.cfg, a.lm_cfg))
+
+
+def window_step_plain(a: WindowArgs):
+    """K8's plain version: `schur_reduce`."""
+    return schur_reduce(a.s["sys"], a.s["lam"], a.lm_cfg.diag_floor, 0)
+
+
+def window_update(a: WindowArgs, sol: torch.Tensor, info: torch.Tensor, back: dict) -> None:
+    """K9's wrapper: from the reduced solution `sol` and the
+    factorisation's `info`, the back-substitution, retraction, trial
+    residuals and error and the LM decisions, written into the state.  On
+    CUDA tensors one launch of K9; on CPU tensors the plain version,
+    `window_update_plain`."""
+    if a.s["err"].device.type == "cpu":
+        return window_update_plain(a, sol, info, back)
+    window_kernels.update(kernel_tensors(a), kernel_params(a.cfg, a.lm_cfg), sol, info, back)
+
+
+def window_update_plain(a: WindowArgs, sol: torch.Tensor, info: torch.Tensor, back: dict) -> None:
+    """K9's plain version: `schur_back`, then `_lm_tail`."""
+    d = schur_back(a.s["sys"], back, sol, info, 0)
+    tree_copy_(a.s, _lm_tail(a.s, a.s["sys"], d, _window_problem(a)))
+
+
+def window_iteration(a: WindowArgs, rebuild: bool) -> None:
+    """One LM iteration of the window through K7-K9 (their plain versions
+    on the CPU), with the factorisation between K8 and K9: in place on
+    the state, as `_lm_iteration` followed by a copy into it."""
+    if rebuild:
+        window_build(a)
+    Hred, bred, back = window_step(a)
+    L, info = torch.linalg.cholesky_ex(Hred)
+    window_update(a, torch.cholesky_solve(bred[:, None], L)[:, 0], info, back)
+
+
+def _contiguous(tree):
+    """A copy of `tree` (tensors in dicts, lists and tuples) with every
+    tensor in contiguous memory of its own."""
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device=tree.device).copy_(tree)
+    if isinstance(tree, dict):
+        return {k: _contiguous(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_contiguous(v) for v in tree]
+    if isinstance(tree, tuple):
+        items = [_contiguous(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _kernel_route(formulation: int, dtype) -> bool:
+    """Whether a window LM goes through K7-K9: WorldMotion in float32 (the
+    kernels' type; float64 solves are the checks'), with every piece
+    `_pieces` resolves the module's own.  A piece replaced for a run (the
+    benchmark's controls round `retract_tree`'s output, a test negates the
+    built system) runs the ATen iteration it replaces."""
+    return formulation == 0 and dtype == torch.float32 and _pieces(0) == _KERNEL_PIECES
+
+
 class _WindowLM:
     """The direct-Schur LM of one window shape, its state in tensors it
     allocates once: the inputs (values, window, masks, anchor, prior; the
@@ -988,7 +1190,12 @@ class _WindowLM:
     `head` and `iteration(rebuild)` run `_lm_head` and `_lm_iteration`
     and copy their results into that state, so each reads and writes only
     those tensors and can be captured once as a CUDA graph (`capture`) and
-    replayed for every window of the shape.  `solve` copies a window into
+    replayed for every window of the shape.  On the kernel route
+    (`_kernel_route`: WorldMotion in float32 with the module's own pieces)
+    the head is `window_head` and an iteration `window_iteration` on the
+    state, which K7-K9 read and write in place (on the card in contiguous
+    copies of the inputs and state), or their plain versions on the CPU.
+    `solve` copies a window into
     the inputs and runs `_lm_schedule`, the host loop `_lm_loop` runs,
     over them (or their graphs); the result is cloned out of the state.
     Without `capture` the same functions run eagerly, on any device."""
@@ -997,23 +1204,36 @@ class _WindowLM:
                  anchor: SE3, formulation: int = 0, anchor_prior_L=None):
         families, residual_fn, build_fn, pose_key, sqrt_w, step_fn, error_fn, retract = _pieces(formulation)
         specs = families(cfg).robust
-        self.inputs = tree_clone((values, w, masks, anchor, anchor_prior_L))
+        # on the card, K7-K9 read and write the state in place: every tensor
+        # in contiguous memory of its own
+        self.kernels = _kernel_route(formulation, values["X"].t.dtype)
+        dense = self.kernels and values["X"].t.is_cuda
+        self.inputs = (_contiguous if dense else tree_clone)((values, w, masks, anchor, anchor_prior_L))
         vals, w, masks, anchor, prior = self.inputs
         self.p = _LMProblem(lambda v: residual_fn(v, w, masks, cfg, anchor, prior),
                             lambda v, res: build_fn(v, sqrt_w(res, specs), w, masks, cfg, anchor, res, prior),
                             lambda sys, lam: step_fn(sys, lam, lm_cfg.diag_floor, formulation),
                             lambda res: error_fn(res, specs), retract, pose_key, lm_cfg, ())
-        self.s = dict(tree_clone(_lm_head(vals, self.p)), vals=vals)
+        head = _lm_head(vals, self.p)
+        self.s = dict(_contiguous(head) if dense else tree_clone(head), vals=vals)
         dev = self.s["err"].device
-        self.s.update(sys=self.p.build(vals, self.s["res"]), accept=torch.zeros((), dtype=torch.bool, device=dev),
+        sys = self.p.build(vals, self.s["res"])
+        self.s.update(sys=_contiguous(sys) if dense else sys, accept=torch.zeros((), dtype=torch.bool, device=dev),
                       flags=torch.zeros((2, 1), dtype=torch.bool, device=dev))
+        self.args = WindowArgs(self.s, w, masks, anchor, prior, cfg, lm_cfg) if self.kernels else None
         self.graphs = None
 
     def head(self) -> None:
-        tree_copy_(self.s, _lm_head(self.s["vals"], self.p))
+        if self.kernels:
+            window_head(self.args)
+        else:
+            tree_copy_(self.s, _lm_head(self.s["vals"], self.p))
 
     def iteration(self, rebuild: bool) -> None:
-        tree_copy_(self.s, _lm_iteration(self.s, rebuild, self.p))
+        if self.kernels:
+            window_iteration(self.args, rebuild)
+        else:
+            tree_copy_(self.s, _lm_iteration(self.s, rebuild, self.p))
 
     def _variants(self) -> dict:
         return {"head": self.head, "build": lambda: self.iteration(True), "step": lambda: self.iteration(False)}
@@ -1068,6 +1288,10 @@ def _pieces(formulation: int) -> tuple:
     return (*_formulation(formulation), sqrt_weights, schur_step, total_error, retract_tree)
 
 
+# the pieces K7-K9 stand for, as this module defines them
+_KERNEL_PIECES = _pieces(0)
+
+
 def _captured_window_lm(values: dict, w: WindowData, masks: WindowMasks, cfg: BackendConfig, lm_cfg: LMConfig,
                         anchor: SE3, formulation: int, anchor_prior_L) -> _WindowLM:
     """The cached `_WindowLM` of this window's shape and settings, captured
@@ -1105,8 +1329,16 @@ def lm_optimize_schur(values: dict, w: WindowData, masks: WindowMasks, cfg: Back
     process for each window shape and setting, and every later window of
     that shape copies its inputs into the graphs' buffers and replays
     them, with the same kernels in the same order as the eager loop.
-    Under a `TorchDispatchMode` (`utils/debug.py:nan_debug`), and with
-    `_graphs=False`, the eager loop runs there too.
+    A WorldMotion iteration there is kernels K7-K9 around cuSOLVER's
+    factorisation (`window_iteration`), graphed or, with `_graphs=False`,
+    eager: both launch the same kernels on buffers of the same layout, so
+    they agree bit for bit.  The ATen pieces run, eagerly, for WorldPose
+    or float64 with `_graphs=False`, under a `TorchDispatchMode` (`utils/debug.py:
+    nan_debug`, which must see every operator), with `overrides` (an empty
+    dict replaces no piece: the plain loop of the module's functions), and
+    where a piece of `_pieces` is replaced for a run (`_kernel_route`).
+    The batched solve (`lm_optimize_schur_batched`) keeps the ATen pieces
+    too.
 
     `overrides` replaces the per-iteration pieces and keeps this schedule
     (the distributed solve, `parallel/schur_dist.py`, whose pieces work on
@@ -1122,9 +1354,13 @@ def lm_optimize_schur(values: dict, w: WindowData, masks: WindowMasks, cfg: Back
             "leaves out (ROADMAP.md, not ported by the port rules); the stable step solves its own chains")
     # a dispatch mode (`utils/debug.py:nan_debug`) must see every operator,
     # which a graph replay would not dispatch
-    if overrides is None and _graphs and values["X"].t.is_cuda and _get_current_dispatch_mode() is None:
-        return _captured_window_lm(values, w, masks, cfg, lm_cfg, anchor, formulation, anchor_prior_L).solve(
-            values, w, masks, anchor, anchor_prior_L)
+    if overrides is None and values["X"].t.is_cuda and _get_current_dispatch_mode() is None:
+        if _graphs:
+            return _captured_window_lm(values, w, masks, cfg, lm_cfg, anchor, formulation, anchor_prior_L).solve(
+                values, w, masks, anchor, anchor_prior_L)
+        if _kernel_route(formulation, values["X"].t.dtype):
+            return _WindowLM(values, w, masks, cfg, lm_cfg, anchor, formulation, anchor_prior_L).solve(
+                values, w, masks, anchor, anchor_prior_L)
     ov = overrides or {}
     families, residual_fn, build_fn, pose_key = _formulation(formulation)
     specs = families(cfg).robust

@@ -20,14 +20,14 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("lk.cu", "point_sample.cu", "response.cu", "orb_sample.cu", "ransac.cu", "refine.cu")
+SOURCES = ("lk.cu", "point_sample.cu", "response.cu", "orb_sample.cu", "ransac.cu", "refine.cu", "window.cu")
 HEADERS = ("common.cuh", "small.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # the solver kernels round every product and sum as their PyTorch plain
 # versions' separate operations do (`csrc/small.cuh`)
-SOURCE_FLAGS = {"ransac.cu": ("-fmad=false",), "refine.cu": ("-fmad=false",)}
+SOURCE_FLAGS = {"ransac.cu": ("-fmad=false",), "refine.cu": ("-fmad=false",), "window.cu": ("-fmad=false",)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -42,6 +42,12 @@ _SIGNATURES = {
     # (kind, float settings, int settings, pointers, stream): see csrc/refine.cu
     "dyno_refine_rounds": (_I, _P, _P, _P, _P),
     "dyno_refine_launch_shape": (_I, _I, _I, _P),
+    # (pointer table, dims, float settings, stream): see csrc/window.cu
+    "dyno_window_build": (_P, _P, _P, _P),
+    "dyno_window_step": (_P, _P, _P, _P),
+    "dyno_window_update": (_P, _P, _P, _P),
+    "dyno_window_head": (_P, _P, _P, _P),
+    "dyno_window_launch_shape": (_P, _P),
 }
 
 

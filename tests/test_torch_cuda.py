@@ -4,7 +4,9 @@ PyTorch version on the same CUDA tensors, short frontend-only runs
 steady frame, backend solves (a direct-Schur window of each formulation,
 a batched dispatch of two windows, a full-batch LM-PCG) on the card
 against the CPU, the window solve's and the frontend step's CUDA graphs
-against their eager runs, and drift recovery in full for both updaters.
+against their eager runs, K7-K9 (the WorldMotion window LM iteration)
+against their plain versions, and drift recovery in full for both
+updaters.
 
 Marked `cuda`; a fixture skips them where no card is present.  On a machine
 with a card and the CUDA toolkit (this file imports neither JAX nor the
@@ -1245,3 +1247,84 @@ def test_a_steady_graphed_frame_reads_the_host_only_in_the_eigh(cuda):
 
     reads = cs.check_steady_spin_reads(torch, cuda, "card")
     assert len(reads) == 6 and all(r == 2 for r, _ in reads[2:])
+
+
+def _window_args(cuda):
+    from dynosam_tpu_torch.backend.solver import LMConfig
+
+    cfg, w, masks, v0, moved = _window_problem(cuda)
+    return (moved, w, masks, cfg, LMConfig(max_iterations=30), w.X_init[0])
+
+
+def test_window_kernels_match_their_plain_versions_on_a_window_with_motion_factors(cuda):
+    """K7-K9 (`csrc/window.cu`) on the window-10 simulator scenario, whose
+    tracks carry active motion factors, at values moved off the initial
+    ones: every entry of each kernel's outputs against its plain version
+    within K_MARGIN times the plain version's own float32 spread on the
+    entry's block, a 6x6 block of Hcc or the reduced system, a point's
+    vector, ... (the plain version on the CPU and on the card at inputs
+    moved by one or two ulps, `testing/window_check.py`), each kernel twice
+    on one state bit for bit,
+    K9 after a failed factorisation rejecting the step as its plain version
+    does; then the solve graphed through K7-K9 against the ATen pieces on
+    the same inputs (error within rtol 3e-2, camera translations within
+    2e-3 m, iterations within 2)."""
+    from dynosam_tpu_torch.testing import window_check as wc
+
+    args = _window_args(cuda)
+    pieces = wc.Pieces(wc.window_lm(args, {}))
+    for piece, r in wc.hold_pieces(pieces, "simulator window").items():
+        assert not r["bad"] and r["repeat"], (piece, r["bad"], r["repeat"])
+    assert wc.hold_failed_step(pieces, "simulator window")
+    assert wc.hold_solve(args, {}, "simulator window")["ok"]
+
+
+def test_window_kernels_launch_once_per_lm_iteration(cuda):
+    """A WorldMotion window solve on the card, graphed and eager
+    (`_graphs=False`): K8 launched once per LM iteration, K9 once per
+    iteration and once for the head, K7 on the first iteration and at most
+    once an iteration, both runs equal bit for bit; a WorldPose solve
+    launches none of them."""
+    from dynosam_tpu_torch.backend import schur
+
+    args = _window_args(cuda)
+    out = {}
+    for graphed in (True, False):
+        kernels.reset_launch_counts()
+        r = schur.lm_optimize_schur(*args, _graphs=graphed)
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        assert c["window_step"] == c["window_update"] - 1 == r.iterations > 0, c
+        assert 1 <= c["window_build"] <= r.iterations, c
+        out[graphed] = r
+    assert _bit_equal(out[True], out[False])
+    kernels.reset_launch_counts()
+    cfg, w, masks, v0, moved = _window_problem(cuda)
+    from dynosam_tpu_torch.backend import formulation as fm
+    from dynosam_tpu_torch.backend.solver import LMConfig
+
+    vp = fm.init_values_world_pose(w, masks, cfg)
+    schur.lm_optimize_schur(vp, w, masks, cfg, LMConfig(max_iterations=3), w.X_init[0], formulation=1)
+    torch.cuda.synchronize()
+    assert all(kernels.launch_counts()[k] == 0 for k in ("window_build", "window_step", "window_update"))
+
+
+def test_window_kernels_refuse_what_they_do_not_take(cuda):
+    """The bindings raise on CPU tensors, and `check` on a window wider than
+    16 frames, more than 8 objects, a float64 tensor or a strided one."""
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.kernels import window as kwin
+    from dynosam_tpu_torch.testing import window_check as wc
+
+    lm = wc.window_lm(_window_args(cuda), {})
+    t = schur.kernel_tensors(lm.args)
+    params = schur.kernel_params(lm.args.cfg, lm.args.lm_cfg)
+    kwin.check(t)
+    with pytest.raises(ValueError):
+        kwin.build({k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in t.items()}, params)
+    for change in ({"HR": torch.zeros((10, 9, 3, 3), device=cuda)}, {"dp": t["dp"].double()},
+                   {"Us": t["Us"].transpose(-1, -2).contiguous().transpose(-1, -2)},
+                   {k: torch.zeros(v, device=cuda) for k, v in kwin.shapes(17, 4, 4, 2).items()
+                    if k in ("XR", "HR", "sp", "dp")}):
+        with pytest.raises(ValueError):
+            kwin.check({**t, **change})

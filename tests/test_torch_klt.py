@@ -243,7 +243,7 @@ def test_wrappers_on_cpu_leave_launch_counts_at_zero(rng):
     with pytest.raises(ValueError):
         refine_kernel.rounds(kid, fparams, iparams, *tensors)
     assert kernels.launch_counts() == {"lk": 0, "point_sample": 0, "response": 0, "orb_sample": 0, "refine": 0,
-                                       "ransac": 0}
+                                       "ransac": 0, "window_build": 0, "window_step": 0, "window_update": 0}
 
 
 @pytest.mark.parametrize("fn", ["tracker_state_from_numpy", "frontend_state_from_numpy"])

@@ -217,8 +217,8 @@ print("COUNTS", kernels.launch_counts())
     out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    assert ("COUNTS {'lk': 0, 'point_sample': 0, 'response': 0, 'orb_sample': 0, 'refine': 0, 'ransac': 0}"
-            in out.stdout), out.stdout
+    assert ("COUNTS {'lk': 0, 'point_sample': 0, 'response': 0, 'orb_sample': 0, 'refine': 0, 'ransac': 0, "
+            "'window_build': 0, 'window_step': 0, 'window_update': 0}" in out.stdout), out.stdout
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|dynosam_tpu)(?:\.|\s|$)", re.M)
