@@ -117,7 +117,11 @@ no result line:
              2e-3 m, iterations within 2); each kernel timed per call and
              on the device beside its plain version and a bound from the
              FLOPs and bytes that window needs, with its launch shape and
-             ptxas' registers and spills;
+             ptxas' registers and spills; each window solved graphed under
+             the profiler (`testing/window_split.py`): every kernel's
+             device time a launch and an LM iteration, K7's, K8's, the
+             factorisation's (cuSOLVER) and K9's, failing above 5 kernels
+             an LM iteration for K8 and K9;
              then 6 frames of the same configuration, each spin's graph
              replays and host reads by site: fails unless every steady
              spin replays two graphs and reads the host at most 3 times,
@@ -423,6 +427,7 @@ COUNTER = {"lk_level": "lk", "point_sample": "point_sample",
 # solve (its head) and K7 at least once a solve (`check_window_launches`);
 # the per-frame checks leave them out
 WINDOW_KERNELS = ("window_build", "window_step", "window_update")
+WINDOW_KERNELS_PER_ITERATION = 5     # K8's and K9's kernels an LM iteration at most (9 before their redesign)
 
 
 class SmokeFailure(RuntimeError):
@@ -1788,20 +1793,10 @@ def check_graphed_solves(torch, label, rec, solve_ms, card) -> None:
 def factorisation_kernels(torch, n: int, device) -> list:
     """The device kernels of one eager `cholesky_ex` + `cholesky_solve` of
     an (n, n) SPD system, as the profiler names them (copies and fills
-    left out)."""
-    g = torch.Generator(device=device).manual_seed(0)
-    a = torch.randn((n, n), generator=g, device=device)
-    spd = a @ a.T + n * torch.eye(n, device=device)
-    b = torch.randn((n, 1), generator=g, device=device)
-    torch.linalg.cholesky_ex(spd)
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        L, _ = torch.linalg.cholesky_ex(spd)
-        torch.cholesky_solve(b, L)
-        torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.name.startswith(("Activity Buffer", "Memcpy", "Memset"))})
+    left out): `testing/window_split.py`'s."""
+    from dynosam_tpu_torch.testing import window_split
+
+    return window_split.factorisation_kernels(torch, n, device)
 
 
 def check_window_launches(label, totals, iterations) -> None:
@@ -1832,9 +1827,15 @@ def check_window_kernels(torch, device, card, kitti_calls) -> list:
     KITTI window per call (CUDA events, the wrapper's host work included)
     and on the device (the profiler), beside its plain version on the card
     and a bound from the FLOPs and bytes that window's data needs; launch
-    shapes and ptxas' registers and spills printed.  Returns K7-K9's rows."""
+    shapes and ptxas' registers and spills printed; then each window solved
+    graphed under the profiler (`testing/window_split.py`): each kernel's
+    device time a launch and an LM iteration, K7's, K8's, the
+    factorisation's (cuSOLVER) and K9's, and K8's and K9's kernels an LM
+    iteration, which must be at most WINDOW_KERNELS_PER_ITERATION.  Returns
+    K7-K9's rows."""
     from dynosam_tpu_torch.kernels import window as kwin
     from dynosam_tpu_torch.testing import window_check as wc
+    from dynosam_tpu_torch.testing import window_split as ws
 
     def say(line):
         print(f"{line} on {card}", flush=True)
@@ -1854,6 +1855,20 @@ def check_window_kernels(torch, device, card, kitti_calls) -> list:
         solve = wc.hold_solve(args, kw, label, out=say)
         _require(solve["ok"], f"{label}: the solve through K7-K9 against the ATen pieces: {solve}")
         reports[label] = (lm, pieces)
+        sysf = pieces.s0["sys"]
+        W_, ND_ = sysf.Rc.shape[:2]
+        kept = int((sysf.onehot.sum(-1) != 0).sum())
+        say(f"{label}: K8 keeps {kept} (frame, track) records of 54 + 3 (6W + 1) floats, "
+            f"{kept * (54 + 3 * (6 * W_ + 1)) * 4 / 1e6:.3f} MB, against the {W_ * ND_ * 3 * (12 * W_ + 1) * 4 / 1e6:.3f} "
+            f"MB of every track's chain solutions")
+    for label, args, kw in windows:
+        split = ws.solve_split(torch, args, kw)
+        ws.report(label, split, out=say)
+        g, it = split["groups"], split["iterations"]
+        per_it = (g["K8"]["launches"] + g["K9"]["launches"] - 2) / it      # K9's head launches two
+        say(f"{label}: K8 and K9 {per_it:.2f} kernels an LM iteration (at most {WINDOW_KERNELS_PER_ITERATION}); "
+            f"the factorisation {g['factorisation']['us'] / it:.2f} us an LM iteration (cuSOLVER)")
+        _require(per_it <= WINDOW_KERNELS_PER_ITERATION, f"{label}: K8 and K9 ran {per_it} kernels an LM iteration")
     lm, pieces = reports["kitti window"]
     sysf = lm.s["sys"]
     W, NS, ND, O = sysf.Us.shape[0], sysf.Us.shape[1], sysf.Rc.shape[1], sysf.Dmm.shape[1]

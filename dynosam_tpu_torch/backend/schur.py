@@ -1055,7 +1055,7 @@ def kernel_tensors(a: WindowArgs) -> dict:
         static_xyz=w.static_xyz, dyn_xyz=w.dyn_xyz, dyn_obj=w.dyn_obj, XiR=w.X_init.R, Xit=w.X_init.t,
         static_obs=mk.static_obs, dyn_obs=mk.dyn_obs, ternary=mk.ternary, smoothing=mk.smoothing,
         odometry=mk.odometry, anchor_R=a.anchor.R, anchor_t=a.anchor.t, prior_L=a.prior, **a.s["sys"]._asdict(),
-        **{k: a.s[k] for k in ("err", "lam", "lam_min", "done", "accept", "flags", "err_init")})
+        **{k: a.s[k] for k in ("err", "lam", "lam_min", "done", "accept", "flags", "err_init", "tickets")})
 
 
 def kernel_params(cfg: BackendConfig, lm_cfg: LMConfig) -> dict:
@@ -1116,7 +1116,8 @@ def window_build_plain(a: WindowArgs) -> None:
 
 def window_step(a: WindowArgs):
     """K8's wrapper: (Hred, bred, back) of the state's system at its
-    lambda (`schur_reduce`'s).  On CUDA tensors one launch of K8; on CPU
+    lambda (`schur_reduce`'s).  On CUDA tensors one launch of K8, whose
+    `back` is empty (K9 rebuilds what it needs from the system); on CPU
     tensors the plain version, `window_step_plain`."""
     if a.s["err"].device.type == "cpu":
         return window_step_plain(a)
@@ -1128,21 +1129,24 @@ def window_step_plain(a: WindowArgs):
     return schur_reduce(a.s["sys"], a.s["lam"], a.lm_cfg.diag_floor, 0)
 
 
-def window_update(a: WindowArgs, sol: torch.Tensor, info: torch.Tensor, back: dict) -> None:
+def window_update(a: WindowArgs, sol: torch.Tensor, info: torch.Tensor, back: dict) -> dict:
     """K9's wrapper: from the reduced solution `sol` and the
     factorisation's `info`, the back-substitution, retraction, trial
-    residuals and error and the LM decisions, written into the state.  On
-    CUDA tensors one launch of K9; on CPU tensors the plain version,
-    `window_update_plain`."""
+    residuals and error and the LM decisions, written into the state;
+    returns the step taken ({X, P, sp, dp}).  On CUDA tensors one launch of
+    K9; on CPU tensors the plain version, `window_update_plain`, with
+    `back` from `window_step_plain`."""
     if a.s["err"].device.type == "cpu":
         return window_update_plain(a, sol, info, back)
-    window_kernels.update(kernel_tensors(a), kernel_params(a.cfg, a.lm_cfg), sol, info, back)
+    return window_kernels.update(kernel_tensors(a), kernel_params(a.cfg, a.lm_cfg), sol, info)
 
 
-def window_update_plain(a: WindowArgs, sol: torch.Tensor, info: torch.Tensor, back: dict) -> None:
-    """K9's plain version: `schur_back`, then `_lm_tail`."""
+def window_update_plain(a: WindowArgs, sol: torch.Tensor, info: torch.Tensor, back: dict) -> dict:
+    """K9's plain version: `schur_back`, then `_lm_tail`; returns
+    `schur_back`'s step."""
     d = schur_back(a.s["sys"], back, sol, info, 0)
     tree_copy_(a.s, _lm_tail(a.s, a.s["sys"], d, _window_problem(a)))
+    return d
 
 
 def window_iteration(a: WindowArgs, rebuild: bool) -> None:
@@ -1185,7 +1189,8 @@ class _WindowLM:
     allocates once: the inputs (values, window, masks, anchor, prior; the
     values double as the current values) and the LM state of `_lm_head`
     and `_lm_iteration` (residuals, error, initial error, lambda, lowest
-    lambda, done, the normal system, accept and the flags).
+    lambda, done, the normal system, accept, the flags and K8's and K9's
+    tickets).
 
     `head` and `iteration(rebuild)` run `_lm_head` and `_lm_iteration`
     and copy their results into that state, so each reads and writes only
@@ -1218,8 +1223,10 @@ class _WindowLM:
         self.s = dict(_contiguous(head) if dense else tree_clone(head), vals=vals)
         dev = self.s["err"].device
         sys = self.p.build(vals, self.s["res"])
+        # `tickets`: K8's and K9's integer counters, zero between launches
         self.s.update(sys=_contiguous(sys) if dense else sys, accept=torch.zeros((), dtype=torch.bool, device=dev),
-                      flags=torch.zeros((2, 1), dtype=torch.bool, device=dev))
+                      flags=torch.zeros((2, 1), dtype=torch.bool, device=dev),
+                      tickets=torch.zeros((window_kernels.TICKETS,), dtype=torch.int32, device=dev))
         self.args = WindowArgs(self.s, w, masks, anchor, prior, cfg, lm_cfg) if self.kernels else None
         self.graphs = None
 

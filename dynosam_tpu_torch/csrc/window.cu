@@ -16,47 +16,75 @@
 //        scheme); a thread per static point (Us, Hll_s, b_sp), per (frame,
 //        track) (Rc, b_dp, chain_c, the one-hot and the square-root motion
 //        factor) and a warp per (frame, object) (Dmm, Omm1, b_mot).
-//   K8 window_step   -- `schur_reduce`, six kernels: the static elimination
-//        (a thread per static point and column, the adjugate inverse of
-//        `_inv3` on the damped block); the Woodbury blocks of each (frame,
-//        track) (inv_c, AU_cur, AU_prev, Bcol, phi_hat, the capacitance
-//        chain's alpha_M and B_M); the chains (a block per track, its
-//        blocks and `chain_solve_scalar`'s pivots in shared memory, a
-//        thread per column of the 2 * 6W + 1 right sides, the forward
-//        sweep in shared memory); the camera rows' sums over the points
-//        and tracks split into segments (a block per row and segment), and
-//        per-frame lists of the tracks in a motion factor's chain; the raw
-//        reduced system, a thread per entry, adding the segments in order
-//        and looping over the listed tracks; and a tiled pass that
-//        symmetrises it and adds the diagonal floor.  The factorisation
-//        stays `torch.linalg.cholesky_ex` / `cholesky_solve` (cuSOLVER).
-//   K9 window_update -- `schur_back` and `_lm_tail`, three kernels: the
-//        back-substitution (a warp per track for the chain's dot
-//        products), retraction, trial residuals and their robust error
-//        (per-block partials per family); one block that adds the partials
-//        in block order and takes the accept, lambda, ratchet and
-//        convergence decisions; a pass that commits the trial where
-//        accepted.  At a zero step (`dyno_window_head`) the same kernels
-//        give the LM head: residuals and error at the current values.
+//   K8 window_step   -- `schur_reduce`, two kernels.  The segment pass:
+//        a CTA of 512 threads a segment of at most 8 static points and 8
+//        tracks (about 128 CTAs, one an SM); it stages them in shared
+//        memory, forms the damped static blocks' inverses (`_inv3`'s
+//        adjugate) and Hll^-1 [Us | b_sp], and adds into its share of the
+//        camera rows' sums (nc x (nc + 1), column nc the right side; a
+//        thread a row and a strided set of columns, in registers) the
+//        static elimination, the tracks' observation blocks and, for each
+//        track in a motion factor's chain, AU^T M^-1 [AU | phi_hat] from
+//        its chain solved for all 2 * 6W + 1 right sides in shared memory
+//        (the Woodbury blocks and `chain_solve_scalar`'s pivots there
+//        too), and the pose diagonal's motion-factor term; it writes its
+//        share as one partial.  The chain solutions leave the chip only
+//        for a (frame, track) with an object: its blocks and the motion
+//        and phi columns (KEEP, 54 + 3 (6W + 1) floats), which the
+//        camera-motion, motion-motion and motion right-side entries read,
+//        per object, from the CTAs' lists of those tracks.  The assembly:
+//        a warp per camera pair adds the partials (lanes over the CTAs,
+//        then a butterfly) and writes both symmetrised entries; a block
+//        per (frame, object, frame) sums the object's kept tracks for its
+//        6x6 camera-motion and motion-motion blocks (both triangles, then
+//        their mean) and writes the other objects' zeros; the last block
+//        to finish (an integer ticket) adds the floor rel max|diag| +
+//        tiny.  The factorisation stays `torch.linalg.cholesky_ex` /
+//        `cholesky_solve` (cuSOLVER).
+//   K9 window_update -- `schur_back` and `_lm_tail`, two kernels: the
+//        back-substitution from the one right side the step needs (a static
+//        point's Hll^-1 (b_sp - Us^T dc); a track's chain, its blocks
+//        rebuilt from the system on a warp, solved for phi_hat - AU_nc dc +
+//        Bcol_nc dm_sel on lane 0), written to the step buffer with the
+//        camera and motion steps; retraction, trial residuals and their
+//        robust error (per-block partials per family); the last block to
+//        finish (a ticket) adds the partials in block order and takes the
+//        accept, lambda, ratchet and convergence decisions; then a pass
+//        commits the trial where accepted (the graphs keep the state's
+//        fixed buffers, so the trial cannot be swapped in).  At a zero step
+//        (`dyno_window_head`) the same kernels give the LM head.
 //
 // Bound on the card: latency.  A KITTI window (W 10, 1,024 static points,
-// 1,024 tracks, 8 objects) needs ~0.1 GFLOP an iteration, microseconds of
-// the card's float32 rate, and ~20-40 MB of traffic, most of it the chain
-// solutions Z (W x ND x 3 x (2 * 6W + 1) floats, 15 MB), which stay in the
-// 50 MB L2 between K8's passes and K9.  An iteration is ten launches
-// besides the factorisation's; each kernel's time is in `PERF.md`.  An
-// IEEE division of a zero goes by a product (`div0`): KITTI's windows,
-// with no motion factor, fill the chains with zeros, and the division's
-// slow path for them cost the chain pass 13 of its 31 us.
+// 1,024 tracks, 8 objects) needs ~0.05 GFLOP an iteration, microseconds of
+// the card's float32 rate, and ~10 MB of traffic (the system, state,
+// window, reduced system and step), a few microseconds of HBM.  An
+// iteration is four launches of K8 and K9 and one of K7, besides the
+// factorisation's; what is left is each launch's chain of dependent steps
+// (global loads, barriers, a chain's 2 W substitutions) and the grid's
+// drain between launches.  The design keeps every intermediate of the
+// reduction on chip (the chain solutions of a window with motion factors
+// were 15 MB written and read three times), puts each thread's loads
+// before its stores (the compiler keeps a load behind a store to a pointer
+// that may alias), and ends each kernel with its one global dependency
+// taken by the last block.  Two other designs measured slower on the card
+// (`testing/window_split.py`, `testing/kernel_phases.py --window`; PERF.md):
+// the segment pass in thread block clusters adding their shares over
+// distributed shared memory (the cluster launch and barriers cost more
+// than the assembly's reading every CTA's partial), and a warp staging a
+// track's rows for K9 (slower than each lane loading its own).  An IEEE division of a zero goes by a product (`div0`): the
+// division's slow path on the zeros of motion-free chains is costly.
 //
 // No float atomics: every sum runs in a fixed order (index order within a
-// thread, warp butterflies, warps and blocks in order), so a launch repeats
-// bit for bit.  Padding rows and masked factors give exact zeros.  The
-// products and sums are rounded one by one (`-fmad=false`), in the plain
-// version's order where it is a short closed form; long sums differ in
-// order, so the kernels agree with the plain versions within float32
-// spread, not bit for bit.  float32 only; W <= 16, NS <= 1024, ND <= 1024,
-// O <= 8 (`kernels/window.py:check` raises on anything else).
+// thread, warp butterflies, warps and CTAs in order), so a launch repeats
+// bit for bit; the integer counters in the state (`tickets`: each kernel's
+// last-block ticket, the objects each frame carries, an OR) are reset by
+// the last block.  Padding rows and masked factors give exact zeros, which
+// the sums skip.  The products and sums are rounded one by one
+// (`-fmad=false`), in the plain version's order where it is a short closed
+// form; long sums differ in order, so the kernels agree with the plain
+// versions within float32 spread, not bit for bit.  float32 only; W <= 16,
+// NS <= 1024, ND <= 1024, O <= 8 (`kernels/window.py:check` raises on
+// anything else).
 #include "common.cuh"
 #include "small.cuh"
 
@@ -75,6 +103,7 @@ using dyno::transpose3;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_W = 16;
+constexpr int MAX_O = 8;
 constexpr int N_FAMILY = 6;
 
 // the pointer table (kernels/window.py:POINTERS, same order)
@@ -86,9 +115,8 @@ enum Ptr {
   ANCHOR_R, ANCHOR_T, PRIOR_L,
   HCC, DMM, OMM1, OMM2, B_CAM, B_MOT, HLL_S, US, B_SP, RC, B_DP, ONEHOT, CHAIN_C, CHAIN_T, ST_S, ST_R, ST_G,
   ST_PHI,
-  ERR, LAM, LAM_MIN, DONE, ACCEPT, FLAGS, ERR_INIT,
-  YC_S, YB_S, ZBUF, INV_C, AU_CUR, AU_PREV, BCOL, OBJ, HRAW, HRED, BRED,
-  SOL, INFO, TRIAL, PARTIALS, PART_CC, PART_DD, ACT_LIST, ACT_COUNT, PHI_HAT, BMAT, ALPHA_M,
+  ERR, LAM, LAM_MIN, DONE, ACCEPT, FLAGS, ERR_INIT, TICKETS,
+  HRED, BRED, SOL, INFO, TRIAL, PARTIALS, PART, OBJ, ACT_LIST, ACT_COUNT, KEEP, STEP,
   N_PTR
 };
 
@@ -626,458 +654,727 @@ __global__ void __launch_bounds__(THREADS) window_build_kernel(const Args a) {
 
 // ---------------------------------------------------------------- K8: step
 
-__host__ __device__ inline int prep_track_blocks(int ND) { return ND; }
-
-__host__ __device__ inline int chain_threads(int C) { return 32 * ((C + 31) / 32); }
-
-// the forward sweep of every column of a track: 3 W x C floats
-__host__ __device__ inline size_t chain_smem(int W, int C) { return sizeof(float) * 3 * W * C; }
-__host__ __device__ inline int prep_static_blocks(int NS, int nc) { return (NS * (nc + 1) + THREADS - 1) / THREADS; }
-
-struct TrackSmem {
-  float alphaM[MAX_W], b2[MAX_W], delta[MAX_W];
-  float BM[MAX_W][9], AUc[MAX_W][18], AUp[MAX_W][18], Bc[MAX_W][18], phi[MAX_W][3];
+// one (frame, track) of a capacitance chain: the motion factor's scale s,
+// the chain's diagonal alpha_M, its pivot delta and coupling B_M, and the
+// right side's blocks AU_cur (camera column k), AU_prev (column k-1), Bcol
+// (the motion of frame k) and phi_hat
+struct ChainFrame {
+  float s, alphaM, delta, BM[9], AUc[18], AUp[18], Bc[18], phi[3];
 };
 
 // the damped point diagonal's inverse 1 / (c + lam clamp(c + T_k + T_{k+1}))
-// of (frame k, track d)
-__device__ __forceinline__ float chain_inv_c(const Args& a, int k, int d, float lam) {
-  const int kd = k * a.ND + d;
-  const float cc = a.f(CHAIN_C)[kd], cT = a.f(CHAIN_T)[kd];
-  const float cTn = k + 1 < a.W ? a.f(CHAIN_T)[kd + a.ND] : 0.f;
-  return 1.f / (cc + lam * clamp_min((cc + cT) + cTn, a.p[FLOOR]));
+// of one (frame, track) from its c, T and the next frame's T
+__device__ __forceinline__ float inv_c_of(float cc, float cT, float cTn, float lam, float floor_) {
+  return 1.f / (cc + lam * clamp_min((cc + cT) + cTn, floor_));
 }
 
-// (frame k, track d) of the Woodbury elimination: inv_c, the object, the
-// capacitance chain's diagonal alpha_M and coupling B_M, and the right
-// side's blocks AU_cur (camera column k), AU_prev (column k-1), Bcol and
-// phi_hat, into the scratch the chain, reduce and update passes read
-__device__ void frame_track_prep(const Args& a, int k, int d) {
-  const int ND = a.ND, O = a.O, kd = k * ND + d;
-  const float lam = *a.f(LAM);
-  const float invc = chain_inv_c(a, k, d, lam);
-  const float invc_prev = k >= 1 ? chain_inv_c(a, k - 1, d, lam) : invc;
-  const float sk = a.f(ST_S)[kd];
-  const float sprev = k >= 1 ? a.f(ST_S)[kd - ND] : 0.f;
+__device__ __forceinline__ float chain_inv_c(const Args& a, int k, int d, float lam) {
+  const int kd = k * a.ND + d;
+  return inv_c_of(a.f(CHAIN_C)[kd], a.f(CHAIN_T)[kd], k + 1 < a.W ? a.f(CHAIN_T)[kd + a.ND] : 0.f, lam, a.p[FLOOR]);
+}
+
+// the object of (frame k, track d) in a motion factor's chain, or -1
+__device__ __forceinline__ int track_obj(const Args& a, int kd) {
+  float oh[MAX_O];
+#pragma unroll
+  for (int o = 0; o < MAX_O; ++o) oh[o] = o < a.O ? a.f(ONEHOT)[kd * a.O + o] : 0.f;
   int obj = -1;
-  for (int o = 0; o < O; ++o)
-    if (a.f(ONEHOT)[kd * O + o] != 0.f) obj = o;
-  float RM[9], Rt[9], Rc[18], Rcp[18], G[18], bz[3], bzp[3], sphi[3];
-  if (k == 0) {
-    for (int i = 0; i < 9; ++i) RM[i] = (i % 4 == 0) ? 1.f : 0.f;
-  } else {
-    transpose3(a.f(ST_R) + 9 * (kd - ND), RM);
-  }
-  transpose3(a.f(ST_R) + 9 * kd, Rt);
+#pragma unroll
+  for (int o = 0; o < MAX_O; ++o)
+    if (oh[o] != 0.f) obj = o;
+  return obj;
+}
+
+// (frame k, track d) of the Woodbury elimination into f (`schur_reduce`'s
+// formulas, in their order), every load before the first store
+__device__ void chain_frame(const Args& a, int k, int d, float lam, ChainFrame& f) {
+  const int ND = a.ND, kd = k * ND + d, kp = k >= 1 ? kd - ND : kd;
+  const bool later = k >= 1;
+  float Rc[18], Rcp[18], G[18], R[9], Rp[9], bd[3], bdp[3], sphi[3];
   for (int i = 0; i < 18; ++i) {
     Rc[i] = a.f(RC)[18 * kd + i];
-    Rcp[i] = k >= 1 ? a.f(RC)[18 * (kd - ND) + i] : 0.f;
+    Rcp[i] = a.f(RC)[18 * kp + i];
     G[i] = a.f(ST_G)[18 * kd + i];
   }
+  for (int i = 0; i < 9; ++i) {
+    R[i] = a.f(ST_R)[9 * kd + i];
+    Rp[i] = a.f(ST_R)[9 * kp + i];
+  }
   for (int i = 0; i < 3; ++i) {
-    bz[i] = a.f(B_DP)[3 * kd + i] * invc;
-    bzp[i] = k >= 1 ? a.f(B_DP)[3 * (kd - ND) + i] * invc_prev : 0.f;
+    bd[i] = a.f(B_DP)[3 * kd + i];
+    bdp[i] = a.f(B_DP)[3 * kp + i];
     sphi[i] = a.f(ST_PHI)[3 * kd + i];
   }
-  // all loads above, all stores below
-  a.f(INV_C)[kd] = invc;
-  a.i32(OBJ)[kd] = obj;
-  a.f(ALPHA_M)[kd] = 1.f + (sk * sk) * (invc_prev + invc);
+  const float sk = a.f(ST_S)[kd], sprev = later ? a.f(ST_S)[kp] : 0.f;
+  const float invc = chain_inv_c(a, k, d, lam);
+  const float invc_prev = later ? chain_inv_c(a, k - 1, d, lam) : invc;
+  float RM[9], Rt[9], bz[3], bzp[3];
+  if (!later) {
+    for (int i = 0; i < 9; ++i) RM[i] = (i % 4 == 0) ? 1.f : 0.f;
+  } else {
+    transpose3(Rp, RM);
+  }
+  transpose3(R, Rt);
+  for (int i = 0; i < 3; ++i) {
+    bz[i] = bd[i] * invc;
+    bzp[i] = later ? bdp[i] * invc_prev : 0.f;
+  }
+  f.s = sk;
+  f.alphaM = 1.f + (sk * sk) * (invc_prev + invc);
   const float coef = -((sprev * sk) * invc_prev);
-  for (int i = 0; i < 9; ++i) a.f(BMAT)[9 * kd + i] = coef * RM[i];
+  for (int i = 0; i < 9; ++i) f.BM[i] = coef * RM[i];
   float RcC[18];
   for (int i = 0; i < 18; ++i) RcC[i] = Rc[i] * invc;
   for (int i = 0; i < 3; ++i)
     for (int c = 0; c < 6; ++c) {
       const float m = (Rt[3 * i] * RcC[c] + Rt[3 * i + 1] * RcC[6 + c]) + Rt[3 * i + 2] * RcC[12 + c];
-      a.f(AU_CUR)[18 * kd + 6 * i + c] = -sk * m;
+      f.AUc[6 * i + c] = -sk * m;
     }
   for (int i = 0; i < 18; ++i) {
-    a.f(AU_PREV)[18 * kd + i] = k >= 1 ? sk * (Rcp[i] * invc_prev) : 0.f;
-    a.f(BCOL)[18 * kd + i] = sk * G[i];
+    f.AUp[i] = later ? sk * (Rcp[i] * invc_prev) : 0.f;
+    f.Bc[i] = sk * G[i];
   }
   float Rb[3];
   mv3(Rt, bz, Rb);
-  for (int i = 0; i < 3; ++i) a.f(PHI_HAT)[3 * kd + i] = sk * (bzp[i] - Rb[i]) + sphi[i];
+  for (int i = 0; i < 3; ++i) f.phi[i] = sk * (bzp[i] - Rb[i]) + sphi[i];
 }
 
-// one track's chain blocks into shared memory (all threads) and its pivots
-// delta_k = alpha_k - |b_k|^2 / delta_{k-1} (thread 0)
-__device__ __forceinline__ void load_track(const Args& a, int d, TrackSmem& t) {
-  const int W = a.W, ND = a.ND;
-  for (int i = threadIdx.x; i < 67 * W; i += blockDim.x) {
-    const int k = i / 67, e = i % 67, kd = k * ND + d;
-    if (e < 9) t.BM[k][e] = a.f(BMAT)[9 * kd + e];
-    else if (e < 27) t.AUc[k][e - 9] = a.f(AU_CUR)[18 * kd + e - 9];
-    else if (e < 45) t.AUp[k][e - 27] = a.f(AU_PREV)[18 * kd + e - 27];
-    else if (e < 63) t.Bc[k][e - 45] = a.f(BCOL)[18 * kd + e - 45];
-    else if (e < 66) t.phi[k][e - 63] = a.f(PHI_HAT)[3 * kd + e - 63];
-    else t.alphaM[k] = a.f(ALPHA_M)[kd];
+// `chain_solve_scalar`'s pivots delta_k = alpha_k - |b_k|^2 / delta_{k-1}
+__device__ __forceinline__ void chain_pivots(ChainFrame* f, int W) {
+  float dprev = 1.f;
+  for (int k = 0; k < W; ++k) {
+    const float b2 = (f[k].BM[0] * f[k].BM[0] + f[k].BM[1] * f[k].BM[1]) + f[k].BM[2] * f[k].BM[2];
+    dprev = f[k].alphaM - div0(b2, dprev);
+    f[k].delta = dprev;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float dprev = 1.f;
-    for (int k = 0; k < W; ++k) {
-      const float b2 = (t.BM[k][0] * t.BM[k][0] + t.BM[k][1] * t.BM[k][1]) + t.BM[k][2] * t.BM[k][2];
-      dprev = t.alphaM[k] - div0(b2, dprev);
-      t.delta[k] = dprev;
-    }
-  }
-  __syncthreads();
 }
 
-// one column c of the track's right side [AU_nc | Bcol_nc | phi_hat]: the
-// block-Thomas forward substitution into shared memory `ys` (3 W x C),
-// then the backward substitution, the solution written to Z
-__device__ __forceinline__ void chain_column(const Args& a, int d, int c, const TrackSmem& t, float* ys) {
-  const int W = a.W, ND = a.ND, nc = a.nc, C = a.C;
+// one right side rhs(k, i) of a track's chain: the block-Thomas forward
+// substitution into z[(3 k + i) * stride], then the backward substitution
+// in place
+template <class R>
+__device__ __forceinline__ void chain_solve(const ChainFrame* f, int W, R rhs, float* z, int stride) {
   float yp[3] = {0.f, 0.f, 0.f}, dprev = 1.f;
   for (int k = 0; k < W; ++k) {
-    float rhs[3];
-    for (int i = 0; i < 3; ++i) {
-      float v = 0.f;
-      if (c < nc) {
-        const int cf = c / 6, cb = c % 6;
-        if (cf == k) v = t.AUc[k][6 * i + cb];
-        else if (cf == k - 1) v = t.AUp[k][6 * i + cb];
-      } else if (c < 2 * nc) {
-        const int cf = (c - nc) / 6, cb = (c - nc) % 6;
-        if (cf == k) v = t.Bc[k][6 * i + cb];
-      } else {
-        v = t.phi[k][i];
-      }
-      rhs[i] = v;
-    }
     const float u[3] = {div0(yp[0], dprev), div0(yp[1], dprev), div0(yp[2], dprev)};
     for (int i = 0; i < 3; ++i) {
-      const float bu = (t.BM[k][i] * u[0] + t.BM[k][3 + i] * u[1]) + t.BM[k][6 + i] * u[2];
-      yp[i] = rhs[i] - bu;
-      ys[(3 * k + i) * C + c] = yp[i];
+      const float bu = (f[k].BM[i] * u[0] + f[k].BM[3 + i] * u[1]) + f[k].BM[6 + i] * u[2];
+      yp[i] = rhs(k, i) - bu;
+      z[(3 * k + i) * stride] = yp[i];
     }
-    dprev = t.delta[k];
+    dprev = f[k].delta;
   }
   float xn[3] = {0.f, 0.f, 0.f};
   for (int k = W - 1; k >= 0; --k) {
     float x[3];
     for (int i = 0; i < 3; ++i) {
-      const float y = ys[(3 * k + i) * C + c];
+      const float y = z[(3 * k + i) * stride];
       if (k + 1 < W) {
-        const float* B = t.BM[k + 1];
+        const float* B = f[k + 1].BM;
         const float bx = (B[3 * i] * xn[0] + B[3 * i + 1] * xn[1]) + B[3 * i + 2] * xn[2];
-        x[i] = div0(y - bx, t.delta[k]);
+        x[i] = div0(y - bx, f[k].delta);
       } else {
-        x[i] = div0(y, t.delta[k]);
+        x[i] = div0(y, f[k].delta);
       }
     }
-    float* z = a.f(ZBUF) + (size_t)3 * (k * ND + d) * C + c;
     for (int i = 0; i < 3; ++i) {
-      z[(size_t)i * C] = x[i];
+      z[(3 * k + i) * stride] = x[i];
       xn[i] = x[i];
     }
   }
 }
 
-// static point n, column q of [Us_cols | b_sp]: Ys = inv3(Hll_s damped) @ column
-__device__ void step_static(const Args& a, int n, int q) {
-  const int nc = a.nc;
+// The segment pass: CTA b takes static points and tracks [b len, (b + 1)
+// len) and forms, on chip, its share of the camera rows' sums nc x (nc + 1)
+// (column nc the right side): the static elimination Us^T Hll^-1 [Us |
+// b_sp], the tracks' Rc^T Kc^-1 [Rc | b_dp] and, for tracks in a motion
+// factor's chain, AU^T M^-1 [AU | phi_hat] from the chain solved in shared
+// memory; and the pose diagonal's motion-factor term dd_t per (frame,
+// object, axis).  It writes its share as one partial, column-major.  A
+// (frame, track) with an object keeps AU_cur, AU_prev, Bcol and the chain
+// solution's motion and phi columns (KEEP) for the assembly's camera-motion,
+// motion-motion and motion right-side entries, and the CTA lists those
+// tracks per (frame, object): those entries sum over every track of an
+// object at once, and a per-object accumulator in each CTA would hold
+// (6W + 6W + 1) 6W floats for each object its tracks carry.
+constexpr int SEG_THREADS = 512;
+constexpr int SEG_PER = 8;          // points and tracks a CTA at most
+constexpr int SEG_FILL = 128;       // CTAs a window should fill, one an SM
+constexpr int STAGE_SLOTS = (2 * MAX_W * SEG_PER * 18 + 3 * SEG_PER + SEG_THREADS - 1) / SEG_THREADS;
+constexpr int SEG_QJ_SMALL = 8;     // accumulator columns a thread for W <= 10
+constexpr int SEG_QJ_MAX = 20;      // ... for W <= 16
+constexpr int Z_BUDGET = 81920;     // bytes of shared memory for the chains solved at once
+
+struct SegShape {
+  int ctas, ns_len, nd_len, S, qj, tpar, E, krec;
+  int o_us, o_rc, o_bsp, o_hi, o_y, o_ic, o_bd, o_cf, o_z, floats;
+};
+
+__host__ __device__ inline SegShape seg_shape(int W, int NS, int ND, int O) {
+  SegShape s;
+  const int nc = 6 * W, C = 2 * nc + 1, most = NS > ND ? NS : ND;
+  // at most SEG_PER points and tracks a CTA, and as few as fill ~128 CTAs
+  const int per = (most + SEG_FILL - 1) / SEG_FILL < SEG_PER ? (most + SEG_FILL - 1) / SEG_FILL : SEG_PER;
+  s.ctas = (most + per - 1) / per;
+  s.ns_len = (NS + s.ctas - 1) / s.ctas;
+  s.nd_len = (ND + s.ctas - 1) / s.ctas;
+  s.S = SEG_THREADS / nc;
+  s.qj = (nc + 1 + s.S - 1) / s.S;
+  int tp = SEG_THREADS / C, zmax = Z_BUDGET / (12 * W * C);
+  tp = tp < zmax ? tp : zmax;
+  s.tpar = tp < 1 ? 1 : (tp > SEG_PER ? SEG_PER : tp);
+  s.E = nc * (nc + 1) + 6 * W * O;
+  s.krec = 54 + 3 * (nc + 1);
+  int o = 0;
+  s.o_us = o;   o += s.ns_len * W * 18;
+  s.o_rc = o;   o += s.nd_len * W * 18;
+  s.o_bsp = o;  o += s.ns_len * 3;
+  s.o_hi = o;   o += s.ns_len * 9;
+  s.o_y = o;    o += s.ns_len * 3 * (nc + 1);
+  s.o_ic = o;   o += s.nd_len * W;
+  s.o_bd = o;   o += s.nd_len * W * 3;
+  s.o_cf = o;   o += s.tpar * W * (int)(sizeof(ChainFrame) / sizeof(float));
+  s.o_z = o;    o += s.tpar * 3 * W * C;
+  s.floats = o;
+  return s;
+}
+
+template <int QJ>
+__global__ void __launch_bounds__(SEG_THREADS, 1) window_step_seg_kernel(const Args a, const SegShape sh) {
+  extern __shared__ float sm[];
+  __shared__ uint8_t sobs[SEG_PER][MAX_W], dobs[SEG_PER][MAX_W];
+  __shared__ int8_t tobj[SEG_PER][MAX_W];
+  __shared__ float soh[SEG_PER][MAX_W][MAX_O], sct[SEG_PER][MAX_W], sg2[SEG_PER][MAX_W][6];
+  __shared__ bool tmot[SEG_PER][MAX_W];
+  __shared__ int chained[SEG_PER], n_chained;
+  const int W = a.W, NS = a.NS, ND = a.ND, O = a.O, nc = a.nc, C = a.C, tid = threadIdx.x;
   const float lam = *a.f(LAM), floor_ = a.p[FLOOR];
-  float H[9], Hi[9];
-  for (int i = 0; i < 9; ++i) H[i] = a.f(HLL_S)[9 * n + i];
-  for (int i = 0; i < 3; ++i) H[4 * i] = H[4 * i] + lam * clamp_min(H[4 * i], floor_);
-  dyno::inv3(H, Hi);
-  float col[3];
-  if (q < nc) {
-    const int k = q / 6, c = q % 6;
-    for (int m = 0; m < 3; ++m) col[m] = a.f(US)[18 * (k * a.NS + n) + 3 * c + m];
-  } else {
-    for (int m = 0; m < 3; ++m) col[m] = a.f(B_SP)[3 * n + m];
+  // phase: begin
+  const int b = blockIdx.x;
+  const int n_lo = min(NS, b * sh.ns_len), np = min(NS, n_lo + sh.ns_len) - n_lo;
+  const int d_lo = min(ND, b * sh.nd_len), nt = min(ND, d_lo + sh.nd_len) - d_lo;
+  float* Us = sm + sh.o_us;      // [frame][point][18]
+  float* Hi = sm + sh.o_hi;      // [point][9]: the damped block's inverse
+  float* Bsp = sm + sh.o_bsp;    // [point][3]
+  float* Y = sm + sh.o_y;        // [point][3][nc + 1]: Hll^-1 [Us_cols | b_sp]
+  float* Rcs = sm + sh.o_rc;     // [frame][track][18]
+  float* Ic = sm + sh.o_ic;      // [track][frame]: inv_c
+  float* Bd = sm + sh.o_bd;      // [track][frame][3]
+  ChainFrame* cf = reinterpret_cast<ChainFrame*>(sm + sh.o_cf);   // [chain][frame]
+  float* Zs = sm + sh.o_z;       // [chain][3 W][C]
+  float* part = a.f(PART) + (size_t)blockIdx.x * sh.E;   // this CTA's partial: [nc + 1][nc], then dd_t [W][O][6]
+
+  // stage the segment's points and tracks, every load of a thread before
+  // its first store (the compiler keeps loads behind stores to pointers
+  // that may alias): the Us and Rc rows of each frame and b_sp, a slot a
+  // load; a (frame, track)'s mask, one-hot row, st_G, T, s, c and b_dp;
+  // a frame's static mask; on the last threads, a static block
+  // phase: stage loads
+  const int nu = W * np * 18, nr = W * nt * 18, nall = nu + nr + np * 3;
+  float v[STAGE_SLOTS];
+#pragma unroll
+  for (int jj = 0; jj < STAGE_SLOTS; ++jj) {
+    const int i = tid + jj * SEG_THREADS;
+    // one load a slot, its source picked by selects
+    const bool us = i < nu, rc = !us && i < nu + nr;
+    const int r = us ? i : (rc ? i - nu : i - nu - nr), row = us ? np * 18 : nt * 18;
+    const float* src = us ? a.f(US) + 18 * ((r / row) * NS + n_lo) + r % row
+                          : (rc ? a.f(RC) + 18 * ((r / row) * ND + d_lo) + r % row : a.f(B_SP) + 3 * n_lo + r);
+    v[jj] = i < nall ? *src : 0.f;
   }
-  float y[3];
-  mv3(Hi, col, y);
-  for (int m = 0; m < 3; ++m) {
-    if (q < nc) a.f(YC_S)[(size_t)(3 * n + m) * nc + q] = y[m];
-    else a.f(YB_S)[3 * n + m] = y[m];
+  const bool track_item = tid < W * nt, static_item = tid >= W * nt && tid < W * nt + W * np;
+  const int tk = track_item ? tid / nt : 0, tt = track_item ? tid % nt : 0, tkd = tk * ND + d_lo + tt;
+  float oh[MAX_O], G[18], cT = 0.f, cc = 0.f, cTn = 0.f, sk = 0.f, bd[3] = {0.f, 0.f, 0.f};
+  bool tob = false, sob = false;
+  if (track_item) {
+    tob = a.b(DYN_OBS)[tkd];
+#pragma unroll
+    for (int o = 0; o < MAX_O; ++o) oh[o] = o < O ? a.f(ONEHOT)[tkd * O + o] : 0.f;
+    for (int i = 0; i < 18; ++i) G[i] = a.f(ST_G)[18 * tkd + i];
+    cT = a.f(CHAIN_T)[tkd];
+    cc = a.f(CHAIN_C)[tkd];
+    cTn = tk + 1 < W ? a.f(CHAIN_T)[tkd + ND] : 0.f;
+    sk = a.f(ST_S)[tkd];
+    for (int m = 0; m < 3; ++m) bd[m] = a.f(B_DP)[3 * tkd + m];
   }
-}
-
-// a block per track: its chain blocks and pivots (`load_track`), then each
-// thread solves one column's chain
-__global__ void __launch_bounds__(256) window_step_chain_kernel(const Args a) {
-  __shared__ TrackSmem t;
-  extern __shared__ float ys[];
-  const int d = blockIdx.x;
-  load_track(a, d, t);
-  for (int c = threadIdx.x; c < a.C; c += blockDim.x) chain_column(a, d, c, t, ys);
-}
-
-// a thread per (static point, column) of Ys
-__global__ void __launch_bounds__(THREADS) window_step_static_kernel(const Args a) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < a.NS * (a.nc + 1)) step_static(a, i / (a.nc + 1), i % (a.nc + 1));
-}
-
-// a thread per (frame, track) of the Woodbury blocks
-__global__ void __launch_bounds__(THREADS) window_step_blocks_kernel(const Args a) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < a.W * a.ND) frame_track_prep(a, i / a.ND, i % a.ND);
-}
-
-__device__ inline float zget(const Args& a, int k, int d, int i, int c) {
-  return a.f(ZBUF)[((size_t)3 * (k * a.ND + d) + i) * a.C + c];
-}
-
-// the camera rows' sums over the points and tracks, split into SEGS
-// segments of the point and track axes (a block per row and segment, a
-// lane per column: column nc is the right side), and the pose diagonal's
-// motion-factor term dd_t per (frame, segment); the reduce pass adds the
-// segments in order
-constexpr int SEGS = 32;
-
-__host__ __device__ inline int cam_lanes(int nc) { return 32 * ((nc + 1 + 31) / 32); }
-
-__host__ __device__ inline int partial_blocks(int nc, int W) { return (nc + W) * SEGS + W; }
-
-// the tracks of frame k in a motion factor's chain (obj >= 0), in index
-// order, and their count: the reduce pass's loops over tracks read these
-__device__ void compact_active(const Args& a, int k) {
-  __shared__ int wcount[4], wbase[4];
-  __shared__ int base_s;
-  const int ND = a.ND, lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int* obj = a.i32(OBJ) + k * ND;
-  int* list = a.i32(ACT_LIST) + k * ND;
-  if (threadIdx.x == 0) base_s = 0;
+  const int si = tid - W * nt, sf = static_item ? si / np : 0, spt = static_item ? si % np : 0;
+  if (static_item) sob = a.b(STATIC_OBS)[sf * NS + n_lo + spt];
+  const int th = tid - ((int)blockDim.x - np);
+  float H[9];
+  if (th >= 0)
+    for (int i = 0; i < 9; ++i) H[i] = a.f(HLL_S)[9 * (n_lo + th) + i];
+  // phase: stage stores
+#pragma unroll
+  for (int jj = 0; jj < STAGE_SLOTS; ++jj) {
+    const int i = tid + jj * SEG_THREADS;
+    if (i < nu) Us[i] = v[jj];
+    else if (i < nu + nr) Rcs[i - nu] = v[jj];
+    else if (i < nall) Bsp[i - nu - nr] = v[jj];
+  }
+  if (track_item) {
+    int to = -1;
+#pragma unroll
+    for (int o = 0; o < MAX_O; ++o) {
+      if (oh[o] != 0.f) to = o;
+      soh[tt][tk][o] = oh[o];
+    }
+    for (int c = 0; c < 6; ++c) sg2[tt][tk][c] = (G[c] * G[c] + G[6 + c] * G[6 + c]) + G[12 + c] * G[12 + c];
+    sct[tt][tk] = cT;
+    dobs[tt][tk] = tob;
+    tobj[tt][tk] = (int8_t)to;
+    tmot[tt][tk] = sk != 0.f;
+    Ic[tt * W + tk] = inv_c_of(cc, cT, cTn, lam, floor_);
+    for (int m = 0; m < 3; ++m) Bd[(tt * W + tk) * 3 + m] = bd[m];
+  }
+  if (static_item) sobs[spt][sf] = sob;
+  if (th >= 0) {
+    for (int i = 0; i < 3; ++i) H[4 * i] = H[4 * i] + lam * clamp_min(H[4 * i], floor_);
+    dyno::inv3(H, Hi + 9 * th);
+  }
+  // a track is solved on chip when any frame has a motion factor or an object
   __syncthreads();
-  for (int d0 = 0; d0 < ND; d0 += blockDim.x) {
-    const int d = d0 + threadIdx.x;
-    const bool f = d < ND && obj[d] >= 0;
-    const unsigned bal = __ballot_sync(0xffffffffu, f);
-    if (lane == 0) wcount[warp] = __popc(bal);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int b = base_s;
-      for (int w = 0; w < nw; ++w) {
-        wbase[w] = b;
-        b += wcount[w];
+  if (tid < 32) {
+    bool on = false;
+    for (int k = 0; k < W && tid < nt; ++k) on = on || tmot[tid][k] || tobj[tid][k] >= 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, on);
+    if (tid == 0) {
+      int m = 0;
+      for (int ti = 0; ti < nt; ++ti)
+        if ((bal >> ti) & 1u) chained[m++] = ti;
+      n_chained = m;
+    }
+  }
+  __syncthreads();
+  // this CTA's tracks of each (frame, object) in index order, the assembly
+  // concatenating the CTAs' lists in CTA order (ACT_LIST (W, O, CTAs,
+  // SEG_PER), ACT_COUNT (W, O, CTAs)), and their objects (OBJ)
+  for (int e = tid; e < W * O; e += blockDim.x) {
+    const int k = e / O, o = e % O;
+    int* sub = a.i32(ACT_LIST) + ((size_t)e * gridDim.x + b) * SEG_PER;
+    int m = 0;
+    for (int ti = 0; ti < nt; ++ti)
+      if (tobj[ti][k] == o) sub[m++] = d_lo + ti;
+    a.i32(ACT_COUNT)[e * gridDim.x + b] = m;
+  }
+  for (int i = tid; i < W * nt; i += blockDim.x) a.i32(OBJ)[(i / nt) * ND + d_lo + i % nt] = tobj[i % nt][i / nt];
+  // which objects frame k's tracks carry, over every CTA (an integer OR:
+  // its value does not depend on the order); the assembly's last block
+  // clears it
+  if (tid < W) {
+    int bits = 0;
+    for (int ti = 0; ti < nt; ++ti)
+      if (tobj[ti][tid] >= 0) bits |= 1 << tobj[ti][tid];
+    if (bits) atomicOr(a.i32(TICKETS) + 2 + tid, bits);
+  }
+  // phase: Y
+  for (int i = tid; i < np * (nc + 1); i += blockDim.x) {
+    const int pi = i / (nc + 1), q = i % (nc + 1);
+    float col[3], y[3];
+    for (int r = 0; r < 3; ++r) col[r] = q < nc ? Us[((q / 6) * np + pi) * 18 + 3 * (q % 6) + r] : Bsp[3 * pi + r];
+    mv3(Hi + 9 * pi, col, y);
+    for (int m = 0; m < 3; ++m) Y[(pi * 3 + m) * (nc + 1) + q] = y[m];
+  }
+  __syncthreads();
+
+  // phase: sums
+  // this thread's entries: row p, columns q = s + jj S
+  const int p = tid % nc, s = tid / nc, j = p / 6, ca = p % 6;
+  const bool rows = s < sh.S;
+  float acc_s[QJ], acc_c[QJ], acc_t[QJ];
+#pragma unroll
+  for (int jj = 0; jj < QJ; ++jj) acc_s[jj] = acc_c[jj] = acc_t[jj] = 0.f;
+  if (rows) {
+    // static points in index order; a point unobserved in frame j has a
+    // zero Us row there and would add exact zeros
+    for (int pi = 0; pi < np; ++pi) {
+      if (!sobs[pi][j]) continue;
+      const float* u = Us + (j * np + pi) * 18 + 3 * ca;
+      const float u0 = u[0], u1 = u[1], u2 = u[2];
+      const float* y = Y + pi * 3 * (nc + 1);
+#pragma unroll
+      for (int jj = 0; jj < QJ; ++jj) {
+        const int q = s + jj * sh.S;
+        if (jj < sh.qj && q <= nc)
+          acc_s[jj] += (u0 * y[q] + u1 * y[(nc + 1) + q]) + u2 * y[2 * (nc + 1) + q];
       }
-      base_s = b;
+    }
+    // the tracks' observation blocks Rc^T Kc^-1 [Rc | b_dp] on frame j
+    for (int ti = 0; ti < nt; ++ti) {
+      if (!dobs[ti][j]) continue;
+      const float* R = Rcs + (j * nt + ti) * 18;
+      const float ic = Ic[ti * W + j];
+      const float* bd = Bd + (ti * W + j) * 3;
+      const float r0 = R[ca], r1 = R[6 + ca], r2 = R[12 + ca];
+#pragma unroll
+      for (int jj = 0; jj < QJ; ++jj) {
+        const int q = s + jj * sh.S;
+        if (jj < sh.qj && q < nc && q / 6 == j) {
+          const int cb = q % 6;
+          acc_c[jj] += ((r0 * ic) * R[cb] + (r1 * ic) * R[6 + cb]) + (r2 * ic) * R[12 + cb];
+        } else if (jj < sh.qj && q == nc) {
+          acc_c[jj] += (r0 * (bd[0] * ic) + r1 * (bd[1] * ic)) + r2 * (bd[2] * ic);
+        }
+      }
+    }
+  }
+
+  // phase: chains
+  // the chains of the segment's tracks in a motion factor's chain, tpar at
+  // a time: blocks, pivots, every column of [AU_nc | Bcol_nc | phi_hat]
+  const int zsz = 3 * W * C;
+  for (int g0 = 0; g0 < n_chained; g0 += sh.tpar) {
+    // phase: chain blocks
+    const int ng = min(sh.tpar, n_chained - g0);
+    for (int i = tid; i < ng * W; i += blockDim.x)
+      chain_frame(a, i % W, d_lo + chained[g0 + i / W], lam, cf[(i / W) * W + i % W]);
+    __syncthreads();
+    // phase: pivots
+    if (tid < ng) chain_pivots(cf + tid * W, W);
+    __syncthreads();
+    // phase: columns
+    for (int i = tid; i < ng * C; i += blockDim.x) {
+      const int g = i / C, c = i % C;
+      const ChainFrame* f = cf + g * W;
+      chain_solve(f, W, [&](int k, int r) {
+        if (c < nc) {
+          const int cf_ = c / 6, cb = c % 6;
+          return cf_ == k ? f[k].AUc[6 * r + cb] : (cf_ == k - 1 ? f[k].AUp[6 * r + cb] : 0.f);
+        }
+        if (c < 2 * nc) return (c - nc) / 6 == k ? f[k].Bc[6 * r + (c - nc) % 6] : 0.f;
+        return f[k].phi[r];
+      }, Zs + g * zsz + c, C);
     }
     __syncthreads();
-    if (f) list[wbase[warp] + __popc(bal & ((1u << lane) - 1u))] = d;
+    // phase: chain sums
+    if (rows) {
+      for (int g = 0; g < ng; ++g) {
+        const ChainFrame* f = cf + g * W;
+        const float* Z = Zs + g * zsz;
+        const bool cur = f[j].s != 0.f, nxt = j + 1 < W && f[j + 1].s != 0.f;
+        const float A0 = f[j].AUc[ca], A1 = f[j].AUc[6 + ca], A2 = f[j].AUc[12 + ca];
+        const float* Bn = nxt ? f[j + 1].AUp : f[j].AUp;
+        const float B0 = Bn[ca], B1 = Bn[6 + ca], B2 = Bn[12 + ca];
+#pragma unroll
+        for (int jj = 0; jj < QJ; ++jj) {
+          const int q = s + jj * sh.S;
+          if (jj < sh.qj && q <= nc) {
+            const int cz = q < nc ? q : 2 * nc;
+            if (cur) acc_t[jj] += (A0 * Z[(3 * j) * C + cz] + A1 * Z[(3 * j + 1) * C + cz]) + A2 * Z[(3 * j + 2) * C + cz];
+            if (nxt)
+              acc_t[jj] += (B0 * Z[(3 * j + 3) * C + cz] + B1 * Z[(3 * j + 4) * C + cz]) + B2 * Z[(3 * j + 5) * C + cz];
+          }
+        }
+      }
+    }
+    // KEEP for each (frame, track) with an object: AU_cur, AU_prev, Bcol,
+    // then the solution's motion columns and phi, 3 x (nc + 1)
+    // phase: keep
+    for (int gk = tid >> 5; gk < ng * W; gk += blockDim.x >> 5) {
+      const int g = gk / W, k = gk % W, ti = chained[g0 + g], ln = tid & 31;
+      if (tobj[ti][k] < 0) continue;
+      const ChainFrame& f = cf[gk];
+      float* rec = a.f(KEEP) + (size_t)(k * ND + d_lo + ti) * sh.krec;
+      if (ln < 18) {
+        rec[ln] = f.AUc[ln];
+        rec[18 + ln] = f.AUp[ln];
+        rec[36 + ln] = f.Bc[ln];
+      }
+      const float* Zk = Zs + g * zsz + 3 * k * C + nc;
+      for (int i = 0; i < 3; ++i)
+        for (int c = ln; c <= nc; c += 32) rec[54 + i * (nc + 1) + c] = Zk[i * C + c];
+    }
     __syncthreads();
   }
-  if (threadIdx.x == 0) a.i32(ACT_COUNT)[k] = base_s;
-}
 
-__global__ void __launch_bounds__(128) window_step_partial_kernel(const Args a) {
-  const int W = a.W, NS = a.NS, ND = a.ND, O = a.O, nc = a.nc;
-  const float* st_s = a.f(ST_S);
-  const int seg = blockIdx.x % SEGS, row = blockIdx.x / SEGS;
-  const int ns_len = (NS + SEGS - 1) / SEGS, nd_len = (ND + SEGS - 1) / SEGS;
-  const int n_lo = seg * ns_len, n_hi = min(NS, n_lo + ns_len);
-  const int d_lo = seg * nd_len, d_hi = min(ND, d_lo + nd_len);
-  const int q = threadIdx.x;
-  if (blockIdx.x >= (nc + W) * SEGS) {
-    compact_active(a, blockIdx.x - (nc + W) * SEGS);
-    return;
-  }
-  if (row >= nc) {                                      // dd_t of frame k
-    const int k = row - nc;
-    if (q >= 6 * O) return;
-    const int o = q / 6, ca = q % 6;
+  // phase: dd_t
+  // dd_t of the segment's tracks
+  for (int e = tid; e < 6 * W * O; e += blockDim.x) {
+    const int k = e / (6 * O), o = (e / 6) % O, cc = e % 6;
     float ddt = 0.f;
-    for (int d = d_lo; d < d_hi; ++d) {
-      const float oh = a.f(ONEHOT)[(k * ND + d) * O + o];
-      if (oh == 0.f) continue;
-      const float* G = a.f(ST_G) + 18 * (k * ND + d) + ca;
-      const float g2 = (G[0] * G[0] + G[6] * G[6]) + G[12] * G[12];
-      ddt += (a.f(CHAIN_T)[k * ND + d] * oh) * g2;
+    for (int ti = 0; ti < nt; ++ti) {
+      const float oh = soh[ti][k][o];
+      if (oh != 0.f) ddt += (sct[ti][k] * oh) * sg2[ti][k][cc];
     }
-    a.f(PART_DD)[(seg * W + k) * 6 * O + q] = ddt;
-    return;
+    part[nc * (nc + 1) + e] = ddt;
   }
-  if (q > nc) return;
-  const int p = row, j = p / 6, ca = p % 6;
-  const int cz = q < nc ? q : 2 * nc;                   // the column of Z: camera q, or phi
-  float dcs = 0.f, dc1 = 0.f, t = 0.f;
-  // the column's entries of Ys (Yc_s column q, or yb_s) of point i: a point
-  // unobserved in frame j has a zero Us row and adds exact zeros
-  const float* Y = q < nc ? a.f(YC_S) + q : a.f(YB_S);
-  const int ys = q < nc ? nc : 1;
-#pragma unroll 8
-  for (int i = n_lo; i < n_hi; ++i) {
-    const float* u = a.f(US) + 18 * (j * NS + i) + 3 * ca;
-    const float* y = Y + (size_t)3 * i * ys;
-    dcs += (u[0] * y[0] + u[1] * y[ys]) + u[2] * y[2 * ys];
+  // phase: partial
+  if (rows) {
+#pragma unroll
+    for (int jj = 0; jj < QJ; ++jj) {
+      const int q = s + jj * sh.S;
+      if (jj < sh.qj && q <= nc) part[q * nc + p] = acc_s[jj] + (acc_c[jj] - acc_t[jj]);
+    }
   }
-  const bool diag_block = q < nc ? q / 6 == j : true;
-#pragma unroll 4
-  for (int d = d_lo; d < d_hi; ++d) {
-    const int jd = j * ND + d;
-    if (diag_block) {
-      const float* R = a.f(RC) + 18 * jd;
-      const float ic = a.f(INV_C)[jd];
-      if (q < nc) {
-        const int cb = q % 6;
-        dc1 += ((R[ca] * ic) * R[cb] + (R[6 + ca] * ic) * R[6 + cb]) + (R[12 + ca] * ic) * R[12 + cb];
-      } else {
-        const float* bd = a.f(B_DP) + 3 * jd;
-        dc1 += (R[ca] * (bd[0] * ic) + R[6 + ca] * (bd[1] * ic)) + R[12 + ca] * (bd[2] * ic);
+  // phase: end
+}
+
+// The assembly: the damped reduced system and its right side from the
+// segment partials, symmetrised, in two block roles, then the diagonal
+// floor rel max|diag| + tiny from the last block to write diagonal entries
+// (an integer ticket).
+//  A: a warp per camera pair p <= q (its two entries, the segments' partials
+//     added lane by lane and by a butterfly) and per camera right-side row;
+//  B: a block per (frame j, object o, frame l): the 6x6 camera-motion block
+//     (rows of frame j, the motion of (l, o)) and the motion-motion block
+//     ((j, o), (l, o)) with both triangles' sums over the object's tracks in
+//     KEEP (their lists, then their records a chunk at a time, staged in
+//     shared memory), the zero blocks of the other objects, and at l == j
+//     the motion right side.
+constexpr int ASM_THREADS = 256;
+constexpr int ASM_WARPS = ASM_THREADS / 32;
+constexpr int ASM_CHUNK = 32;       // kept tracks staged at a time
+
+__host__ __device__ inline int asm_a_blocks(int nc) { return (nc * (nc + 1) / 2 + nc + ASM_WARPS - 1) / ASM_WARPS; }
+
+__host__ __device__ inline int asm_blocks(int W, int O) { return asm_a_blocks(6 * W) + W * O * W; }
+
+// sum over a warp of the segments' partials x[c * E] (lanes over c, then a
+// butterfly); every lane receives it
+__device__ __forceinline__ float segment_total(const float* x, int nseg, int E) {
+  float v = 0.f;
+  for (int c = threadIdx.x & 31; c < nseg; c += 32) v += x[(size_t)c * E];
+  return dyno::warp_sum(v);
+}
+
+// role B's three lists of object o's tracks, L for frames k[L] (the segment
+// CTAs' lists concatenated in CTA order: scans of their counts, a thread a
+// CTA), each with a second frame g[L]'s activity flag (its object >= 0),
+// into smem ds[L], fl[L]; all three at once, each skipped where the frame
+// carries no track of o (`on`); returns the counts in n
+__device__ void stage_lists(const Args& a, int o, const int (&k)[3], const int (&g)[3], const bool (&on)[3],
+                            int ctas, int* const (&ds)[3], uint8_t* const (&fl)[3], int (&n)[3]) {
+  __shared__ int wsum[3][ASM_WARPS], total[3];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, ND = a.ND;
+  int c[3], x[3];
+#pragma unroll
+  for (int L = 0; L < 3; ++L)
+    c[L] = on[L] && (int)threadIdx.x < ctas ? a.i32(ACT_COUNT)[(k[L] * a.O + o) * ctas + threadIdx.x] : 0;
+#pragma unroll
+  for (int L = 0; L < 3; ++L) {
+    x[L] = c[L];
+    for (int s = 1; s < 32; s <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x[L], s);
+      if (lane >= s) x[L] += y;
+    }
+    if (lane == 31) wsum[L][warp] = x[L];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int L = 0; L < 3; ++L) {
+    for (int w = 0; w < warp; ++w) x[L] += wsum[L][w];
+    if (threadIdx.x == blockDim.x - 1) total[L] = x[L];
+  }
+  // this CTA's entries, every load first
+  int d[3][SEG_PER], fo[3][SEG_PER];
+#pragma unroll
+  for (int L = 0; L < 3; ++L)
+#pragma unroll
+    for (int t = 0; t < SEG_PER; ++t)
+      d[L][t] = t < c[L] ? a.i32(ACT_LIST)[((size_t)(k[L] * a.O + o) * ctas + threadIdx.x) * SEG_PER + t] : 0;
+#pragma unroll
+  for (int L = 0; L < 3; ++L)
+#pragma unroll
+    for (int t = 0; t < SEG_PER; ++t) fo[L][t] = t < c[L] ? a.i32(OBJ)[g[L] * ND + d[L][t]] : -1;
+#pragma unroll
+  for (int L = 0; L < 3; ++L)
+#pragma unroll
+    for (int t = 0; t < SEG_PER; ++t)
+      if (t < c[L]) {
+        ds[L][x[L] - c[L] + t] = d[L][t];
+        fl[L][x[L] - c[L] + t] = fo[L][t] >= 0;
       }
-    }
-    if (st_s[jd] != 0.f) {
-      const float* A = a.f(AU_CUR) + 18 * jd + ca;
-      t += (A[0] * zget(a, j, d, 0, cz) + A[6] * zget(a, j, d, 1, cz)) + A[12] * zget(a, j, d, 2, cz);
-    }
-    if (j + 1 < W && st_s[jd + ND] != 0.f) {
-      const float* A = a.f(AU_PREV) + 18 * (jd + ND) + ca;
-      t += (A[0] * zget(a, j + 1, d, 0, cz) + A[6] * zget(a, j + 1, d, 1, cz)) + A[12] * zget(a, j + 1, d, 2, cz);
-    }
-  }
-  a.f(PART_CC)[((size_t)seg * nc + p) * (nc + 1) + q] = dcs + (dc1 - t);
+  __syncthreads();
+#pragma unroll
+  for (int L = 0; L < 3; ++L) n[L] = total[L];
 }
 
-__host__ __device__ inline long long reduce_threads(int nc, int nm, int O, int W) {
-  return (long long)nc * nc + (long long)nc * O * 6 * W + (long long)nm * 6 * W + (nc + nm);
-}
-
-// the raw reduced system: each thread one entry (cc, cm, the object's mm
-// row with zeros for the other objects, or the right side)
-__global__ void __launch_bounds__(THREADS) window_step_reduce_kernel(const Args a) {
-  const int W = a.W, ND = a.ND, O = a.O, nc = a.nc, nm = a.nm, n = a.n;
+__global__ void __launch_bounds__(ASM_THREADS) window_step_assemble_kernel(const Args a, const SegShape sh) {
+  extern __shared__ int asm_sm[];
+  __shared__ bool last;
+  const int W = a.W, ND = a.ND, O = a.O, nc = a.nc, n = a.n, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const float lam = *a.f(LAM), floor_ = a.p[FLOOR];
-  long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const int* obj = a.i32(OBJ);
-  float* Hraw = a.f(HRAW);
-  if (idx < (long long)nc * nc) {                       // camera-camera
-    const int p = idx / nc, q = idx % nc;
-    float h = a.f(HCC)[p * nc + q];
-    if (p == q) h = h + lam * clamp_min(h, floor_);
-    float x = 0.f;
-    for (int seg = 0; seg < SEGS; ++seg) x += a.f(PART_CC)[((size_t)seg * nc + p) * (nc + 1) + q];
-    Hraw[(size_t)p * n + q] = h - x;
-    return;
-  }
-  idx -= (long long)nc * nc;
-  if (idx < (long long)nc * O * 6 * W) {                // camera-pose, both triangles
-    const int gb = idx % (6 * W), o = (idx / (6 * W)) % O, p = idx / (6 * W * O);
-    const int j = p / 6, ca = p % 6, g = gb / 6, cb = gb % 6;
-    const int c = nc + gb;
-    float acc = 0.f;
-    for (int side = 0; side < 2; ++side) {
-      const int k = j + side;                           // the factor row: AU_cur at j, AU_prev at j + 1
-      if (k >= W) break;
-      const int* list = a.i32(ACT_LIST) + k * ND;
-      const int cnt = a.i32(ACT_COUNT)[k];
-      const float* AU = a.f(side == 0 ? AU_CUR : AU_PREV);
-      for (int i = 0; i < cnt; ++i) {
-        const int d = list[i];
-        if (obj[k * ND + d] != o || obj[g * ND + d] < 0) continue;
-        const float* A = AU + 18 * (k * ND + d) + ca;
-        acc += (A[0] * zget(a, k, d, 0, c) + A[6] * zget(a, k, d, 1, c)) + A[12] * zget(a, k, d, 2, c);
+  const int nseg = sh.ctas, E = sh.E;
+  const float* P = a.f(PART);
+  float* H = a.f(HRED);
+  const int na = asm_a_blocks(nc);
+  if ((int)blockIdx.x < na) {
+    // the diagonal pairs first, then p < q row by row
+    const int w = blockIdx.x * ASM_WARPS + warp, npairs = nc * (nc + 1) / 2;
+    if (w < npairs) {
+      int p = w, q = w;
+      if (w >= nc) {
+        int rem = w - nc;
+        p = 0;
+        while (rem >= nc - 1 - p) rem -= nc - 1 - p++;
+        q = p + 1 + rem;
+      }
+      const float xpq = segment_total(P + q * nc + p, nseg, E);
+      const float xqp = segment_total(P + p * nc + q, nseg, E);
+      float hpq = a.f(HCC)[p * nc + q], hqp = a.f(HCC)[q * nc + p];
+      if (p == q) hpq = hqp = hpq + lam * clamp_min(hpq, floor_);
+      const float v = 0.5f * ((hpq - xpq) + (hqp - xqp));
+      if (lane == 0) {
+        H[(size_t)p * n + q] = v;
+        H[(size_t)q * n + p] = v;
+      }
+    } else if (w < npairs + nc) {
+      const int p = w - npairs;
+      const float x = segment_total(P + nc * nc + p, nseg, E);
+      if (lane == 0) a.f(BRED)[p] = a.f(B_CAM)[p] - x;
+    }
+  } else {
+    const int r = blockIdx.x - na, l = r % W, o = (r / W) % O, j = r / (W * O);
+    int* d0 = asm_sm;                      // frame j's tracks of o, flag: active at l
+    int* d1 = d0 + ND;                     // frame j + 1's, active at l
+    int* d2 = d1 + ND;                     // frame l's, active at j
+    uint8_t* f0 = reinterpret_cast<uint8_t*>(d2 + ND);
+    uint8_t* f1 = f0 + ND;
+    uint8_t* f2 = f1 + ND;
+    float* buf = reinterpret_cast<float*>(asm_sm + 3 * ND + (3 * ND + 3) / 4);   // a chunk of staged records
+    __shared__ float ddt[6];
+    if (l == j && warp == 0) {               // the motion-factor term of the damping, segments by lanes
+      float x[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int c = lane; c < nseg; c += 32)
+        for (int c6 = 0; c6 < 6; ++c6) x[c6] += P[(size_t)c * E + nc * (nc + 1) + (j * O + o) * 6 + c6];
+      for (int c6 = 0; c6 < 6; ++c6) {
+        const float t = dyno::warp_sum(x[c6]);
+        if (lane == 0) ddt[c6] = t;
       }
     }
-    const int m = (g * O + o) * 6 + cb;
-    Hraw[(size_t)p * n + nc + m] = -acc;
-    Hraw[(size_t)(nc + m) * n + p] = -acc;
-    return;
-  }
-  idx -= (long long)nc * O * 6 * W;
-  if (idx < (long long)nm * 6 * W) {                    // pose-pose, one object's band
-    const int lb = idx % (6 * W), r = idx / (6 * W);
-    const int k = r / (6 * O), o = (r / 6) % O, ca = r % 6, l = lb / 6, cb = lb % 6;
-    const float* Dm = a.f(DMM) + 36 * (k * O + o);
-    float band = 0.f;
-    if (l == k) {
-      float v = Dm[6 * ca + cb];
-      if (ca == cb) {
-        float ddt = 0.f;
-        for (int seg = 0; seg < SEGS; ++seg) ddt += a.f(PART_DD)[(seg * W + k) * 6 * O + 6 * o + ca];
-        v = v + lam * clamp_min(Dm[6 * ca + ca] + ddt, floor_);
+    __syncthreads();
+    const int* bits = a.i32(TICKETS) + 2;     // the objects each frame carries (the segment pass's OR)
+    const bool on[3] = {((bits[j] >> o) & 1) != 0, j + 1 < W && ((bits[j + 1] >> o) & 1) != 0,
+                        ((bits[l] >> o) & 1) != 0};
+    int ns[3] = {0, 0, 0};
+    if (on[0] || on[1] || on[2]) {
+      const int ks[3] = {j, j + 1 < W ? j + 1 : j, l}, gs[3] = {l, l, j};
+      int* const dl[3] = {d0, d1, d2};
+      uint8_t* const fls[3] = {f0, f1, f2};
+      stage_lists(a, o, ks, gs, on, sh.ctas, dl, fls, ns);
+    }
+    const int n0 = ns[0], n1 = ns[1], n2 = ns[2];
+    // threads 0-35: camera-motion (j, ca; l, o, cb); 36-71: motion-motion
+    // ((j, o, ca); (l, o, cb)); 72-77 at l == j: the motion right side.
+    // The three lists a chunk at a time: frame j's [AU_cur | Bcol | Z at
+    // (l, .) | Z phi], frame j + 1's [AU_prev | Z at (l, .)], frame l's
+    // [Bcol | Z at (j, .)] (the other triangle)
+    const int kr = sh.krec, n1c = nc + 1, e = tid < 36 ? tid : tid - 36, ca = tid < 72 ? e / 6 : tid - 72, cb = e % 6;
+    const float* K = a.f(KEEP);
+    float cm0 = 0.f, cm1 = 0.f, rc = 0.f, cr = 0.f, bphi = 0.f;
+    for (int c0 = 0; c0 < max(n0, max(n1, n2)); c0 += ASM_CHUNK) {
+      const int ch0 = max(0, min(ASM_CHUNK, n0 - c0)), ch1 = max(0, min(ASM_CHUNK, n1 - c0));
+      const int ch2 = max(0, min(ASM_CHUNK, n2 - c0)), e1 = 57 * ch0, e2 = e1 + 36 * ch1;
+      float* B1 = buf + e1;
+      float* B2 = buf + e2;
+      __syncthreads();
+      for (int i = tid; i < e2 + 36 * ch2; i += blockDim.x) {
+        float v;
+        if (i < e1) {
+          const int t = i / 57, q = i % 57;
+          const float* R = K + (size_t)(j * ND + d0[c0 + t]) * kr;
+          v = q < 36 ? R[q < 18 ? q : 18 + q]
+                     : (q < 54 ? R[54 + ((q - 36) / 6) * n1c + 6 * l + (q - 36) % 6] : R[54 + (q - 54) * n1c + nc]);
+        } else if (i < e2) {
+          const int t = (i - e1) / 36, q = (i - e1) % 36;
+          const float* R = K + (size_t)((j + 1) * ND + d1[c0 + t]) * kr;
+          v = q < 18 ? R[18 + q] : R[54 + ((q - 18) / 6) * n1c + 6 * l + (q - 18) % 6];
+        } else {
+          const int t = (i - e2) / 36, q = (i - e2) % 36;
+          const float* R = K + (size_t)(l * ND + d2[c0 + t]) * kr;
+          v = q < 18 ? R[36 + q] : R[54 + ((q - 18) / 6) * n1c + 6 * j + (q - 18) % 6];
+        }
+        buf[i] = v;
       }
-      band = v;
-    }
-    if (l == k + 1) band = band + a.f(OMM1)[36 * (k * O + o) + 6 * ca + cb];
-    if (l == k - 1) band = band + a.f(OMM1)[36 * (l * O + o) + 6 * cb + ca];
-    float chh = 0.f;
-    const int c = nc + lb;
-    const int* list = a.i32(ACT_LIST) + k * ND;
-    const int cnt = a.i32(ACT_COUNT)[k];
-    for (int i = 0; i < cnt; ++i) {
-      const int d = list[i];
-      if (obj[k * ND + d] != o || obj[l * ND + d] < 0) continue;
-      const float* B = a.f(BCOL) + 18 * (k * ND + d) + ca;
-      chh += (B[0] * zget(a, k, d, 0, c) + B[6] * zget(a, k, d, 1, c)) + B[12] * zget(a, k, d, 2, c);
-    }
-    float* row = Hraw + (size_t)(nc + r) * n + nc;
-    for (int op = 0; op < O; ++op) row[(l * O + op) * 6 + cb] = op == o ? band - (-chh) : 0.f;
-    return;
-  }
-  idx -= (long long)nm * 6 * W;
-  if (idx < nc + nm) {                                   // the right side
-    const int p = idx;
-    const int Cphi = 2 * nc;
-    if (p < nc) {
-      float x = 0.f;
-      for (int seg = 0; seg < SEGS; ++seg) x += a.f(PART_CC)[((size_t)seg * nc + p) * (nc + 1) + nc];
-      a.f(BRED)[p] = a.f(B_CAM)[p] - x;
-    } else {
-      const int r = p - nc, k = r / (6 * O), o = (r / 6) % O, ca = r % 6;
-      float bphi = 0.f;
-      const int* list = a.i32(ACT_LIST) + k * ND;
-      const int cnt = a.i32(ACT_COUNT)[k];
-      for (int i = 0; i < cnt; ++i) {
-        const int d = list[i];
-        if (obj[k * ND + d] != o) continue;
-        const float* B = a.f(BCOL) + 18 * (k * ND + d) + ca;
-        bphi += (B[0] * zget(a, k, d, 0, Cphi) + B[6] * zget(a, k, d, 1, Cphi)) + B[12] * zget(a, k, d, 2, Cphi);
+      __syncthreads();
+      if (tid < 36) {
+        for (int t = 0; t < ch0; ++t) {
+          const float* S = buf + 57 * t;
+          const float v = (S[ca] * S[36 + cb] + S[6 + ca] * S[42 + cb]) + S[12 + ca] * S[48 + cb];
+          cm0 += f0[c0 + t] ? v : 0.f;
+        }
+        for (int t = 0; t < ch1; ++t) {
+          const float* S = B1 + 36 * t;
+          const float v = (S[ca] * S[18 + cb] + S[6 + ca] * S[24 + cb]) + S[12 + ca] * S[30 + cb];
+          cm1 += f1[c0 + t] ? v : 0.f;
+        }
+      } else if (tid < 72) {
+        for (int t = 0; t < ch0; ++t) {
+          const float* S = buf + 57 * t;
+          const float v = (S[18 + ca] * S[36 + cb] + S[24 + ca] * S[42 + cb]) + S[30 + ca] * S[48 + cb];
+          rc += f0[c0 + t] ? v : 0.f;
+        }
+        for (int t = 0; t < ch2; ++t) {
+          const float* S = B2 + 36 * t;
+          const float v = (S[cb] * S[18 + ca] + S[6 + cb] * S[24 + ca]) + S[12 + cb] * S[30 + ca];
+          cr += f2[c0 + t] ? v : 0.f;
+        }
+      } else if (tid < 78) {
+        for (int t = 0; t < ch0; ++t) {
+          const float* S = buf + 57 * t;
+          bphi += (S[18 + ca] * S[54] + S[24 + ca] * S[55]) + S[30 + ca] * S[56];
+        }
       }
-      a.f(BRED)[p] = a.f(B_MOT)[r] - bphi;
+    }
+    const float cm = cm0 + cm1;
+    if (tid < 36) {
+      const int p = 6 * j + ca, m = nc + (l * O + o) * 6 + cb;
+      H[(size_t)p * n + m] = -cm;
+      H[(size_t)m * n + p] = -cm;
+    } else if (tid < 72) {
+      float band = 0.f;
+      if (l == j) {
+        const float* Dm = a.f(DMM) + 36 * (j * O + o);
+        band = Dm[6 * ca + cb];
+        if (ca == cb) band = band + lam * clamp_min(Dm[6 * ca + ca] + ddt[ca], floor_);
+      } else if (l == j + 1) {
+        band = a.f(OMM1)[36 * (j * O + o) + 6 * ca + cb];
+      } else if (l == j - 1) {
+        band = a.f(OMM1)[36 * (l * O + o) + 6 * cb + ca];
+      }
+      H[(size_t)(nc + (j * O + o) * 6 + ca) * n + nc + (l * O + o) * 6 + cb] = 0.5f * ((band - (-rc)) + (band - (-cr)));
+    } else if (tid < 78 && l == j) {
+      a.f(BRED)[nc + (j * O + o) * 6 + ca] = a.f(B_MOT)[(j * O + o) * 6 + ca] - bphi;
+    }
+    // the other objects' motions in these rows are zero
+    for (int i = tid; i < 36 * (O - 1); i += blockDim.x) {
+      const int op = i / 36 + (i / 36 >= o), ca = (i % 36) / 6, cb = i % 6;
+      H[(size_t)(nc + (j * O + o) * 6 + ca) * n + nc + (l * O + op) * 6 + cb] = 0.f;
     }
   }
-}
-
-// Hred = (Hraw + Hraw^T) / 2 + (rel max|diag| + tiny) I, a 32 x 32 tile a
-// block (the tile and its transpose through shared memory)
-constexpr int TILE = 32;
-
-__host__ __device__ inline int finish_blocks(int n) {
-  const int t = (n + TILE - 1) / TILE;
-  return t * t;
-}
-
-__global__ void __launch_bounds__(256) window_step_finish_kernel(const Args a) {
-  __shared__ float part[8];
-  __shared__ float dmax_s;
-  __shared__ float tA[TILE][TILE + 1], tB[TILE][TILE + 1];
-  const int n = a.n;
-  const float* Hraw = a.f(HRAW);
-  float m = 0.f;
-  for (int p = threadIdx.x; p < n; p += blockDim.x) m = nan_max(m, fabsf(Hraw[(size_t)p * n + p]));
-  for (int o = 16; o > 0; o >>= 1) m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
-  const int tiles = (n + TILE - 1) / TILE;
-  const int ti = blockIdx.x / tiles, tj = blockIdx.x % tiles;
-  const int c = threadIdx.x % TILE;
-  for (int r = threadIdx.x / TILE; r < TILE; r += blockDim.x / TILE) {
-    const int p = ti * TILE + r, q = tj * TILE + c, pt = tj * TILE + r, qt = ti * TILE + c;
-    tA[r][c] = (p < n && q < n) ? Hraw[(size_t)p * n + q] : 0.f;
-    tB[r][c] = (pt < n && qt < n) ? Hraw[(size_t)pt * n + qt] : 0.f;
-  }
+  // the last of the blocks that write the diagonal (role A's first, role
+  // B's at l == j) adds the floor
+  const int na_diag = (nc + ASM_WARPS - 1) / ASM_WARPS;
+  const int rb = (int)blockIdx.x - na;
+  if (!((int)blockIdx.x < na_diag || (rb >= 0 && rb % W == (rb / W) / O))) return;
+  __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float v = part[0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = nan_max(v, part[w]);
-    dmax_s = v;
-  }
+  if (tid == 0) last = atomicAdd(a.i32(TICKETS), 1) == na_diag + W * O - 1;
   __syncthreads();
-  const float add = a.p[REL] * dmax_s + a.p[TINY];
-  for (int r = threadIdx.x / TILE; r < TILE; r += blockDim.x / TILE) {
-    const int p = ti * TILE + r, q = tj * TILE + c;
-    if (p >= n || q >= n) continue;
-    float v = 0.5f * (tA[r][c] + tB[c][r]);
-    if (p == q) v = v + add;
-    a.f(HRED)[(size_t)p * n + q] = v;
+  if (!last) return;
+  __threadfence();
+  __shared__ float part[ASM_WARPS];
+  constexpr int DIAG = (6 * MAX_W * (1 + MAX_O) + ASM_THREADS - 1) / ASM_THREADS;   // diagonal entries a thread
+  float dg[DIAG], m = 0.f;
+#pragma unroll
+  for (int t = 0; t < DIAG; ++t) {
+    const int p = tid + t * ASM_THREADS;
+    dg[t] = p < n ? __ldcg(H + (size_t)p * n + p) : 0.f;
+    if (p < n) m = nan_max(m, fabsf(dg[t]));
   }
+  for (int off = 16; off > 0; off >>= 1) m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) part[warp] = m;
+  __syncthreads();
+  float dmax = part[0];
+  for (int w = 1; w < ASM_WARPS; ++w) dmax = nan_max(dmax, part[w]);
+  const float add = a.p[REL] * dmax + a.p[TINY];
+#pragma unroll
+  for (int t = 0; t < DIAG; ++t) {
+    const int p = tid + t * ASM_THREADS;
+    if (p < n) H[(size_t)p * n + p] = dg[t] + add;
+  }
+  if (tid == 0) a.i32(TICKETS)[0] = 0;
+  if (tid < W) a.i32(TICKETS)[2 + tid] = 0;
 }
 
 // ---------------------------------------------------------------- K9: update
@@ -1120,35 +1417,111 @@ __device__ float none_loss6(const float* r) {
   return 0.5f * sq;
 }
 
+// `_lm_tail`'s decisions from the blocks' error partials (nblocks of them):
+// the trial error (families in order, each family's blocks by lanes and a
+// butterfly), the step's finiteness and the accept, lambda, ratchet and
+// convergence updates; with `head`, `_lm_head`'s initial values
+__device__ void lm_decide(const Args& a, int nblocks, bool head) {
+  __shared__ float sums[8];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool bad = !head && *a.i32(INFO) != 0;
+  // warp w (of 4) takes families w and w + 4 (w < 2), or the camera (w 2)
+  // and motion (w 3) step sums, both in one pass over their loads
+  const int r2 = warp + 4;
+  float acc = 0.f, acc2 = 0.f;
+  for (int b = lane; b < nblocks; b += 32) {
+    acc += __ldcg(a.f(PARTIALS) + b * N_FAMILY + warp);
+    if (r2 < N_FAMILY) acc2 += __ldcg(a.f(PARTIALS) + b * N_FAMILY + r2);
+  }
+  if (r2 >= N_FAMILY && !head) {
+    const int lo = r2 == 6 ? 0 : a.nc, hi = r2 == 6 ? a.nc : a.n;
+    for (int i = lo + lane; i < hi; i += 32) acc2 += step_entry(a, i, bad);
+  }
+  acc = dyno::warp_sum(acc);
+  acc2 = dyno::warp_sum(acc2);
+  if (lane == 0) {
+    sums[warp] = acc;
+    sums[r2] = acc2;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  float e_new = sums[0];
+  for (int f = 1; f < N_FAMILY; ++f) e_new = e_new + sums[f];
+  if (head) {                                           // `_lm_head`
+    *a.f(ERR) = e_new;
+    *a.f(ERR_INIT) = e_new;
+    *a.f(LAM) = a.p[INIT_LAMBDA];
+    *a.f(LAM_MIN) = a.p[MIN_LAMBDA];
+    *a.bw(DONE) = 0;
+    return;
+  }
+  if (!isfinite(e_new)) e_new = __int_as_float(0x7f800000);
+  const float err = *a.f(ERR), lam = *a.f(LAM);
+  float lam_min = *a.f(LAM_MIN);
+  const bool done = *a.b(DONE) != 0;
+  const bool active = !done;
+  const bool accept = (e_new < err) && active;
+  const bool finite = isfinite(sums[6]) && isfinite(sums[7]);
+  const bool step_nan = !finite && active;
+  const float lf = a.p[LAMBDA_FACTOR];
+  if (step_nan) lam_min = nan_max(lam_min, lam * lf);
+  const float err_out = accept ? e_new : err;
+  const float lam_out = accept ? nan_max(lam * (1.f / lf), lam_min) : clamp_max(lam * lf, a.p[MAX_LAMBDA]);
+  const float change = fabsf(err - err_out);
+  const bool converged = accept && ((change < a.p[REL_TOL] * clamp_min(err, 1e-30f)) || (change < a.p[ABS_TOL]));
+  const bool done_out = done || converged || (active && lam_out >= a.p[MAX_LAMBDA]);
+  *a.f(ERR) = err_out;
+  *a.f(LAM) = active ? lam_out : lam;
+  *a.f(LAM_MIN) = lam_min;
+  *a.bw(DONE) = done_out;
+  *a.bw(ACCEPT) = accept;
+  a.bw(FLAGS)[0] = accept;
+  a.bw(FLAGS)[1] = done_out;
+}
+
 // the trial at the current values plus the step (`head`: at the current
-// values, the LM head's residuals and error)
+// values, the LM head's residuals and error), the step itself into STEP,
+// and from the last block to finish (an integer ticket) the decisions
 __global__ void __launch_bounds__(THREADS) window_update_trial_kernel(const Args a, int head) {
   __shared__ SE3 Xn[MAX_W];
   __shared__ float part[WARPS][N_FAMILY];
   __shared__ float tot[N_FAMILY];
-  __shared__ float coef[WARPS][2 * 6 * MAX_W + 1];
-  __shared__ float vsh[WARPS][MAX_W][3];
+  __shared__ float dcs[6 * MAX_W];
+  __shared__ ChainFrame cfs[WARPS][MAX_W];
+  __shared__ float rhs[WARPS][3 * MAX_W];
   __shared__ float dpn[WARPS][MAX_W][3];
   __shared__ int objs[WARPS][MAX_W];
-  const int W = a.W, NS = a.NS, ND = a.ND, O = a.O, nc = a.nc, C = a.C;
+  __shared__ bool last;
+  const int W = a.W, NS = a.NS, ND = a.ND, O = a.O, nc = a.nc;
   const bool bad = !head && *a.i32(INFO) != 0;          // a head has no step, sol and info are null
+  const float lam = *a.f(LAM);
   const TrialLayout L = trial_layout(W, NS, ND, O);
   float* T = a.f(TRIAL);
+  float* St = a.f(STEP);                                // [X nc | P nm | sp 3 NS | dp 3 W ND]
   const UpdateShape s = update_shape(W, NS, ND, O);
-  if (threadIdx.x < W) {
-    const int k = threadIdx.x;
+  // phase: begin
+  // the retracted poses on the block's last W threads (idle lanes of the
+  // last warp in a track block)
+  if ((int)threadIdx.x >= THREADS - W) {
+    const int k = threadIdx.x - (THREADS - W);
     float xi[6];
     for (int i = 0; i < 6; ++i) xi[i] = head ? 0.f : step_entry(a, 6 * k + i, bad);
     Xn[k] = head ? load_pose(a.f(XR) + 9 * k, a.f(XT) + 3 * k) : retract(a.f(XR) + 9 * k, a.f(XT) + 3 * k, xi);
   }
-  __syncthreads();
+  for (int q = threadIdx.x; q < nc && !head; q += THREADS) dcs[q] = step_entry(a, q, bad);
+  // each role waits for the poses and the camera step (one barrier) only
+  // after the work that needs neither
   float loss[N_FAMILY] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   int b = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (b < s.frame) {
+    // phase: frame
     // camera values, anchor and odometry residuals
+    __syncthreads();
     const int k = threadIdx.x;
     if (k < W) {
+      if (!head)
+        for (int i = 0; i < 6; ++i) St[6 * k + i] = dcs[6 * k + i];
       for (int i = 0; i < 9; ++i) T[L.off[0] + 9 * k + i] = Xn[k].R[i];
       for (int i = 0; i < 3; ++i) T[L.off[1] + 3 * k + i] = Xn[k].t[i];
       if (k + 1 < W) {
@@ -1184,19 +1557,39 @@ __global__ void __launch_bounds__(THREADS) window_update_trial_kernel(const Args
       }
     }
   } else if ((b -= s.frame) < s.stat) {
+    // a static point: its step Hll^-1 (b_sp - Us^T dc), the damped block's
+    // inverse as K8 forms it; unobserved frames' zero Us rows left out
+    // phase: static step
     const int n = b * THREADS + threadIdx.x;
+    float Hinv[9];
+    if (n < NS && !head) {
+      float H[9];
+      for (int i = 0; i < 9; ++i) H[i] = a.f(HLL_S)[9 * n + i];
+      for (int i = 0; i < 3; ++i) H[4 * i] = H[4 * i] + lam * clamp_min(H[4 * i], a.p[FLOOR]);
+      dyno::inv3(H, Hinv);
+    }
+    __syncthreads();
     if (n < NS) {
       float spn[3];
-      for (int m = 0; m < 3; ++m) {
-        if (head) {
-          spn[m] = a.f(SP)[3 * n + m];
-        } else {
-          float acc = 0.f;
-#pragma unroll 8
-          for (int q = 0; q < nc; ++q) acc += a.f(YC_S)[(size_t)(3 * n + m) * nc + q] * step_entry(a, q, bad);
-          spn[m] = a.f(SP)[3 * n + m] + (a.f(YB_S)[3 * n + m] - acc);
+      if (head) {
+        for (int m = 0; m < 3; ++m) spn[m] = a.f(SP)[3 * n + m];
+      } else {
+        float acc[3] = {0.f, 0.f, 0.f}, r[3], dsp[3];
+        for (int k = 0; k < W; ++k) {
+          if (!a.b(STATIC_OBS)[k * NS + n]) continue;
+          const float* U = a.f(US) + 18 * (k * NS + n);
+          for (int c = 0; c < 6; ++c)
+            for (int m = 0; m < 3; ++m) acc[m] += U[3 * c + m] * dcs[6 * k + c];
+        }
+        for (int m = 0; m < 3; ++m) r[m] = a.f(B_SP)[3 * n + m] - acc[m];
+        mv3(Hinv, r, dsp);
+        for (int m = 0; m < 3; ++m) {
+          if (bad) dsp[m] = __int_as_float(0x7fc00000);
+          St[a.n + 3 * n + m] = dsp[m];
+          spn[m] = a.f(SP)[3 * n + m] + dsp[m];
         }
       }
+      // phase: static residuals
       for (int m = 0; m < 3; ++m) T[L.off[4] + 3 * n + m] = spn[m];
       const float inv_sig = 1.f / a.p[SIG_S];
       // each frame's mask and measurement loaded before the previous
@@ -1221,57 +1614,41 @@ __global__ void __launch_bounds__(THREADS) window_update_trial_kernel(const Args
       }
     }
   } else if ((b -= s.stat) < s.track) {
+    // a track on a warp: its chain solved for the one right side
+    // phi_hat - AU_nc dc + Bcol_nc dm_sel (lanes the frames' blocks, lane 0
+    // the chain), then the point steps
+    // phase: track blocks
     const int d = b * WARPS + warp;
+    ChainFrame* f = cfs[warp];
+    if (d < ND && lane < W) {
+      objs[warp][lane] = track_obj(a, lane * ND + d);
+      if (!head) chain_frame(a, lane, d, lam, f[lane]);
+    }
+    __syncthreads();
     if (d < ND) {
-      if (lane < W) {
-        int ob = -1;
-        for (int o = 0; o < O; ++o)
-          if (a.f(ONEHOT)[(lane * ND + d) * O + o] != 0.f) ob = o;
-        objs[warp][lane] = ob;
-      }
-      __syncwarp();
-      for (int c = lane; c < C && !head; c += 32) {
-        float v;
-        if (c < nc) {
-          v = -step_entry(a, c, bad);
-        } else if (c < 2 * nc) {
-          const int g = (c - nc) / 6, cb = (c - nc) % 6, ob = objs[warp][g];
-          v = ob >= 0 ? step_entry(a, nc + (g * O + ob) * 6 + cb, bad) : (bad ? step_entry(a, 0, bad) : 0.f);
-        } else {
-          v = 1.f;
-        }
-        coef[warp][c] = v;
-      }
-      __syncwarp();
-      // v_k = Z_k coef: each lane's share of all 3W sums first (their loads
-      // independent), then one butterfly each
-      if (!head) {
-        float acc[MAX_W][3];
-#pragma unroll
-        for (int k = 0; k < MAX_W; ++k) acc[k][0] = acc[k][1] = acc[k][2] = 0.f;
-        for (int c = lane; c < C; c += 32) {
-          const float cf = coef[warp][c];
-#pragma unroll
-          for (int k = 0; k < MAX_W; ++k) {
-            if (k < W) {
-              const float* z = a.f(ZBUF) + (size_t)3 * (k * ND + d) * C + c;
-              acc[k][0] += z[0] * cf;
-              acc[k][1] += z[C] * cf;
-              acc[k][2] += z[2 * C] * cf;
-            }
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < MAX_W; ++k) {
-          if (k < W) {
-            for (int i = 0; i < 3; ++i) {
-              const float v = dyno::warp_sum(acc[k][i]);
-              if (lane == 0) vsh[warp][k][i] = v;
-            }
-          }
+      float* v = rhs[warp];
+      if (lane < W && !head) {
+        const int k = lane, ob = objs[warp][k];
+        float dm[6];
+        for (int c = 0; c < 6; ++c)
+          dm[c] = ob >= 0 ? step_entry(a, nc + (k * O + ob) * 6 + c, bad) : (bad ? step_entry(a, 0, bad) : 0.f);
+        for (int i = 0; i < 3; ++i) {
+          float au = 0.f, bm = 0.f;
+          for (int c = 0; c < 6; ++c) au += f[k].AUc[6 * i + c] * dcs[6 * k + c];
+          if (k >= 1)
+            for (int c = 0; c < 6; ++c) au += f[k].AUp[6 * i + c] * dcs[6 * (k - 1) + c];
+          for (int c = 0; c < 6; ++c) bm += f[k].Bc[6 * i + c] * dm[c];
+          v[3 * k + i] = (f[k].phi[i] - au) + bm;
         }
       }
       __syncwarp();
+      // phase: track chain
+      if (lane == 0 && !head) {
+        chain_pivots(f, W);
+        chain_solve(f, W, [&](int k, int i) { return v[3 * k + i]; }, v, 1);
+      }
+      __syncwarp();
+      // phase: track steps
       if (lane < W && head) {
         for (int i = 0; i < 3; ++i) {
           dpn[warp][lane][i] = a.f(DP)[3 * (lane * ND + d) + i];
@@ -1279,18 +1656,20 @@ __global__ void __launch_bounds__(THREADS) window_update_trial_kernel(const Args
         }
       } else if (lane < W) {
         const int k = lane, kd = k * ND + d;
-        float Rv[3];
-        mv3(a.f(ST_R) + 9 * kd, vsh[warp][k], Rv);
-        const float sk = a.f(ST_S)[kd];
-        const float sn = k + 1 < W ? a.f(ST_S)[kd + ND] : 0.f;
         const float* Rc = a.f(RC) + 18 * kd;
+        float Rv[3];
+        mv3(a.f(ST_R) + 9 * kd, v + 3 * k, Rv);
+        const float sk = f[k].s;
+        const float sn = k + 1 < W ? f[k + 1].s : 0.f;
+        const float invc = chain_inv_c(a, k, d, lam);
         for (int i = 0; i < 3; ++i) {
-          const float vn = k + 1 < W ? vsh[warp][k + 1][i] : 0.f;
+          const float vn = k + 1 < W ? v[3 * (k + 1) + i] : 0.f;
           const float atv = (-sk) * Rv[i] + sn * vn;
           float rdc = 0.f;
-          for (int c = 0; c < 6; ++c) rdc += Rc[6 * i + c] * step_entry(a, 6 * k + c, bad);
+          for (int c = 0; c < 6; ++c) rdc += Rc[6 * i + c] * dcs[6 * k + c];
           const float r1 = a.f(B_DP)[3 * kd + i] - rdc;
-          const float ddp = (r1 - atv) * a.f(INV_C)[kd];
+          const float ddp = (r1 - atv) * invc;
+          St[a.n + 3 * NS + 3 * kd + i] = ddp;
           dpn[warp][k][i] = a.f(DP)[3 * kd + i] + ddp;
           T[L.off[5] + 3 * kd + i] = dpn[warp][k][i];
         }
@@ -1331,12 +1710,15 @@ __global__ void __launch_bounds__(THREADS) window_update_trial_kernel(const Args
       }
     }
   } else {
+    // phase: objects
     b -= s.track;
     const int i = b * THREADS + threadIdx.x;
     if (i < W * O) {
       const int k = i / O, o = i % O;
       float xi[6];
       for (int j = 0; j < 6; ++j) xi[j] = head ? 0.f : step_entry(a, nc + 6 * i + j, bad);
+      if (!head)
+        for (int j = 0; j < 6; ++j) St[nc + 6 * i + j] = xi[j];
       const SE3 Hn = head ? load_pose(a.f(HR) + 9 * i, a.f(HT) + 3 * i) : retract(a.f(HR) + 9 * i, a.f(HT) + 3 * i, xi);
       for (int j = 0; j < 9; ++j) T[L.off[2] + 9 * i + j] = Hn.R[j];
       for (int j = 0; j < 3; ++j) T[L.off[3] + 3 * i + j] = Hn.t[j];
@@ -1356,71 +1738,69 @@ __global__ void __launch_bounds__(THREADS) window_update_trial_kernel(const Args
       }
     }
   }
+  // phase: partials
   block_sum<N_FAMILY>(loss, part, tot);
-  if (threadIdx.x < N_FAMILY) a.f(PARTIALS)[blockIdx.x * N_FAMILY + threadIdx.x] = tot[threadIdx.x];
-}
-
-// one block: the trial error from the partials (families in order, blocks
-// in order), the step's finiteness and `_lm_tail`'s decisions
-__global__ void __launch_bounds__(256) window_update_decide_kernel(const Args a, int nblocks, int head) {
-  __shared__ float sums[8];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool bad = !head && *a.i32(INFO) != 0;
-  float acc = 0.f;
-  if (warp < N_FAMILY) {
-    for (int b = lane; b < nblocks; b += 32) acc += a.f(PARTIALS)[b * N_FAMILY + warp];
-  } else if (!head) {
-    const int lo = warp == 6 ? 0 : a.nc, hi = warp == 6 ? a.nc : a.n;
-    for (int i = lo + lane; i < hi; i += 32) acc += step_entry(a, i, bad);
+  if (threadIdx.x < N_FAMILY) {
+    a.f(PARTIALS)[blockIdx.x * N_FAMILY + threadIdx.x] = tot[threadIdx.x];
+    __threadfence();
   }
-  acc = dyno::warp_sum(acc);
-  if (lane == 0) sums[warp] = acc;
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  float e_new = sums[0];
-  for (int f = 1; f < N_FAMILY; ++f) e_new = e_new + sums[f];
-  if (head) {                                           // `_lm_head`
-    *a.f(ERR) = e_new;
-    *a.f(ERR_INIT) = e_new;
-    *a.f(LAM) = a.p[INIT_LAMBDA];
-    *a.f(LAM_MIN) = a.p[MIN_LAMBDA];
-    *a.bw(DONE) = 0;
+  if (threadIdx.x == 0) last = atomicAdd(a.i32(TICKETS) + 1, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) {
+    // phase: end
     return;
   }
-  if (!isfinite(e_new)) e_new = __int_as_float(0x7f800000);
-  const float err = *a.f(ERR), lam = *a.f(LAM);
-  float lam_min = *a.f(LAM_MIN);
-  const bool done = *a.b(DONE) != 0;
-  const bool active = !done;
-  const bool accept = (e_new < err) && active;
-  const bool finite = isfinite(sums[6]) && isfinite(sums[7]);
-  const bool step_nan = !finite && active;
-  const float lf = a.p[LAMBDA_FACTOR];
-  if (step_nan) lam_min = nan_max(lam_min, lam * lf);
-  const float err_out = accept ? e_new : err;
-  const float lam_out = accept ? nan_max(lam * (1.f / lf), lam_min) : clamp_max(lam * lf, a.p[MAX_LAMBDA]);
-  const float change = fabsf(err - err_out);
-  const bool converged = accept && ((change < a.p[REL_TOL] * clamp_min(err, 1e-30f)) || (change < a.p[ABS_TOL]));
-  const bool done_out = done || converged || (active && lam_out >= a.p[MAX_LAMBDA]);
-  *a.f(ERR) = err_out;
-  *a.f(LAM) = active ? lam_out : lam;
-  *a.f(LAM_MIN) = lam_min;
-  *a.bw(DONE) = done_out;
-  *a.bw(ACCEPT) = accept;
-  a.bw(FLAGS)[0] = accept;
-  a.bw(FLAGS)[1] = done_out;
+  // phase: decide
+  __threadfence();
+  lm_decide(a, gridDim.x, head);
+  if (threadIdx.x == 0) a.i32(TICKETS)[1] = 0;
+  // phase: end
 }
 
-// the trial values and residuals into the state where accepted
+// the trial values and residuals into the state where accepted,
+// COMMIT_PER entries a thread (every load before the stores)
+constexpr int COMMIT_PER = 4;
+
+__host__ __device__ inline int commit_blocks(int W, int NS, int ND, int O) {
+  return (int)((trial_layout(W, NS, ND, O).off[12] + THREADS * COMMIT_PER - 1) / (THREADS * COMMIT_PER));
+}
+
+__device__ __forceinline__ float* commit_dst(const Args& a, int arr) {
+  switch (arr) {
+    case 0: return a.f(XR);
+    case 1: return a.f(XT);
+    case 2: return a.f(HR);
+    case 3: return a.f(HT);
+    case 4: return a.f(SP);
+    case 5: return a.f(DP);
+    case 6: return a.f(R_ANCHOR);
+    case 7: return a.f(R_ODO);
+    case 8: return a.f(R_STATIC);
+    case 9: return a.f(R_DYN);
+    case 10: return a.f(R_TERN);
+    default: return a.f(R_SMOOTH);
+  }
+}
+
 __global__ void __launch_bounds__(THREADS) window_update_commit_kernel(const Args a, int head) {
   if (!head && !*a.b(ACCEPT)) return;
   const TrialLayout L = trial_layout(a.W, a.NS, a.ND, a.O);
-  const int dst[12] = {XR, XT, HR, HT, SP, DP, R_ANCHOR, R_ODO, R_STATIC, R_DYN, R_TERN, R_SMOOTH};
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < L.off[12];
-       i += (long long)gridDim.x * THREADS) {
+  const long long i0 = (long long)blockIdx.x * THREADS * COMMIT_PER + threadIdx.x;
+  float v[COMMIT_PER];
+#pragma unroll
+  for (int c = 0; c < COMMIT_PER; ++c) {
+    const long long i = i0 + c * THREADS;
+    v[c] = i < L.off[12] ? a.f(TRIAL)[i] : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < COMMIT_PER; ++c) {
+    const long long i = i0 + c * THREADS;
+    if (i >= L.off[12]) break;
     int arr = 0;
-    while (i >= L.off[arr + 1]) ++arr;
-    a.f(dst[arr])[i - L.off[arr]] = a.f(TRIAL)[i];
+#pragma unroll
+    for (int t = 1; t < 12; ++t) arr += i >= L.off[t];
+    commit_dst(a, arr)[i - L.off[arr]] = v[c];
   }
 }
 
@@ -1431,7 +1811,7 @@ cudaError_t make_args(const long long* ptrs, const int* dims, const float* param
   a.NS = dims[1];
   a.ND = dims[2];
   a.O = dims[3];
-  if (a.W < 2 || a.W > MAX_W || a.NS < 1 || a.ND < 1 || a.O < 1 || a.O > 8 || a.NS > 1024 || a.ND > 1024)
+  if (a.W < 2 || a.W > MAX_W || a.NS < 1 || a.ND < 1 || a.O < 1 || a.O > MAX_O || a.NS > 1024 || a.ND > 1024)
     return cudaErrorInvalidValue;
   a.nc = 6 * a.W;
   a.nm = 6 * a.W * a.O;
@@ -1442,44 +1822,41 @@ cudaError_t make_args(const long long* ptrs, const int* dims, const float* param
   return cudaSuccess;
 }
 
-int grid_of(long long threads) { return (int)((threads + THREADS - 1) / THREADS); }
+size_t asm_smem(int ND) { return sizeof(int) * (3 * ND + (3 * ND + 3) / 4) + sizeof(float) * (57 + 36 + 36) * ASM_CHUNK; }
 
 }  // namespace
 
-// blocks and threads of each launch: build, static, partial, reduce,
-// finish, trial, decide, commit; then the floats of the trial buffer, the
-// blocks of error partials and the floats of the camera-row and dd_t
-// partials; then the chain's and the Woodbury blocks' blocks and threads
+// blocks and threads of each launch: build, segment, assembly, trial,
+// commit; then the floats of the trial buffer, the blocks of error
+// partials, the floats of the segment partials and of KEEP; the segment
+// pass's dynamic shared memory in bytes, the chains it solves
+// at once, the assembly's dynamic shared memory in bytes, and the ints of
+// the per-CTA lists of tracks with an object and of their counts
 extern "C" int dyno_window_launch_shape(const int* dims, int* out) {
   const int W = dims[0], NS = dims[1], ND = dims[2], O = dims[3];
-  const int nc = 6 * W, nm = 6 * W * O, n = nc + nm;
   const BuildShape bs = build_shape(W, NS, ND, O);
+  const SegShape ss = seg_shape(W, NS, ND, O);
   const UpdateShape us = update_shape(W, NS, ND, O);
   const TrialLayout tl = trial_layout(W, NS, ND, O);
   out[0] = bs.frame + bs.stat + bs.dyn + bs.obj;
   out[1] = THREADS;
-  out[2] = prep_static_blocks(NS, nc);
-  out[3] = THREADS;
-  out[20] = prep_track_blocks(ND);
-  out[21] = chain_threads(2 * nc + 1);
-  out[22] = grid_of((long long)W * ND);
-  out[23] = THREADS;
-  out[4] = partial_blocks(nc, W);
-  out[5] = cam_lanes(nc);
-  out[6] = grid_of(reduce_threads(nc, nm, O, W));
+  out[2] = ss.ctas;
+  out[3] = SEG_THREADS;
+  out[4] = asm_blocks(W, O);
+  out[5] = ASM_THREADS;
+  out[6] = us.frame + us.stat + us.track + us.obj;
   out[7] = THREADS;
-  out[8] = finish_blocks(n);
-  out[9] = 256;
-  out[10] = us.frame + us.stat + us.track + us.obj;
-  out[11] = THREADS;
-  out[12] = 1;
-  out[13] = 256;
-  out[14] = 132;
-  out[15] = THREADS;
-  out[16] = (int)tl.off[12];
-  out[17] = out[10];
-  out[18] = SEGS * nc * (nc + 1);
-  out[19] = SEGS * W * 6 * O;
+  out[8] = commit_blocks(W, NS, ND, O);
+  out[9] = THREADS;
+  out[10] = (int)tl.off[12];
+  out[11] = out[6];
+  out[12] = ss.ctas * ss.E;
+  out[13] = W * ND * ss.krec;
+  out[14] = (int)(sizeof(float) * ss.floats);
+  out[15] = ss.tpar;
+  out[16] = (int)asm_smem(ND);
+  out[17] = W * O * ss.ctas * SEG_PER;
+  out[18] = W * O * ss.ctas;
   return 0;
 }
 
@@ -1493,22 +1870,30 @@ extern "C" int dyno_window_build(const long long* ptrs, const int* dims, const f
   return (int)cudaGetLastError();
 }
 
+static int seg_cache_small[16] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
+static int seg_cache_max[16] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
+
 extern "C" int dyno_window_step(const long long* ptrs, const int* dims, const float* params, void* stream) {
   Args a;
   cudaError_t e = make_args(ptrs, dims, params, a);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  window_step_static_kernel<<<prep_static_blocks(a.NS, a.nc), THREADS, 0, s>>>(a);
+  const SegShape sh = seg_shape(a.W, a.NS, a.ND, a.O);
+  const size_t smem = sizeof(float) * sh.floats;
+  int limit = 0;
+  if (sh.qj <= SEG_QJ_SMALL) {
+    auto kern = window_step_seg_kernel<SEG_QJ_SMALL>;
+    if ((e = dyno::dynamic_smem_limit((const void*)kern, seg_cache_small, &limit)) != cudaSuccess) return (int)e;
+    if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+    kern<<<sh.ctas, SEG_THREADS, smem, s>>>(a, sh);
+  } else {
+    auto kern = window_step_seg_kernel<SEG_QJ_MAX>;
+    if ((e = dyno::dynamic_smem_limit((const void*)kern, seg_cache_max, &limit)) != cudaSuccess) return (int)e;
+    if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+    kern<<<sh.ctas, SEG_THREADS, smem, s>>>(a, sh);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  window_step_blocks_kernel<<<grid_of((long long)a.W * a.ND), THREADS, 0, s>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  window_step_chain_kernel<<<prep_track_blocks(a.ND), chain_threads(a.C), chain_smem(a.W, a.C), s>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  window_step_partial_kernel<<<partial_blocks(a.nc, a.W), cam_lanes(a.nc), 0, s>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  window_step_reduce_kernel<<<grid_of(reduce_threads(a.nc, a.nm, a.O, a.W)), THREADS, 0, s>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  window_step_finish_kernel<<<finish_blocks(a.n), 256, 0, s>>>(a);
+  window_step_assemble_kernel<<<asm_blocks(a.W, a.O), ASM_THREADS, asm_smem(a.ND), s>>>(a, sh);
   return (int)cudaGetLastError();
 }
 
@@ -1518,12 +1903,9 @@ static int update(const long long* ptrs, const int* dims, const float* params, v
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const UpdateShape us = update_shape(a.W, a.NS, a.ND, a.O);
-  const int nblocks = us.frame + us.stat + us.track + us.obj;
-  window_update_trial_kernel<<<nblocks, THREADS, 0, s>>>(a, head);
+  window_update_trial_kernel<<<us.frame + us.stat + us.track + us.obj, THREADS, 0, s>>>(a, head);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  window_update_decide_kernel<<<1, 256, 0, s>>>(a, nblocks, head);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  window_update_commit_kernel<<<132, THREADS, 0, s>>>(a, head);
+  window_update_commit_kernel<<<commit_blocks(a.W, a.NS, a.ND, a.O), THREADS, 0, s>>>(a, head);
   return (int)cudaGetLastError();
 }
 

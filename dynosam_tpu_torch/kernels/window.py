@@ -11,12 +11,14 @@ source: `csrc/window.cu` (the contract is stated there).
   build_normal_system` with `sqrt_weights`) at the state's values and
   residuals, written into the state's `NormalSystem` tensors;
 - K8 `step(t, params)`: the damped Schur reduction (`schur.schur_reduce`),
-  returning (Hred, bred, back), `back` holding what the back-substitution
-  reads (`Yc_s`, `yb_s`, `Z`, `inv_c`) and the kernel's own scratch;
-- K9 `update(t, params, sol, info, back)`: the back-substitution,
+  returning (Hred, bred, back); `back` is empty: the reduction's
+  intermediates stay on chip, and K9 needs none of them;
+- K9 `update(t, params, sol, info)`: the back-substitution,
   retraction, trial residuals and robust error and the LM decisions
   (`schur.schur_back` and `schur._lm_tail`), written into the state;
-  `head(t, params)` runs it at a zero step, the LM head (`schur._lm_head`).
+  returns the step it took ({X, P, sp, dp}, `schur_back`'s dict, as views
+  of its step buffer); `head(t, params)` runs it at a zero step, the LM
+  head (`schur._lm_head`).
 
 `t` is the dict of named tensors `POINTERS` lists (the state's values,
 residuals, window, masks, anchor, normal system and LM scalars), `params`
@@ -25,12 +27,13 @@ the CPU, are `backend/schur.py:window_build`, `window_step` and
 `window_update`.  These bindings take contiguous float32 CUDA tensors of
 one device and raise on anything else, and on a window the kernels do not
 take (`check`); there is no fallback.  Each call counts one launch of its
-kernel (K7 is one kernel, K8 six and K9 three, back to back).
+kernel (K7 is one kernel, K8 two and K9 two, back to back).
 
 Bound on the card: latency.  An iteration of a KITTI window (W 10, 1,024
-static points and tracks, 8 objects) needs ~0.1 GFLOP and ~20-40 MB of
-L2 traffic; every sum runs in a fixed order, with no atomics, so a launch
-repeats bit for bit.
+static points and tracks, 8 objects) needs ~0.1 GFLOP and ~20 MB of
+traffic; every sum runs in a fixed order, with no float atomics (each
+kernel's last block is found by an integer ticket in the state,
+`tickets`), so a launch repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ STEP = types.SimpleNamespace(launches=0)     # ... of `step` (K8)
 UPDATE = types.SimpleNamespace(launches=0)   # ... of `update` (K9)
 
 MAX_W, MAX_NS, MAX_ND, MAX_O = 16, 1024, 1024, 8
+# the state's integer counters (zero between launches): K8's and K9's
+# tickets for their last block, then per frame the objects its tracks carry
+TICKETS = 2 + MAX_W
 
 # the pointer table of `csrc/window.cu` (enum Ptr), in its order
 POINTERS = (
@@ -57,10 +63,8 @@ POINTERS = (
     "anchor_R", "anchor_t", "prior_L",
     "Hcc", "Dmm", "Omm1", "Omm2", "b_cam", "b_mot", "Hll_s", "Us", "b_sp", "Rc", "b_dp", "onehot", "chain_c",
     "chain_T", "st_s", "st_R", "st_G", "st_phi",
-    "err", "lam", "lam_min", "done", "accept", "flags", "err_init",
-    "Yc_s", "yb_s", "Z", "inv_c", "AU_cur", "AU_prev", "Bcol", "obj", "Hraw", "Hred", "bred",
-    "sol", "info", "trial", "partials", "part_cc", "part_dd", "act_list", "act_count", "phi_hat", "bmat",
-    "alpha_m",
+    "err", "lam", "lam_min", "done", "accept", "flags", "err_init", "tickets",
+    "Hred", "bred", "sol", "info", "trial", "partials", "part", "obj", "act_list", "act_count", "keep", "step",
 )
 # the float settings of `csrc/window.cu` (enum Param), in its order
 PARAMS = ("sig_s", "sig_d", "sig_t", "sig_d2", "sig_t2", "prior_sigma", "k_s", "k_d", "half_k2_s", "half_k2_d",
@@ -69,8 +73,8 @@ PARAMS = ("sig_s", "sig_d", "sig_t", "sig_d2", "sig_t2", "prior_sigma", "k_s", "
           "min_lambda")
 
 _BOOL = ("static_obs", "dyn_obs", "ternary", "smoothing", "odometry", "done", "accept", "flags")
-_INT = ("dyn_obj", "obj", "info", "act_list", "act_count")
-_INPUTS = POINTERS[:POINTERS.index("Yc_s")]
+_INT = ("dyn_obj", "obj", "info", "act_list", "act_count", "tickets")
+_INPUTS = POINTERS[:POINTERS.index("Hred")]
 
 
 def shapes(W: int, NS: int, ND: int, O: int) -> dict:
@@ -88,6 +92,7 @@ def shapes(W: int, NS: int, ND: int, O: int) -> dict:
         "Rc": (W, ND, 3, 6), "b_dp": (W, ND, 3), "onehot": (W, ND, O), "chain_c": (W, ND), "chain_T": (W, ND),
         "st_s": (W, ND), "st_R": (W, ND, 3, 3), "st_G": (W, ND, 3, 6), "st_phi": (W, ND, 3),
         "err": (), "lam": (), "lam_min": (), "done": (), "accept": (), "flags": (2, 1), "err_init": (),
+        "tickets": (TICKETS,),
     }
 
 
@@ -100,7 +105,7 @@ def dims_of(t: dict) -> tuple:
 def check(t: dict) -> tuple:
     """Raise unless `t` is a window the kernels take: every tensor of
     `_INPUTS` present (`prior_L` may be None) with its shape, dtype (float32;
-    bool masks and flags; int32 object ids) and a contiguous layout, on one
+    bool masks and flags; int32 object ids and tickets) and a contiguous layout, on one
     device, 2 <= W <= 16, NS and ND <= 1024 and O <= 8.  Returns (W, NS,
     ND, O).  Runs on any device (the kernels need CUDA)."""
     missing = [k for k in _INPUTS if k not in t or (t[k] is None and k != "prior_L")]
@@ -128,17 +133,20 @@ def check(t: dict) -> tuple:
 
 
 def launch_shape(W: int, NS: int, ND: int, O: int) -> dict:
-    """Blocks and threads of each kernel for a window of this size, and the
-    sizes of the scratch buffers: the trial's floats, the blocks of error
-    partials and the floats of K8's split sums."""
+    """Blocks and threads of each kernel for a window of this size (K8's
+    segment pass with `seg_smem` bytes of dynamic shared memory and
+    `chains_at_once` chains solved at once), and
+    the sizes of the scratch buffers: the trial's floats, the blocks of
+    error partials, the floats of the segment partials and of KEEP (a
+    record a (frame, track), written only for a track with an object), and
+    the ints of the segments' lists of those tracks and of their counts."""
     out = (ctypes.c_int * 24)()
     _build.check(_build.function("dyno_window_launch_shape")((ctypes.c_int * 4)(W, NS, ND, O), out),
                  "window launch shape")
-    names = ("build", "static", "partial", "reduce", "finish", "trial", "decide", "commit")
+    names = ("build", "seg", "assemble", "trial", "commit")
     shape = {n: {"blocks": out[2 * i], "threads": out[2 * i + 1]} for i, n in enumerate(names)}
-    shape.update(chain={"blocks": out[20], "threads": out[21]}, blocks={"blocks": out[22], "threads": out[23]},
-                 trial_floats=out[16], partial_blocks=out[17],
-                 part_cc=out[18], part_dd=out[19])
+    shape.update(trial_floats=out[10], partial_blocks=out[11], part=out[12], keep=out[13], seg_smem=out[14],
+                 chains_at_once=out[15], assemble_smem=out[16], act_list=out[17], act_count=out[18])
     return shape
 
 
@@ -163,27 +171,19 @@ def build(t: dict, params: dict) -> None:
 
 
 def step(t: dict, params: dict):
-    """Launch K8: returns (Hred (n, n), bred (n,), back)."""
+    """Launch K8: returns (Hred (n, n), bred (n,), back), `back` empty."""
     W, NS, ND, O = dims_of(t)
-    nc, n = 6 * W, 6 * W * (1 + O)
-    f32 = dict(dtype=torch.float32, device=t["XR"].device)
-    back = {"Yc_s": torch.empty((NS, 3, nc), **f32), "yb_s": torch.empty((NS, 3), **f32),
-            "Z": torch.empty((W, ND, 3, 2 * nc + 1), **f32), "inv_c": torch.empty((W, ND), **f32),
-            "AU_cur": torch.empty((W, ND, 3, 6), **f32), "AU_prev": torch.empty((W, ND, 3, 6), **f32),
-            "Bcol": torch.empty((W, ND, 3, 6), **f32),
-            "obj": torch.empty((W, ND), dtype=torch.int32, device=t["XR"].device)}
+    n = 6 * W * (1 + O)
+    dev = t["XR"].device
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
     shape = launch_shape(W, NS, ND, O)
-    Hraw = torch.empty((n, n), **f32)
     Hred = torch.empty((n, n), **f32)
     bred = torch.empty((n,), **f32)
-    i32 = dict(dtype=torch.int32, device=t["XR"].device)
-    parts = {"part_cc": torch.empty((shape["part_cc"],), **f32), "part_dd": torch.empty((shape["part_dd"],), **f32),
-             "act_list": torch.empty((W, ND), **i32), "act_count": torch.empty((W,), **i32),
-             "phi_hat": torch.empty((W, ND, 3), **f32), "bmat": torch.empty((W, ND, 3, 3), **f32),
-             "alpha_m": torch.empty((W, ND), **f32)}
-    _launch("dyno_window_step", {**t, **back, **parts, "Hraw": Hraw, "Hred": Hred, "bred": bred}, params, STEP)
-    back["Hraw"] = Hraw
-    return Hred, bred, back
+    scratch = {"part": torch.empty((shape["part"],), **f32), "obj": torch.empty((W, ND), **i32),
+               "act_list": torch.empty((shape["act_list"],), **i32), "act_count": torch.empty((shape["act_count"],), **i32),
+               "keep": torch.empty((shape["keep"],), **f32)}
+    _launch("dyno_window_step", {**t, **scratch, "Hred": Hred, "bred": bred}, params, STEP)
+    return Hred, bred, {}
 
 
 def _trial_scratch(t: dict) -> dict:
@@ -201,12 +201,17 @@ def head(t: dict, params: dict) -> None:
     _launch("dyno_window_head", {**t, **_trial_scratch(t)}, params, UPDATE)
 
 
-def update(t: dict, params: dict, sol: torch.Tensor, info: torch.Tensor, back: dict) -> None:
+def update(t: dict, params: dict, sol: torch.Tensor, info: torch.Tensor) -> dict:
     """Launch K9 on the solution `sol` (n,) and cuSOLVER's `info` (int32):
-    write the accepted values, residuals and the LM scalars into `t`."""
+    write the accepted values, residuals and the LM scalars into `t`.
+    Returns the step {X (W, 6), P (W, O, 6), sp (NS, 3), dp (W, ND, 3)}
+    (NaN throughout after a failed factorisation)."""
     W, NS, ND, O = dims_of(t)
-    n = 6 * W * (1 + O)
+    nc, n = 6 * W, 6 * W * (1 + O)
     if sol.shape != (n,) or sol.dtype != torch.float32 or info.dtype != torch.int32 or info.numel() != 1:
         raise ValueError(f"window update: sol must be float32 ({n},) and info one int32")
-    _launch("dyno_window_update", {**t, **back, **_trial_scratch(t), "sol": sol.contiguous(),
-                                   "info": info.reshape(())}, params, UPDATE)
+    st = torch.empty((n + 3 * NS + 3 * W * ND,), dtype=torch.float32, device=t["XR"].device)
+    _launch("dyno_window_update", {**t, **_trial_scratch(t), "sol": sol.contiguous(), "info": info.reshape(()),
+                                   "step": st}, params, UPDATE)
+    return {"X": st[:nc].view(W, 6), "P": st[nc:n].view(W, O, 6), "sp": st[n:n + 3 * NS].view(NS, 3),
+            "dp": st[n + 3 * NS:].view(W, ND, 3)}

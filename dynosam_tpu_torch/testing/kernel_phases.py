@@ -1,7 +1,9 @@
 """Phase timing of K5 (`csrc/refine.cu`) and K6's polish (`csrc/ransac.cu`)
-on the card, from cycle stamps in an instrumented copy of the sources.
+on the card, or with `--window` of K8's segment pass and K9's trial pass
+(`csrc/window.cu`), from cycle stamps in an instrumented copy of the
+sources.
 
-    python3 dynosam_tpu_torch/testing/kernel_phases.py [--root TREE] [--label NAME] [--out FILE]
+    python3 dynosam_tpu_torch/testing/kernel_phases.py [--root TREE] [--label NAME] [--out FILE] [--window]
 
 Run by path from a checkout on a machine with a CUDA card and `nvcc`.
 `--root` is the tree whose sources and package are measured (default: the
@@ -19,7 +21,12 @@ wrappers on the calls that eager steps of the main path make
 (`chip_smoke.record_solver_calls`: 1280x384 frames, `kitti_config`), the
 last steady frame's FlowPose and MotionOnly refinements and ego and
 object RANSACs.  Sources written before the markers existed are marked
-from `ANCHORS` (lines of the sources of commit 740c31a).
+from `ANCHORS` (lines of the sources of commit 740c31a).  With `--window`,
+`window.cu` alone is instrumented and K8 and K9 launch through the tree's
+wrappers on the state of a window LM after its head and first build
+(`testing/window_check.py:Pieces`), on the first window of the online
+pipeline over 12 KITTI-width frames and on the simulator window
+(`testing/window_split.py:kitti_window`, `window_check.simulator_window`).
 
 Printed and written as JSON (`--out`): for each call, the slowest block's
 cycles and microseconds per phase (cycles over the block's own
@@ -43,9 +50,10 @@ import sys
 import time
 from pathlib import Path
 
-NPH = 16           # phases a kernel may have
+NPH = 32           # phases a source may have
 MAXB = 1024        # blocks a probed launch may have
 PROBED = ("refine.cu", "ransac.cu")
+WINDOW_PROBED = ("window.cu",)
 
 # (text of a source line, its occurrence, phase, stamp before or after it)
 ANCHORS = {
@@ -157,8 +165,8 @@ def instrument(name: str, text: str) -> tuple:
     return "\n".join(body), names
 
 
-def build_probe(root: Path, build, label: str) -> tuple:
-    """Instrument and build `PROBED` from `root`'s `csrc/`; returns the
+def build_probe(root: Path, build, label: str, sources=PROBED) -> tuple:
+    """Instrument and build `sources` from `root`'s `csrc/`; returns the
     loaded library and the phase names by source."""
     csrc = root / "dynosam_tpu_torch" / "csrc"
     out_dir = root / "build" / "probe" / label
@@ -166,12 +174,12 @@ def build_probe(root: Path, build, label: str) -> tuple:
         shutil.rmtree(out_dir)
     shutil.copytree(csrc, out_dir)
     names = {}
-    for name in PROBED:
+    for name in sources:
         text, names[name] = instrument(name, (csrc / name).read_text())
         (out_dir / name).write_text(text)
     nvcc = build._nvcc()
     objs, procs = [], []
-    for name in PROBED:
+    for name in sources:
         obj = out_dir / (name + ".o")
         cmd = [nvcc, *build.FLAGS, *build.SOURCE_FLAGS.get(name, ()), "-Xptxas", "-v", "-c", str(out_dir / name),
                "-o", str(obj)]
@@ -181,14 +189,15 @@ def build_probe(root: Path, build, label: str) -> tuple:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the instrumented {name}:\n{log}")
-    digest = hashlib.sha256("".join((out_dir / n).read_text() for n in PROBED).encode()).hexdigest()[:12]
+    digest = hashlib.sha256("".join((out_dir / n).read_text() for n in sources).encode()).hexdigest()[:12]
     lib_path = out_dir / f"libprobe_{digest}.so"
     link = subprocess.run([nvcc, build.ARCH, "-shared", *objs, "-o", str(lib_path)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"link failed:\n{link.stdout}")
     lib = ctypes.CDLL(str(lib_path))
-    for fn_name in ("dyno_refine_rounds", "dyno_ransac"):
+    fns = ("dyno_window_step", "dyno_window_update") if "window.cu" in sources else ("dyno_refine_rounds", "dyno_ransac")
+    for fn_name in fns:
         fn = getattr(lib, fn_name)
         fn.argtypes = list(build._SIGNATURES[fn_name])
         fn.restype = ctypes.c_int
@@ -229,12 +238,56 @@ def probed(torch, lib, tag: str, names: list, launch) -> dict:
                 ghz=per_ns, phases=phases)
 
 
+def window_phases(torch, build, root: Path, args, dev, card) -> int:
+    """`--window`: K8's segment pass and K9's trial pass (the update, not
+    the head) probed on the KITTI and simulator windows, beside both
+    kernels' device time a launch (`window_check.device_ms`)."""
+    from dynosam_tpu_torch.backend import schur
+    from dynosam_tpu_torch.testing import window_check as wc
+    from dynosam_tpu_torch.testing import window_split as ws
+
+    t0 = time.perf_counter()
+    lib, names = build_probe(root, build, args.label, WINDOW_PROBED)
+    print(f"builds: {time.perf_counter() - t0:.1f} s; phases {json.dumps(names)}", flush=True)
+    real = dict(build._Library.functions)
+    results = {"label": args.label, "card": card, "K8": {}, "K9": {}}
+    for label, make in (("kitti window", lambda: ws.kitti_window(dev)),
+                        ("simulator window", lambda: (wc.simulator_window(dev), {}))):
+        win_args, kw = make()
+        pieces = wc.Pieces(wc.window_lm(win_args, kw))
+        a = pieces.lm.args
+        sol, info, back = pieces.fixed
+        dev_ms = wc.device_ms(pieces)
+        for key, fn_name, launch in (("K8", "dyno_window_step", lambda: schur.window_step(a)),
+                                     ("K9", "dyno_window_update", lambda: schur.window_update(a, sol, info, back))):
+            def run():
+                schur.tree_copy_(pieces.lm.s, pieces.s0)
+                build._Library.functions[fn_name] = getattr(lib, fn_name)
+                try:
+                    launch()
+                finally:
+                    build._Library.functions.update(real)
+
+            rec = probed(torch, lib, "window", names["window.cu"], run)
+            rec.update(device_ms=dev_ms["step" if key == "K8" else "update"])
+            results[key][label] = rec
+            times = ", ".join(f"{p} {v['us']:.2f} us ({v['began']}x)" for p, v in rec["phases"].items())
+            print(f"{args.label} {key} {label}: device {rec['device_ms'] * 1e3:.1f} us a launch (both kernels); "
+                  f"probed: {rec['blocks']} blocks, slowest {rec['slowest_block_us']:.1f} us at {rec['ghz']:.3f} GHz: "
+                  f"{times}", flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(results, indent=1))
+    return 0
+
+
 def main() -> int:
     here = Path(__file__).resolve().parents[2]
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(here), help="tree whose sources and package are measured")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", default=None, help="JSON file for the results")
+    ap.add_argument("--window", action="store_true", help="K8's segment pass and K9's trial pass instead")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -255,6 +308,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build(verbose=True)
     build.load()
+    if args.window:
+        return window_phases(torch, build, root, args, dev, card)
     lib, names = build_probe(root, build, args.label)
     print(f"builds: {time.perf_counter() - t0:.1f} s; phases {json.dumps(names)}", flush=True)
     calls = cs.record_solver_calls(torch, dev, n_main=6, n_golden=0, n_3d3d=0)

@@ -8,7 +8,11 @@ state as the graphed solve does (`schur._WindowLM` on the kernel route,
 after its head) and holds each kernel against its plain version
 (`schur.window_build_plain`, `window_step_plain`, `window_update_plain`)
 on that state: K7 from the head's residuals, K8 on the plain version's
-system, K9 on the plain version's reduced solution.  Each entry of each
+system (its outputs: the damped reduced system Hred and bred; the
+reduction's intermediates stay on chip), K9 on the plain version's reduced
+solution (its outputs: the state it writes and the step it took, the
+camera, motion, static-point and dynamic-point increments, against
+`schur_back`'s).  Each entry of each
 output is held to its plain version on the card within K_MARGIN times the
 plain version's own float32 spread on its block (`TILES`: a 6x6 block of
 Hcc or of the reduced system, a point's 3-vector, ...) -- the block's
@@ -54,9 +58,10 @@ KERNEL_ID = {"head": 9, "build": 7, "step": 8, "update": 9}
 # 6-vectors; a point's or track's 3x3, 3x6, 6x3 or 6x6 matrix; a
 # per-(frame, track) scalar alone; any other field's last dim (a point, a
 # track's 3-vector, a residual) whole.
-TILES = {"Hcc": (0, 1, 0), "Hred": (6, 6), "bred": (6,), "Yc_s": (6, 0), "Z": (6, 0),
+TILES = {"Hcc": (0, 1, 0), "Hred": (6, 6), "bred": (6,),
          **dict.fromkeys(("Dmm", "Omm1", "Omm2", "Hll_s", "Us", "Rc", "st_R", "st_G", "X.R", "H.R"), (0, 0)),
-         **dict.fromkeys(("chain_c", "chain_T", "st_s", "inv_c"), ())}
+         **dict.fromkeys(("chain_c", "chain_T", "st_s"), ())}
+STEP = ("X", "P", "sp", "dp")        # K9's step, `schur_back`'s dict, held as step.X, ...
 
 # FLOPs of the plain formulas a kernel evaluates, counted from
 # `csrc/window.cu` per unit of work; the bound takes the work this window's
@@ -65,10 +70,11 @@ FLOP_BUILD_OBS = 330        # weight, Jacobian and its 6x6 + 6 outer products (f
 FLOP_BUILD_STATIC = 170     # Us, Hll_s and b_sp terms of one (frame, point)
 FLOP_BUILD_DYN = 260        # Rc, b_dp, chain_c and the motion factor of one (frame, track)
 FLOP_BUILD_POSE = 9000      # two right-Jacobian inverses, adjoint and Gram blocks of one pose pair
-FLOP_STEP_STATIC_COL = 45   # damped adjugate inverse and one column of Ys
+FLOP_STEP_STATIC_COL = 45   # damped adjugate inverse's share and one column of Hll^-1 [Us | b_sp]
 FLOP_STEP_CHAIN_COL = 45    # forward and backward substitution of one column at one frame
 FLOP_STEP_TERM = 6          # one 3-term product into a reduced-system entry
 FLOP_UPDATE_STATIC = 80     # residual and Huber loss of one (frame, point)
+FLOP_UPDATE_TRACK = 400     # a (frame, track)'s blocks, right side, chain step and point step
 FLOP_UPDATE_RETRACT = 250   # one SE(3) exponential and composition
 
 
@@ -180,12 +186,12 @@ class Pieces:
             (self.kernels["build"] if kernel else schur.window_build_plain)(a)
             out = dict(lm.s["sys"]._asdict())
         elif piece == "step":
-            Hred, bred, back = (self.kernels["step"] if kernel else schur.window_step_plain)(a)
-            out = dict(Hred=Hred, bred=bred, **{k: back[k] for k in ("Yc_s", "yb_s", "Z", "inv_c")})
+            Hred, bred, _ = (self.kernels["step"] if kernel else schur.window_step_plain)(a)
+            out = dict(Hred=Hred, bred=bred)
         else:
             sol, info, back = self.fixed if fixed is None else fixed
-            (self.kernels["update"] if kernel else schur.window_update_plain)(a, sol, info, back)
-            out = _state_out(lm.s)
+            d = (self.kernels["update"] if kernel else schur.window_update_plain)(a, sol, info, back)
+            out = dict(_state_out(lm.s), **{f"step.{k}": d[k] for k in STEP})
         return schur._contiguous(out)
 
     def spread_runs(self, piece: str) -> list:
@@ -292,19 +298,22 @@ def hold_pieces(pieces: Pieces, label: str, out=print, held=HELD) -> dict:
 
 def hold_failed_step(pieces: Pieces, label: str, out=print) -> bool:
     """K9 and its plain version after a failed factorisation (`info` 1): the
-    NaN step is rejected, the values, residuals and error kept, lambda
-    raised and its floor ratcheted, in both bit for bit."""
+    step NaN throughout in both, rejected, the values, residuals and error
+    kept, lambda raised and its floor ratcheted, the state in both bit for
+    bit."""
     sol, _, back = pieces.fixed
     bad = (sol, torch.ones_like(pieces.fixed[1]), back)
     kern = pieces.run("update", True, fixed=bad)
     plain = pieces.run("update", False, fixed=bad)
     s0 = _state_out(pieces.s0)
     kept = all(torch.equal(kern[k], s0[k]) for k in s0 if k not in ("lam", "lam_min", "done", "accept", "flags"))
-    same = all(torch.equal(kern[k], plain[k]) for k in kern)
-    ok = kept and same and not bool(kern["accept"]) and float(kern["lam"]) > float(s0["lam"])
-    out(f"{label}: K9 after a failed factorisation: step {'rejected, state kept' if kept else 'NOT rejected'}, lambda "
-        f"{float(s0['lam']):.3g} -> {float(kern['lam']):.3g}, lowest lambda {float(kern['lam_min']):.3g}; "
-        f"{'equals' if same else 'DIFFERS from'} the plain version bit for bit")
+    same = all(torch.equal(kern[k], plain[k]) for k in s0)
+    nan = all(bool(torch.isnan(r[f"step.{k}"]).all()) for r in (kern, plain) for k in STEP)
+    ok = kept and same and nan and not bool(kern["accept"]) and float(kern["lam"]) > float(s0["lam"])
+    out(f"{label}: K9 after a failed factorisation: step {'NaN throughout' if nan else 'NOT all NaN'} and "
+        f"{'rejected, state kept' if kept else 'NOT rejected'}, lambda {float(s0['lam']):.3g} -> "
+        f"{float(kern['lam']):.3g}, lowest lambda {float(kern['lam_min']):.3g}; the state "
+        f"{'equals' if same else 'DIFFERS from'} the plain version's bit for bit")
     return ok
 
 
@@ -321,18 +330,27 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 def work(pieces: Pieces) -> dict:
-    """Per piece (FLOPs, bytes) this window's data needs: each input read
-    once and each output written once; the FLOPs of the plain formulas on
-    the observations, points and tracks that take part."""
+    """Per piece (FLOPs, bytes) this window's data needs, whatever
+    implements it: bytes each input read once and each output written once
+    (K7: the state and window in, the system out; K8: the system in, the
+    reduced system out; K9: the system, window, state and solution in, the
+    trial state out), no intermediate between the kernels counted; the
+    FLOPs of the plain formulas on the observations, points and tracks
+    that take part (a chain solved only for a track with a motion factor
+    or an object, as a motion-free track's is the identity)."""
     s = pieces.s0
     W, NS = s["sys"].Us.shape[:2]
     ND, O = s["sys"].Rc.shape[1], s["sys"].Dmm.shape[1]
     nc, nm = 6 * W, 6 * W * O
     n, C = nc + nm, 2 * nc + 1
     masks = pieces.lm.args.masks
-    n_static = int(masks.static_obs.sum())
+    seen = masks.static_obs.sum(0).double()                     # frames that observe each static point
+    n_static = int(seen.sum())
     n_dyn = int(masks.dyn_obs.sum())
-    n_act = int((s["sys"].st_s != 0).sum())
+    moving = s["sys"].st_s != 0
+    with_obj = s["sys"].onehot.sum(-1) != 0
+    n_act, n_obj = int(moving.sum()), int(with_obj.sum())
+    n_chain = int((moving | with_obj).any(0).sum())
     n_pairs = (W - 1) * (1 + O) + 1
 
     def nbytes(*ts):
@@ -343,20 +361,19 @@ def work(pieces: Pieces) -> dict:
     sys_bytes = nbytes(*sysf)
     w = pieces.lm.args.w
     in_bytes = nbytes(w.static_xyz, w.dyn_xyz, w.dyn_obj, *masks)
-    back_bytes = nbytes(*(pieces.fixed[2][k] for k in ("Yc_s", "yb_s", "Z", "inv_c")))
     flop = {
         "build": (n_static + n_dyn) * FLOP_BUILD_OBS + W * NS * FLOP_BUILD_STATIC + W * ND * FLOP_BUILD_DYN
         + n_pairs * FLOP_BUILD_POSE,
-        "step": NS * (nc + 1) * FLOP_STEP_STATIC_COL + ND * W * C * FLOP_STEP_CHAIN_COL
-        + FLOP_STEP_TERM * (nc * 6 * n_static + nc * 6 * 2 * n_act + 6 * 6 * W * 2 * n_act + 6 * 6 * W * n_act)
-        + 3 * n * n,
-        "update": W * NS * FLOP_UPDATE_STATIC + NS * 6 * nc + ND * W * 3 * 2 * C + W * ND * 2 * FLOP_UPDATE_STATIC
-        + (W * (1 + 2 * O) + ND * W) * FLOP_UPDATE_RETRACT,
+        "step": int(((6 * seen + 1) * FLOP_STEP_STATIC_COL + 6 * seen * (6 * seen + 1) * FLOP_STEP_TERM).sum())
+        + n_dyn * 42 * FLOP_STEP_TERM + n_chain * W * C * FLOP_STEP_CHAIN_COL
+        + FLOP_STEP_TERM * (n_act * 6 * (nc + 1) + n_obj * (6 * 6 * W * 4 + 6)) + 3 * n * n,
+        "update": W * NS * FLOP_UPDATE_STATIC + n_static * 36 + NS * 60 + W * ND * FLOP_UPDATE_TRACK
+        + W * ND * 2 * FLOP_UPDATE_STATIC + (W * (1 + 2 * O) + ND * W) * FLOP_UPDATE_RETRACT,
     }
     moved = {
         "build": state_bytes + in_bytes + sys_bytes,
-        "step": sys_bytes + back_bytes + 4 * (n * n + n),
-        "update": state_bytes * 2 + sys_bytes + back_bytes + in_bytes + 4 * n,
+        "step": sys_bytes + 4 * (n * n + n),
+        "update": state_bytes * 2 + sys_bytes + in_bytes + 4 * n,
     }
     return {p: (flop[p], moved[p]) for p in PIECES}
 
@@ -404,7 +421,7 @@ def device_ms(pieces: Pieces, reps: int = 5) -> dict:
         torch.cuda.synchronize()
     # per piece its kernels' summed time over the launches the trace holds,
     # counted by each launch's last kernel
-    last = {"build": "window_build_kernel", "step": "window_step_finish", "update": "window_update_commit"}
+    last = {"build": "window_build_kernel", "step": "window_step_assemble", "update": "window_update_commit"}
     us, n = {p: 0.0 for p in PIECES}, {p: 0 for p in PIECES}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:

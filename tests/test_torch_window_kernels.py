@@ -272,14 +272,16 @@ def _fault_at_smallest_block(x: torch.Tensor, tiles) -> tuple:
     return np.unravel_index(at, tuple(x.shape))
 
 
-@pytest.mark.parametrize("piece, field", [("build", "Hcc"), ("step", "Hred"), ("update", "H.t")])
+@pytest.mark.parametrize("piece, field", [("build", "Hcc"), ("step", "Hred"), ("update", "H.t"),
+                                          ("update", "step.dp")])
 def test_the_card_checks_catch_a_fault_in_a_small_block(states, piece, field):
     """`window_check.hold_pieces` with a stand-in kernel: the plain version
     with one small part of one output scaled by 1.01 -- K7's Hcc odometry
     coupling of frames 4 and 5, K8's reduced-system entry of its smallest
-    motion block, K9's smallest object-motion translation -- reports that
-    field, and only it, out of tolerance; in Hcc and Hred the faulty block
-    is under a hundredth of its field's largest (the anchor's)."""
+    motion block, K9's smallest object-motion translation, K9's smallest
+    dynamic-point step of its back-substitution -- reports that field, and
+    only it, out of tolerance; in Hcc and Hred the faulty block is under a
+    hundredth of its field's largest (the anchor's)."""
     from dynosam_tpu_torch.testing import window_check as wc
 
     lm, s0 = states["motion"]
@@ -298,8 +300,12 @@ def test_the_card_checks_catch_a_fault_in_a_small_block(states, piece, field):
         return Hred, bred, back
 
     def update(a, sol, info, back):
-        schur.window_update_plain(a, sol, info, back)
-        a.s["vals"]["H"].t[fault["at"][:-1]] *= 1.01
+        d = schur.window_update_plain(a, sol, info, back)
+        if field == "H.t":
+            a.s["vals"]["H"].t[fault["at"][:-1]] *= 1.01
+        else:
+            d["dp"][fault["at"][:-1]] *= 1.01
+        return d
 
     pieces = wc.Pieces(lm, kernels={"build": build, "step": step, "update": update})
     plain = pieces.run(piece, False)[field]
@@ -316,4 +322,31 @@ def test_the_card_checks_catch_a_fault_in_a_small_block(states, piece, field):
         assert float(block.abs().max()) < 1e-2 * float(plain.abs().max())
     report = wc.hold_pieces(pieces, "cpu", out=lambda line: None, held=(piece,))[piece]
     assert report["bad"] == [field] and report["repeat"], report["bad"]
+    tree_copy_(lm.s, s0)
+
+
+def test_the_bound_counts_the_same_work_for_either_contract(states):
+    """`window_check.work`, the bound's FLOPs and bytes, from the system,
+    state, window and reduced system alone: the same whether K8 hands K9
+    the plain version's intermediates (`Yc_s`, `yb_s`, `Z`, `inv_c`) or
+    nothing, as the kernels do; K8's bytes are the system read and the
+    reduced system written, K9's the system, window and solution read and
+    the state read and written."""
+    from dynosam_tpu_torch.testing import window_check as wc
+
+    lm, s0 = states["motion"]
+    tree_copy_(lm.s, s0)
+    pieces = wc.Pieces(lm, kernels={})
+    plain = wc.work(pieces)
+    sol, info, back = pieces.fixed
+    assert set(back) >= {"Yc_s", "yb_s", "Z", "inv_c"}
+    pieces.fixed = (sol, info, {})
+    assert wc.work(pieces) == plain
+    sysf, v = s0["sys"], s0["vals"]
+    n = sol.shape[0]
+    sys_bytes = sum(t.numel() * 4 for t in sysf)
+    state_bytes = sum(t.numel() * 4 for t in (v["X"].R, v["X"].t, v["H"].R, v["H"].t, v["sp"], v["dp"], *s0["res"]))
+    assert plain["step"][1] == sys_bytes + 4 * (n * n + n)
+    assert plain["update"][1] - 2 * state_bytes - sys_bytes - 4 * n > 0
+    assert all(f > 0 for f, _ in plain.values())
     tree_copy_(lm.s, s0)
